@@ -5,20 +5,30 @@ the GPU.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; fails without a CUDA card.
-2. build    — builds the CUDA kernels K1-K3 from ``nutils_tpu_torch/csrc``
-   with nvcc for sm_90a and compiles the Triton kernels of K4.
-3. kernel   — every kernel against its plain PyTorch version on the card, at
-   the slice's shapes (1025^2 grid, W = 9, float32 and float64) and on a
-   periodic 2-D and a 3-D stencil: error and CUDA-event times.
+2. build    — builds the CUDA kernels K1-K3, K5 and K7 from
+   ``nutils_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, in
+   parallel) and compiles the Triton kernels of K4 and K6.
+3. kernel   — K1-K4 against their plain PyTorch versions on the card, at
+   the Laplace slice's shapes (1025^2 grid, W = 9, float32 and float64) and
+   on a periodic 2-D and a 3-D stencil: error, CUDA-event times, the bound
+   and, where one PyTorch call computes the same function, its time.
 4. slice    — the bench's Laplace slice at 1,050,625 dofs in float32:
    System, assembly, multigrid set-up and the refined CG solve to rtol
    1e-10, through the kernels (launch counts read around the run).
 5. parity   — the same slice at 65^2 dofs in float64 on the card and on the
    CPU (plain versions): the solutions agree to 1e-8 relative.
+6. ns       — the bench's Taylor-Hood Navier-Stokes Newton step at
+   983,403 dofs in float32: System, block-grid planning, assembly, the
+   device Schur diagonal, refined GMRES to rtol 1e-3 and the fused step,
+   through the kernels (launch counts read around the run); then K5-K7
+   against their plain versions at the step's shapes, and a profile of one
+   warm assembly and one warm solve.
+7. ns_parity — the step at 6x6 elements in float64 on the card and on the
+   CPU: the solutions agree to 1e-8 relative, in as many iterations.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
@@ -43,10 +53,32 @@ KERNELS = {
     'cg_dot': ('triton', 'nutils_tpu_torch/ops/_triton_cg.py', 'nutils_tpu/ops/sparse.py:322'),
     'cg_axpy_norm': ('triton', 'nutils_tpu_torch/ops/_triton_cg.py', 'nutils_tpu/ops/sparse.py:322'),
     'cg_xpby': ('triton', 'nutils_tpu_torch/ops/_triton_cg.py', 'nutils_tpu/ops/sparse.py:322'),
+    'blockgrid_matvec': ('cuda', 'nutils_tpu_torch/csrc/blockgrid.cu', 'nutils_tpu/ops/blockgrid.py:276'),
+    'gmres_project': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_update': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_normalize': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_combine': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
+    'schur_diag_inverse_device': ('cuda', 'nutils_tpu_torch/csrc/schur.cu', 'nutils_tpu/ops/sparse.py:198'),
 }
+LAPLACE_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'mg_restrict', 'mg_prolong_add', 'cg_dot', 'cg_axpy_norm',
+                   'cg_xpby')
+NS_KERNELS = ('blockgrid_matvec', 'gmres_project', 'gmres_update', 'gmres_normalize', 'gmres_combine',
+              'schur_diag_inverse_device')
 # kernel vs plain: float32 sums in another order (and with fused multiply-
 # adds) differ by a few ulps, float64 ones by a few ulps of float64
 TOL = {'float32': 1e-6, 'float64': 1e-14}
+# the H100 SXM data sheet: HBM bandwidth, float32 rate outside the tensor
+# cores (the kernels here use none)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+def bound(nbytes, flops):
+    '''(bound ms, what bounds it): the least time for the work, the larger
+    of its bytes over the memory rate (each input read once, each output
+    written once) and its operations over the float32 peak.'''
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 def emit(phase, **fields):
@@ -54,10 +86,24 @@ def emit(phase, **fields):
 
 
 def wrappers():
-    from nutils_tpu_torch.ops import _triton_cg, mg, stencil
+    from nutils_tpu_torch.ops import _triton_cg, _triton_gmres, blockgrid, mg, sparse, stencil
     return {'stencil_matvec': stencil.stencil_matvec, 'jacobi_smooth': mg.jacobi_smooth,
             'mg_restrict': mg.mg_restrict, 'mg_prolong_add': mg.mg_prolong_add,
-            'cg_dot': _triton_cg.cg_dot, 'cg_axpy_norm': _triton_cg.cg_axpy_norm, 'cg_xpby': _triton_cg.cg_xpby}
+            'cg_dot': _triton_cg.cg_dot, 'cg_axpy_norm': _triton_cg.cg_axpy_norm, 'cg_xpby': _triton_cg.cg_xpby,
+            'blockgrid_matvec': blockgrid.blockgrid_matvec, 'gmres_project': _triton_gmres.gmres_project,
+            'gmres_update': _triton_gmres.gmres_update, 'gmres_normalize': _triton_gmres.gmres_normalize,
+            'gmres_combine': _triton_gmres.gmres_combine,
+            'schur_diag_inverse_device': sparse.schur_diag_inverse_device}
+
+
+def reset_launches():
+    for wrapper in wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches(names):
+    counters = wrappers()
+    return {name: counters[name].launches for name in names}
 
 
 def _events(run, reps):
@@ -93,6 +139,55 @@ def time_ms(fn, calls=10, reps=7):
     return _events(graph.replay, reps) / calls, _events(fn, reps)
 
 
+def time_eager_ms(fn, calls=10, reps=5):
+    '''Device ms of one call of ``fn``: CUDA events around ``calls``
+    back-to-back eager calls, median of ``reps`` after warm-up (for library
+    calls that are not captured into a CUDA graph; host overhead hides
+    behind calls of 100 us or more).'''
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            fn()
+    return _events(run, reps) / calls
+
+
+def build_ns(nelems, dtype):
+    '''bench.build_ns, written against nutils_tpu_torch: the Taylor-Hood
+    (P2/P1) Navier-Stokes implicit-Euler step with convection linearized at
+    a random state.'''
+    import numpy
+    from nutils_tpu_torch import function, mesh
+    from nutils_tpu_torch.expression import Namespace
+    from nutils_tpu_torch.solver import System
+    from nutils_tpu_torch.utils import config
+    config.floatx.value = dtype
+    topo, geom = mesh.unitsquare(nelems, 'square')
+    ns = Namespace()
+    ns.x = geom
+    ns.define_for('x', gradient='∇', jacobians=('dV',))
+    ns.u = topo.field('u', btype='std', degree=2, shape=[2])
+    ns.p = topo.field('p', btype='std', degree=1)
+    ns.v = function.replace_arguments(ns.u, 'u:v')
+    ns.q = function.replace_arguments(ns.p, 'p:q')
+    ns.δ = function.eye(2)
+    ns.u0_i = 'sin(x_0) cos(x_1) δ_i0 - cos(x_0) sin(x_1) δ_i1'  # prior state (divergence-free)
+    ns.dt = 0.01
+    ns.nu = 0.001
+    ns.eps = 0.001  # pressure stabilization: removes the nullspace without BCs
+    res = topo.integral(
+        '(v_i (u_i - u0_i) / dt + v_i u_j ∇_j(u_i) + nu ∇_j(v_i) ∇_j(u_i)'
+        ' - p ∇_i(v_i) + q ∇_i(u_i) + eps p q) dV' @ ns, degree=6)
+    system = System(res, trial='u,p', test='v,q')
+    rng = numpy.random.default_rng(0)
+    args = {t: 0.1 * rng.standard_normal(shape)
+            for t, shape in zip(system.trials, system.trial_shapes)}
+    return system, args
+
+
 def build_laplace(nelems, dtype, reaction=False):
     '''bench.build_laplace, written against nutils_tpu_torch.'''
     from nutils_tpu_torch import function, mesh
@@ -124,7 +219,7 @@ def phase_device():
 def phase_build():
     import torch
     from nutils_tpu_torch import _kernels
-    from nutils_tpu_torch.ops import _triton_cg
+    from nutils_tpu_torch.ops import _triton_cg, _triton_gmres
     path, seconds, diag = _kernels.build(verbose=True)
     _kernels.library()
     t0 = time.perf_counter()
@@ -134,6 +229,11 @@ def phase_build():
         _triton_cg.cg_dot(a, a)
         _triton_cg.cg_axpy_norm(a.clone(), a.clone(), a, a, s)
         _triton_cg.cg_xpby(a.clone(), a, s)
+        V = torch.ones((3, 4096), dtype=dtype, device='cuda')
+        h = _triton_gmres.gmres_project(V, 1, a)
+        _triton_gmres.gmres_update(V, 1, h, a.clone())
+        _triton_gmres.gmres_normalize(a, s, s, V[2])
+        _triton_gmres.gmres_combine(V, 2, h, a.clone())
     torch.cuda.synchronize()
     ptxas = [line.strip() for line in diag.splitlines() if 'registers' in line or 'spill' in line]
     emit('build', library=str(path.relative_to(ROOT)), nvcc_seconds=seconds,
@@ -148,11 +248,25 @@ def _compare(got, want, scale=None):
     return err, err / max(ref, 1e-300)
 
 
+def row(err, ms, plain_ms, nbytes, flops, library_ms=None):
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def check_row(name, label, dname, relerr, fields):
+    emit('kernel', name=name, case=label, dtype=dname, max_rel_err=relerr, tol=TOL[dname], **fields)
+    if not relerr <= TOL[dname]:
+        raise AssertionError(f'{name} ({label}, {dname}) disagrees with its plain version: {relerr:.3e}')
+
+
 def phase_kernels(device='cuda'):
-    '''Each kernel against its plain version, on the card; returns
-    {name: (max_abs_err, ms, plain_ms)} at the slice's float32 shapes.'''
+    """K1-K4 against their plain versions, on the card; returns {name: row}
+    at the Laplace slice's float32 shapes."""
     import numpy
     import torch
+    import torch.nn.functional as F
+    from nutils_tpu_torch import carry
     from nutils_tpu_torch.ops import _triton_cg as tcg
     from nutils_tpu_torch.ops import mg, stencil
     dev = torch.device(device)
@@ -165,43 +279,71 @@ def phase_kernels(device='cuda'):
         W = int(numpy.prod([2 * k + 1 for k in ks]))
         w_np = rng.standard_normal((W,) + shape)
         x_np = rng.standard_normal(shape)
+        n = int(numpy.prod(shape))
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).split('.')[1]
+            isz = 4 if dtype == torch.float32 else 8
             w = torch.as_tensor(w_np, dtype=dtype, device=dev)
             x = torch.as_tensor(x_np, dtype=dtype, device=dev)
+            library = {}
+            if label == 'slice' and dtype == torch.float32:
+                # the same product as one cuSPARSE CSR matvec
+                indptr, indices, data = carry._csr_of_stencil(w_np, ks, shape, per)
+                A = torch.sparse_csr_tensor(torch.as_tensor(indptr), torch.as_tensor(indices),
+                                            torch.as_tensor(data, dtype=dtype), size=(n, n)).to(dev)
+                xf = x.reshape(-1)
+                library['stencil_matvec'] = lambda: torch.mv(A, xf)  # timed eagerly
             checks = {'stencil_matvec': (lambda: stencil.stencil_matvec(w, x, ks, shape, per),
-                                         lambda: stencil.matvec_plain(w, x, ks, shape, per))}
+                                         lambda: stencil.matvec_plain(w, x, ks, shape, per),
+                                         (W + 2) * n * isz, 2 * W * n)}
             if label == 'slice':
                 cshape = tuple((s + 1) // 2 for s in shape)
+                nc = int(numpy.prod(cshape))
                 dinv = torch.as_tensor(rng.random(shape) + 1, dtype=dtype, device=dev)
                 r = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
                 xc = torch.as_tensor(rng.standard_normal(cshape), dtype=dtype, device=dev)
+                sweep = {0: (3 * n, n), 1: ((W + 4) * n, (2 * W + 4) * n), 2: ((W + 3) * n, (2 * W + 1) * n)}
                 for mode in (0, 1, 2):
                     checks[f'jacobi_smooth/mode{mode}'] = (
                         lambda mode=mode: mg.jacobi_smooth(w, dinv, r, x, ks, shape, per, mode=mode),
-                        lambda mode=mode: mg.jacobi_plain(w, dinv, r, x, ks, shape, per, mg.OMEGA, mode))
-                checks['mg_restrict'] = (lambda: mg.mg_restrict(r, cshape), lambda: mg.restrict_plain(r, cshape))
+                        lambda mode=mode: mg.jacobi_plain(w, dinv, r, x, ks, shape, per, mg.OMEGA, mode),
+                        sweep[mode][0] * isz, sweep[mode][1])
+                checks['mg_restrict'] = (lambda: mg.mg_restrict(r, cshape), lambda: mg.restrict_plain(r, cshape),
+                                         (n + nc) * isz, 8 * nc)
                 checks['mg_prolong_add'] = (lambda: mg.mg_prolong_add(x.clone(), xc),
-                                            lambda: x.clone().add_(mg.prolong_plain(xc, shape)))
-            for name, (kernel, plain) in checks.items():
+                                            lambda: x.clone().add_(mg.prolong_plain(xc, shape)),
+                                            (2 * n + nc) * isz, 4 * n)
+                if dtype == torch.float32:
+                    # full weighting and linear interpolation as strided
+                    # convolutions (non-periodic 2-D, both axes coarsened),
+                    # in full float32
+                    t1 = torch.tensor([0.5, 1.0, 0.5], dtype=dtype, device=dev)
+                    k2 = torch.outer(t1, t1).reshape(1, 1, 3, 3)
+                    r4, xc4 = r.reshape(1, 1, *shape), xc.reshape(1, 1, *cshape)
+                    library['mg_restrict'] = lambda: F.conv2d(r4, k2, stride=2, padding=1)
+                    library['mg_prolong_add'] = lambda: F.conv_transpose2d(xc4, k2, stride=2, padding=1)
+            for name, (kernel, plain, nbytes, flops) in checks.items():
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
                 err, relerr = _compare(got, want)
                 (ms, call_ms), (plain_ms, plain_call_ms) = time_ms(kernel), time_ms(plain)
-                emit('kernel', name=name, case=label, shape=list(shape), ks=list(ks), periodic=list(per),
-                     dtype=dname, max_abs_err=err, max_rel_err=relerr, tol=TOL[dname], ms=ms, plain_ms=plain_ms,
-                     call_ms=call_ms, plain_call_ms=plain_call_ms)
-                if not relerr <= TOL[dname]:
-                    raise AssertionError(f'{name} ({label}, {dname}) disagrees with its plain version: {relerr:.3e}')
+                lib = library.get(name.split('/')[0]) if name != 'jacobi_smooth/mode0' else None
+                library_ms = None if lib is None else time_eager_ms(lib) if name == 'stencil_matvec' \
+                    else time_ms(lib)[0]
+                fields = row(err, ms, plain_ms, nbytes, flops, library_ms)
+                check_row(name, label, dname, relerr, dict(fields, shape=list(shape), ks=list(ks),
+                                                           periodic=list(per), call_ms=call_ms,
+                                                           plain_call_ms=plain_call_ms))
                 if label == 'slice' and dtype == torch.float32 and name in ('stencil_matvec', 'jacobi_smooth/mode1',
                                                                             'mg_restrict', 'mg_prolong_add'):
-                    results[name.split('/')[0]] = (err, ms, plain_ms)
+                    results[name.split('/')[0]] = fields
     # K4 on CG vectors of the slice's length; reductions are compared on the
     # scale of their terms (sum of |a_i b_i|), the scale of any summation's
     # rounding error
     n = 1025 * 1025
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[1]
+        isz = 4 if dtype == torch.float32 else 8
         x, r, p, ap, z = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev) for _ in range(5))
         alpha = torch.tensor(0.37, dtype=dtype, device=dev)
         x1, r1, x2, r2, p1, p2 = x.clone(), r.clone(), x.clone(), r.clone(), p.clone(), p.clone()
@@ -213,21 +355,23 @@ def phase_kernels(device='cuda'):
         }
         torch.cuda.synchronize()
         timed = {
-            'cg_dot': (lambda: tcg.cg_dot(p, ap), lambda: tcg.dot_plain(p, ap)),
+            'cg_dot': (lambda: tcg.cg_dot(p, ap), lambda: tcg.dot_plain(p, ap), 2 * n, 2 * n,
+                       lambda: torch.dot(p, ap)),
             'cg_axpy_norm': (lambda: tcg.cg_axpy_norm(x1, r1, p, ap, alpha),
-                             lambda: tcg.axpy_norm_plain(x2, r2, p, ap, alpha)),
-            'cg_xpby': (lambda: tcg.cg_xpby(p1, z, alpha), lambda: tcg.xpby_plain(p2, z, alpha)),
+                             lambda: tcg.axpy_norm_plain(x2, r2, p, ap, alpha), 6 * n, 6 * n, None),
+            'cg_xpby': (lambda: tcg.cg_xpby(p1, z, alpha), lambda: tcg.xpby_plain(p2, z, alpha), 3 * n, 2 * n,
+                        None),
         }
         for name, triples in compared.items():
             errs = [_compare(got, want, scale) for got, want, scale in triples]
             err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
-            (ms, call_ms), (plain_ms, plain_call_ms) = time_ms(timed[name][0]), time_ms(timed[name][1])
-            emit('kernel', name=name, case='slice', n=n, dtype=dname, max_abs_err=err, max_rel_err=relerr,
-                 tol=TOL[dname], ms=ms, plain_ms=plain_ms, call_ms=call_ms, plain_call_ms=plain_call_ms)
-            if not relerr <= TOL[dname]:
-                raise AssertionError(f'{name} ({dname}) disagrees with its plain version: {relerr:.3e}')
+            kernel, plain, nvals, flops, lib = timed[name]
+            (ms, call_ms), (plain_ms, plain_call_ms) = time_ms(kernel), time_ms(plain)
+            fields = row(err, ms, plain_ms, nvals * isz, flops,
+                         time_ms(lib)[0] if lib is not None and dtype == torch.float32 else None)
+            check_row(name, 'slice', dname, relerr, dict(fields, n=n, call_ms=call_ms, plain_call_ms=plain_call_ms))
             if dtype == torch.float32:
-                results[name] = (err, ms, plain_ms)
+                results[name] = fields
     return results
 
 
@@ -253,9 +397,7 @@ def phase_slice(nelems=1024, device='cuda'):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         emit('slice_assembly', ndofs=ndofs, t_system=t_system, t_assemble_first=times[0], t_assemble=min(times[1:]))
-        counters = wrappers()
-        for wrapper in counters.values():
-            wrapper.launches = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         jac, res = system.assemble_jacobian_residual(args)
@@ -275,7 +417,7 @@ def phase_slice(nelems=1024, device='cuda'):
         x = jac.solve(res, solver='cg', rtol=1e-10)
         torch.cuda.synchronize()
         t_solve = time.perf_counter() - t0
-        launches = {name: wrapper.launches for name, wrapper in counters.items()}
+        launches = read_launches(LAPLACE_KERNELS)
         stats = dict(jac._solve_stats)
         peak = torch.cuda.max_memory_allocated()
         t0 = time.perf_counter()
@@ -319,20 +461,253 @@ def phase_parity(devices=('cuda', 'cpu')):
         raise AssertionError(f'card and CPU solutions differ: {rel:.3e}')
 
 
+def _sync_time(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_ns(nelems=330, device='cuda'):
+    """The second main path: the Taylor-Hood Navier-Stokes Newton step at
+    983,403 dofs through the kernels; returns (launch counts, the step's
+    system, jacobian, residual and arguments)."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.utils import config
+    with config.device(device):
+        t_system, (system, args) = _sync_time(lambda: build_ns(nelems, numpy.float32))
+        ndofs = sum(int(numpy.prod(s)) for s in system.trial_shapes)
+        emit('ns_system', ndofs=ndofs, t_system=t_system)
+        # host planning: the CSR pattern sort, block-grid detection and the
+        # slice plans of every value segment
+        t_pattern, (_meta, pattern, jplan) = _sync_time(lambda: system._jac_layout)
+        fn = system._compiled('jacres')
+        clean = system._clean(args)
+        times = [_sync_time(lambda: fn(clean))[0] for _ in range(3)]
+        nweights = int(sum(jplan['sizes']))
+        emit('ns_assembly', form=jplan['form'], nnz=int(pattern.nnz), nweights=nweights, total=int(jplan['total']),
+             seg_kinds=[seg[0] for seg in jplan['segs']], t_pattern=t_pattern, t_assemble_first=times[0],
+             t_assemble=min(times[1:]))
+        del times
+        torch.cuda.empty_cache()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t_jacres, (jac, res) = _sync_time(lambda: system.assemble_jacobian_residual(args))
+        t_precon, _minv = _sync_time(lambda: jac._device_precon(None, None))
+        t_solve, dx = _sync_time(lambda: jac.solve_leniently(res, solver='gmres', rtol=1e-3))
+        stats = dict(jac._solve_stats)
+        t_solve_again, _dx = _sync_time(lambda: jac.solve_leniently(res, solver='gmres', rtol=1e-3))
+        fused = system.fused_step_op(solver='gmres', rtol=1e-3)
+        t_step_fused_first, _out = _sync_time(lambda: fused(clean))
+        t_step_fused, (dxf, rnf, itf) = _sync_time(lambda: fused(clean))
+        launches = read_launches(NS_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+    dxf = dxf.cpu().numpy()
+    norm_res = float(numpy.linalg.norm(res))
+    t_host_matvec, jdx = _sync_time(lambda: jac @ dx)
+    rel_residual = float(numpy.linalg.norm(res - jdx)) / norm_res
+    rel_residual_fused = float(numpy.linalg.norm(res - jac @ dxf)) / norm_res
+    emit('ns', ndofs=ndofs, t_system=t_system, t_pattern=t_pattern, t_jacres=t_jacres, t_precon=t_precon,
+         t_solve=t_solve, t_solve_again=t_solve_again, t_step_fused_first=t_step_fused_first,
+         t_step_fused=t_step_fused, iters_fused=int(itf), resnorm_fused=rnf, solve_stats=stats,
+         rel_residual=rel_residual, rel_residual_fused=rel_residual_fused, t_host_matvec=t_host_matvec,
+         peak_device_bytes=peak, launches=launches)
+    if dx.shape != (ndofs,) or not numpy.isfinite(dx).all() or not numpy.isfinite(dxf).all():
+        raise AssertionError('Navier-Stokes step: the solution is not a finite vector of the dof count')
+    want = {'method': 'gmres', 'op_form': 'blockgrid', 'precon': 'diag', 'accepted_on_device': True}
+    if any(stats[k] != v for k, v in want.items()):
+        raise AssertionError(f'Navier-Stokes step solved through {stats}, expected {want}')
+    if not (rel_residual <= 1e-3 and rel_residual_fused <= 1e-3):
+        raise AssertionError(f'Navier-Stokes step misses rtol 1e-3: {rel_residual:.3e}, fused {rel_residual_fused:.3e}')
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f'kernels not launched on the Navier-Stokes path: {missing}')
+    return launches, system, jac, res, clean
+
+
+def phase_ns_kernels(jac):
+    """K5-K7 against their plain versions at the Navier-Stokes step's shapes
+    (its block-grid operator, its CSR tables, GMRES vectors of its length);
+    returns {name: row} in float32."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import _triton_gmres as tgm
+    from nutils_tpu_torch.ops import blockgrid, sparse
+    rng = numpy.random.default_rng(1)
+    results = {}
+    (_kind, meta, woff), (w32,) = jac._device_op()
+    dev = w32.device
+    n = int(meta[0][-1])
+    shapes = blockgrid._w_shapes(meta)
+    nweights = sum(int(numpy.prod(shp)) for shp in shapes)
+    _w, cmap, indices, indptr = jac._csr_tables()
+    nnz = int(indices.shape[0])
+    # K5's bound counts the values the operator holds (nnz), not the slots
+    # of its weight buffer; beside it, the weights in the (block, phase)
+    # slots that hold at least one nonzero, which a kernel that skips the
+    # structurally empty slots would read
+    npix = torch.tensor([int(numpy.prod(shp[1:])) for shp in shapes], device=dev)
+    start = torch.tensor(woff, device=dev)
+    k = torch.searchsorted(start, cmap.long(), right=True) - 1
+    slot = (cmap.long() - start[k]) // npix[k]
+    smax = max(shp[0] for shp in shapes)
+    live_weights = int(npix[torch.unique(k * smax + slot) // smax].sum())
+    del k, slot
+    # the same products as one cuSPARSE CSR matvec
+    A = torch.sparse_csr_tensor(indptr, indices, jac._device_data(), size=(n, n))
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split('.')[1]
+        isz = 4 if dtype == torch.float32 else 8
+        w = w32.to(dtype)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        got, want = blockgrid.blockgrid_matvec(w, x, meta, woff), blockgrid.matvec_plain(w, x, meta, woff)
+        torch.cuda.synchronize()
+        err, relerr = _compare(got, want)
+        (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: blockgrid.blockgrid_matvec(w, x, meta, woff)), \
+            time_ms(lambda: blockgrid.matvec_plain(w, x, meta, woff))
+        lib = None
+        if dtype == torch.float32:
+            lib = time_eager_ms(lambda: torch.mv(A, x))
+        fields = row(err, ms, plain_ms, (nnz + 2 * n) * isz, 2 * nnz, lib)
+        check_row('blockgrid_matvec', 'ns', dname, relerr,
+                  dict(fields, n=n, nnz=nnz, slot_weights=nweights, live_slot_weights=live_weights,
+                       slot_bytes=(nweights + 2 * n) * isz, live_slot_bytes=(live_weights + 2 * n) * isz,
+                       call_ms=call_ms))
+        if dtype == torch.float32:
+            results['blockgrid_matvec'] = fields
+        got = sparse.schur_diag_inverse_device(w, cmap, indices, indptr, n)
+        want = sparse.schur_diag_plain(w, cmap, indices, indptr, n)
+        torch.cuda.synchronize()
+        err, relerr = _compare(got, want)
+        (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: sparse.schur_diag_inverse_device(w, cmap, indices, indptr, n)), \
+            time_ms(lambda: sparse.schur_diag_plain(w, cmap, indices, indptr, n))
+        # each input read once: the gathered values, the map and the columns
+        # per nonzero, the row pointers; minv written once
+        fields = row(err, ms, plain_ms, nnz * (isz + 8) + (n + 1) * 4 + n * isz, 6 * nnz)
+        check_row('schur_diag_inverse_device', 'ns', dname, relerr, dict(fields, n=n, nnz=nnz, call_ms=call_ms))
+        if dtype == torch.float32:
+            results['schur_diag_inverse_device'] = fields
+    # K6 on GMRES(100) vectors of the step's length, float32
+    dtype = torch.float32
+    V = torch.as_tensor(rng.standard_normal((101, n)), dtype=dtype, device=dev)
+    wv, xv = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev) for _ in range(2))
+    hn = torch.linalg.norm(wv)
+    eps = torch.tensor(1e-30, dtype=dtype, device=dev)
+    out1, out2 = torch.empty_like(wv), torch.empty_like(wv)
+    for j in (0, 50, 99):
+        h = torch.as_tensor(rng.standard_normal(j + 1) / n ** 0.5, dtype=dtype, device=dev)
+        w1, w2, x1, x2 = wv.clone(), wv.clone(), xv.clone(), xv.clone()
+        n1, n2 = tgm.gmres_update(V, j, h, w1), tgm.update_plain(V, j, h, w2)
+        proj, proj_plain = tgm.gmres_project(V, j, wv), tgm.project_plain(V, j, wv)
+        torch.cuda.synchronize()
+        scale = float((V[:j + 1].abs() @ wv.abs()).max())
+        compared = {
+            'gmres_project': [(proj, proj_plain, scale)],
+            'gmres_update': [(w1, w2, None), (n1, n2, None)],
+            'gmres_normalize': [(tgm.gmres_normalize(wv, hn, eps, out1), tgm.normalize_plain(wv, hn, eps, out2),
+                                 None)],
+            'gmres_combine': [(tgm.gmres_combine(V, j + 1, h, x1), tgm.combine_plain(V, j + 1, h, x2), None)],
+        }
+        timed = {
+            'gmres_project': (lambda: tgm.gmres_project(V, j, wv), lambda: tgm.project_plain(V, j, wv),
+                              (j + 2) * n + j + 1, 2 * (j + 1) * n, lambda: torch.mv(V[:j + 1], wv)),
+            'gmres_update': (lambda: tgm.gmres_update(V, j, h, w1), lambda: tgm.update_plain(V, j, h, w2),
+                             (j + 3) * n + j + 1, 2 * (j + 2) * n,
+                             lambda: torch.addmv(w2, V[:j + 1].T, h, alpha=-1)),
+            'gmres_normalize': (lambda: tgm.gmres_normalize(wv, hn, eps, out1),
+                                lambda: tgm.normalize_plain(wv, hn, eps, out2), 2 * n, n, None),
+            'gmres_combine': (lambda: tgm.gmres_combine(V, j + 1, h, x1), lambda: tgm.combine_plain(V, j + 1, h, x2),
+                              (j + 3) * n + j + 1, 2 * (j + 1) * n + n,
+                              lambda: torch.addmv(x2, V[:j + 1].T, h)),
+        }
+        for name, triples in compared.items():
+            if name == 'gmres_normalize' and j:
+                continue
+            errs = [_compare(got, want, sc) for got, want, sc in triples]
+            err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
+            kernel, plain, nvals, flops, lib = timed[name]
+            (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
+            fields = row(err, ms, plain_ms, nvals * 4, flops, time_ms(lib)[0] if lib is not None else None)
+            check_row(name, f'ns j={j}', 'float32', relerr, dict(fields, n=n, j=j, call_ms=call_ms))
+            if j == 50 or name == 'gmres_normalize':
+                results[name] = fields
+    return results
+
+
+def phase_ns_profile(system, jac, res, clean):
+    """torch.profiler over one warm assembly and one warm solve of the step:
+    device busy time against wall time, and the top device operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn = system._compiled('jacres')
+    for label, run in (('assemble', lambda: fn(clean)),
+                       ('solve', lambda: jac.solve_leniently(res, solver='gmres', rtol=1e-3))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device kernels only: a CPU operator's device time repeats its
+        # kernels', and the tracer's "Command Buffer Full" marks the times
+        # the launch queue was full, not device work
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and e.key != 'Command Buffer Full']
+        full = [e for e in prof.key_averages() if e.key == 'Command Buffer Full']
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+        emit('ns_profile', run=label, wall_s=wall, device_busy_s=busy, kernel_launches=sum(e.count for e in kernels),
+             command_buffer_full=sum(e.count for e in full),
+             top=[{'name': e.key[:80], 'device_ms': e.self_device_time_total / 1e3, 'count': e.count} for e in top])
+
+
+def phase_ns_parity(devices=('cuda', 'cpu')):
+    """The step at 6x6 elements in float64 on the card (kernels) and the CPU
+    (plain versions)."""
+    import numpy
+    from nutils_tpu_torch.utils import config
+    out = {}
+    for device in devices:
+        with config.device(device):
+            system, args = build_ns(6, numpy.float64)
+            jac, res = system.assemble_jacobian_residual(args)
+            out[device] = jac.solve_leniently(res, solver='gmres', rtol=1e-3), dict(jac._solve_stats)
+    (xa, sa), (xb, sb) = (out[d] for d in devices)
+    rel = float(numpy.linalg.norm(xa - xb) / numpy.linalg.norm(xb))
+    emit('ns_parity', ndofs=len(xb), rel_x=rel, tol=1e-8, devices=list(devices), stats=[sa, sb])
+    if not (rel <= 1e-8 and sa['iters'] == sb['iters']):
+        raise AssertionError(f'card and CPU Navier-Stokes steps differ: {rel:.3e}, iterations {sa["iters"]} '
+                             f'and {sb["iters"]}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is false; this check needs a CUDA card')
     sys.path.insert(0, str(ROOT))
     import nutils_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     measured = phase_kernels()
     launches = phase_slice()
     phase_parity()
+    torch.cuda.empty_cache()
+    ns_launches, system, jac, res, clean = phase_ns()
+    measured.update(phase_ns_kernels(jac))
+    phase_ns_profile(system, jac, res, clean)
+    del system, jac, res, clean
+    torch.cuda.empty_cache()
+    phase_ns_parity()
+    launches.update(ns_launches)
+    emit('done', seconds=time.perf_counter() - t0)
     print(json.dumps({'kernels': [
         {'name': name, 'route': route, 'source': source, 'replaces': replaces, 'launches': launches[name],
-         'max_abs_err': measured[name][0], 'ms': measured[name][1], 'plain_ms': measured[name][2]}
+         **measured[name]}
         for name, (route, source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,16 @@
 '''Build, load and launch of the hand-written CUDA kernels.
 
-K1 (``csrc/stencil.cu``), K2 and K3 (``csrc/mg.cu``) compile with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at first use, into
-``build/nutils_tpu_torch/<hash of the sources and flags>/`` at the root of
-the checkout, so a change of any source rebuilds.  Every C entry point
-launches on the stream it is given (PyTorch's current stream), allocates
-nothing, and returns ``cudaGetLastError()``; :func:`launch` turns a nonzero
-code into an exception.  K4 is Triton and compiles through Triton's own
-cache (``ops/_triton_cg.py``).
+K1 (``csrc/stencil.cu``), K2 and K3 (``csrc/mg.cu``), K5
+(``csrc/blockgrid.cu``) and K7 (``csrc/schur.cu``) compile with ``nvcc`` for
+``sm_90a``, one ``nvcc`` per source, all started together, and link into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+happens at first use, into ``build/nutils_tpu_torch/<hash of the sources and
+flags>/`` at the root of the checkout, so a change of any source rebuilds.
+Every C entry point launches on the stream it is given (PyTorch's current
+stream), allocates nothing, and returns ``cudaGetLastError()``;
+:func:`launch` and :func:`call` turn a nonzero code into an exception.  K4
+and K6 are Triton and compile through Triton's own cache
+(``ops/_triton_cg.py``, ``ops/_triton_gmres.py``).
 '''
 
 import ctypes
@@ -26,8 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG.parent / 'build' / 'nutils_tpu_torch'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shared',
-              '-Xcompiler', '-fPIC')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-Xcompiler', '-fPIC')
 LIBNAME = 'libnutils_tpu_torch.so'
 
 _I64x4 = ctypes.c_int64 * 4
@@ -41,6 +42,8 @@ _SIG = {
     'ntt_jacobi': (_I, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _PI64, _PI32, _PI32, _P),
     'ntt_restrict': (_I, _P, _P, _I, _PI64, _PI64, _P),
     'ntt_prolong_add': (_I, _P, _P, _I, _PI64, _PI64, _P),
+    'ntt_blockgrid_matvec': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    'ntt_schur_diag': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_double, _P),
 }
 
 
@@ -67,24 +70,37 @@ def _nvcc():
 
 
 def build(verbose=False):
-    '''Compile the CUDA sources unless the hash-keyed library exists.
-    Returns (path, seconds spent compiling, compiler diagnostics).  With
+    '''Compile the CUDA sources unless the hash-keyed library exists: one
+    ``nvcc -c`` per source, all running at once, then one link.  Returns
+    (path, seconds spent compiling and linking, compiler diagnostics).  With
     ``verbose`` the compiler reports registers and spills per kernel
     (``-Xptxas=-v``) into the diagnostics.'''
     path = library_path()
     if path.exists():
         return path, 0.0, ''
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f'{LIBNAME}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, *(['-Xptxas=-v'] if verbose else []), '-o', str(tmp),
-           *[str(p) for p in sorted(CSRC.glob('*.cu'))]]
+    nvcc = _nvcc()
+    tag = f'{os.getpid()}.tmp'
+    srcs = sorted(CSRC.glob('*.cu'))
+    objs = [path.with_name(f'{src.stem}.{tag}.o') for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *(['-Xptxas=-v'] if verbose else []), '-c', '-o', str(obj),
+                               str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    diags = [proc.communicate()[0] for proc in procs]
+    for src, proc, diag in zip(srcs, procs, diags):
+        if proc.returncode:
+            raise RuntimeError(f'nvcc failed on {src.name} with code {proc.returncode}:\n{diag}')
+    tmp = path.with_name(f'{LIBNAME}.{tag}')
+    link = subprocess.run([nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp), *[str(o) for o in objs]],
+                          capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
-    if proc.returncode:
-        raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n{proc.stdout}\n{proc.stderr}')
+    if link.returncode:
+        raise RuntimeError(f'nvcc link failed with code {link.returncode}:\n{link.stdout}\n{link.stderr}')
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
+    return path, seconds, ''.join(diags) + link.stdout + link.stderr
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,15 +154,21 @@ def _grid_args(shape, ks, periodic, cshape):
 
 
 def launch(fn, ref, tensors, shape, *, ks=None, periodic=None, cshape=None, scalars=()):
-    '''Call C entry point ``fn`` on PyTorch's current stream: dtype code of
-    ``ref``, the tensors' pointers, the scalars, then the grid description
-    (rank, shape, and either ks/periodic or the coarse shape).'''
-    lib = library()
+    '''Call grid kernel entry point ``fn`` (see :func:`call`): the scalars,
+    then the grid description (rank, shape, and either ks/periodic or the
+    coarse shape).'''
     grid = _grid_args(tuple(shape), ks and tuple(ks), periodic and tuple(periodic),
                       cshape and tuple(cshape))
+    call(fn, ref, tensors, scalars=(*scalars, len(shape), *grid))
+
+
+def call(fn, ref, tensors, scalars=()):
+    '''Call C entry point ``fn`` on PyTorch's current stream: dtype code of
+    ``ref``, the tensors' pointers, then the scalars.'''
+    lib = library()
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
         err = getattr(lib, fn)(0 if ref.dtype == torch.float32 else 1,
-                               *[t.data_ptr() for t in tensors], *scalars, len(shape), *grid, stream)
+                               *[t.data_ptr() for t in tensors], *scalars, stream)
     if err:
         raise RuntimeError(f'{fn}: CUDA error {err}: {lib.ntt_error_string(err).decode()}')

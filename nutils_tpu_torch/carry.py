@@ -11,6 +11,7 @@ import numpy
 import torch
 
 from . import matrix
+from .ops import blockgrid as _bg
 from .ops import mg as _mg
 from .utils import config
 
@@ -80,6 +81,42 @@ def _csr_of_stencil(w, ks, grid, periodic):
                                 shape=(n, n))
     A.sort_indices()
     return A.indptr, A.indices, A.data
+
+
+class _CSRPattern:
+    '''Pattern of a carried CSR operator: shape, indptr and indices.'''
+
+    def __init__(self, indptr, indices, n):
+        self.shape = (n, n)
+        self.indptr = numpy.asarray(indptr)
+        self.indices = numpy.asarray(indices)
+
+
+def blockgrid_matrix_from_numpy(data, indices, indptr, field_offsets, field_grids, device=None, dtype=None):
+    '''A ``nutils_tpu`` block-grid jacobian's CSR values and pattern
+    (``numpy.asarray(jac.data)``, ``jac.indices``, ``jac.indptr``,
+    ``jac._field_offsets``, ``jac._field_grids``) -> the port's
+    ``_BlockGridMatrix`` on ``device``, with weights of ``dtype`` (default:
+    the values' dtype).  The weights come from the port's own ``detect`` and
+    ``refill``: the JAX package's raw weight buffers are in another (axis-
+    permuted) layout, so only CSR values are carried.'''
+    data = numpy.asarray(data)
+    if dtype is not None:
+        data = data.astype(dtype)
+    indptr = numpy.asarray(indptr)
+    n = len(indptr) - 1
+    form = _bg.detect(data, indices, indptr, field_offsets, grids=field_grids)
+    if form is None:
+        raise ValueError('the operator has no block-grid form')
+    sizes = form.fill[0]
+    woff = numpy.concatenate([[0], numpy.cumsum(sizes)[:-1]]).astype(numpy.int64)
+    w = numpy.concatenate([a.ravel() for a in _bg.refill(form, data)])
+    csr_map = woff[form.fill[1]] + form.fill[2]
+    m = matrix._BlockGridMatrix(_CSRPattern(indptr, indices, n), torch.as_tensor(w, device=_device(device)),
+                                form.meta, sizes, csr_map, woff)
+    m._field_offsets = tuple(int(o) for o in field_offsets)
+    m._field_grids = tuple(field_grids)
+    return m
 
 
 def mgdata_from_numpy(ws, dinvs, coarse_inv, levels, device=None):

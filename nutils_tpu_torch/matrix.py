@@ -1,21 +1,26 @@
-'''Sparse matrices: host-built CSR pattern, stencil-form device operator and
-the refined device CG solve.
+'''Sparse matrices: host-built CSR pattern, stencil- and block-grid-form
+device operators and the refined device Krylov solves.
 
-The part of ``nutils_tpu.matrix`` that the structured Laplace slice reaches.
-The sparsity pattern is argument-independent and built once host-side
-(``SparsePattern``, numpy lexsort); assembly writes the jacobian straight
-into stencil weights, which ``_StencilMatrix`` hands to the device solver
-with zero copies.  Solve backends:
+The part of ``nutils_tpu.matrix`` that the structured Laplace and
+Taylor-Hood Navier-Stokes slices reach.  The sparsity pattern is
+argument-independent and built once host-side (``SparsePattern``, numpy
+lexsort); assembly writes the jacobian straight into stencil weights
+(``_StencilMatrix``) or block-grid weights (``_BlockGridMatrix``), which go
+to the device solver with zero copies.  Solve backends:
 
 * ``direct`` — scipy sparse LU on the host (small systems);
-* ``cg`` — multigrid-preconditioned CG on the device in the assembly dtype,
-  inside a float64 iterative refinement whose true residual is computed on
-  the device (``ops/sparse.refined_solve_op``).  Float64 is native on the
-  card, so the device residual is accepted under the same ``_accept``
-  contract as the JAX package's host polish loop, which is not ported.
+* ``cg`` and ``gmres`` — preconditioned Krylov on the device in the assembly
+  dtype, inside a float64 iterative refinement whose true residual is
+  computed on the device (``ops/sparse.refined_solve_op``).  Stencil
+  operators get the multigrid V-cycle, others the Schur-aware inverse
+  diagonal computed on the device (kernel K7); a multi-field system whose
+  diagonal scaling stalls is retried with the fieldsplit preconditioner
+  (velocity multigrid, pressure scaling).  Float64 is native on the card,
+  so the device residual is accepted under the same ``_accept`` contract as
+  the JAX package's host polish loop, which is not ported.
 
-GMRES/BiCGStab, constrained (masked-operator) solves, block-grid and
-unstructured operators are ROADMAP A3, A4 and A6.
+BiCGStab, constrained (masked-operator) solves and unstructured operators
+are ROADMAP A3 and A6.
 '''
 
 import time
@@ -69,6 +74,20 @@ def _host(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else numpy.asarray(a)
 
 
+def device_csr_tables(pattern, csr_map, device):
+    '''(csr_map, indices, indptr) of ``pattern`` as int32 tensors on
+    ``device``: CSR value k of a matrix on the pattern is ``w[csr_map[k]]``
+    of its flat weight buffer.  The tables depend on the pattern only, so
+    they are uploaded once per device, cached on ``pattern`` and shared by
+    every Newton-step matrix and the fused step.'''
+    tabs = getattr(pattern, '_device_csr_tables', None)
+    if tabs is None or tabs[0].device != device:
+        tabs = pattern._device_csr_tables = tuple(
+            torch.as_tensor(numpy.asarray(a, dtype=numpy.int32), device=device)
+            for a in (csr_map, pattern.indices, pattern.indptr))
+    return tabs
+
+
 class Matrix:
     '''Square or rectangular CSR matrix with a solve (reference:
     matrix/_base.py:33).'''
@@ -107,6 +126,13 @@ class Matrix:
         rhs = numpy.zeros(self.shape[0]) if rhs is None else numpy.asarray(rhs, dtype=float)
         return self._solve_free(rhs, solver, atol, rtol, symmetric, precon, **kwargs)
 
+    def solve_leniently(self, *args, **kwargs):
+        try:
+            return self.solve(*args, **kwargs)
+        except ToleranceNotReached as e:
+            log.warning('solver failed to reach tolerance; continuing with best iterate')
+            return e.best
+
     def getprecon(self, precon='diag', **args):
         '''Device preconditioner handle; ``diag`` (inverse diagonal) only.'''
         if self.shape[0] != self.shape[1]:
@@ -121,20 +147,33 @@ class Matrix:
     def _solve_free(self, rhs, solver, atol, rtol, symmetric, precon, **kwargs):
         if not len(rhs):
             return numpy.zeros(0)
+        fallback = False
         if solver is None:
             solver = config.matrix.value
         if solver == 'auto':
             if self.shape[0] < config.device_solve_min.value:
                 solver = 'direct'
-            elif symmetric:
-                solver = 'cg'
             else:
-                raise NotImplementedError('device GMRES is not ported yet (ROADMAP A4)')
+                solver = 'cg' if symmetric else 'gmres'
+                fallback = True  # auto mode: demote to host direct on failure
         if solver in ('direct', 'scipy', 'dense'):
             return self._solve_direct(rhs)
-        if solver == 'cg':
-            return self._solve_cg(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
-        raise NotImplementedError(f'solver {solver!r} is not ported yet (ROADMAP A4, A6)')
+        try:
+            if solver == 'cg':
+                return self._solve_cg(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
+            if solver == 'gmres':
+                return self._solve_gmres(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
+        except ToleranceNotReached:
+            if not fallback:
+                raise
+            log.warning(f'device {solver} failed to reach tolerance; falling back to host direct solve')
+            # the record says the host solved it, and keeps the failed
+            # device attempt's own
+            failed = getattr(self, '_solve_stats', None)
+            x = self._solve_direct(rhs)
+            self._solve_stats = {'method': 'direct', 'accepted_on_device': False, 'fallback_from': failed}
+            return x
+        raise NotImplementedError(f'solver {solver!r} is not ported yet (ROADMAP A6)')
 
     def _solve_direct(self, rhs):
         import scipy.sparse.linalg
@@ -143,13 +182,33 @@ class Matrix:
         except RuntimeError as e:
             raise MatrixError(str(e)) from e
 
+    def _csr_tables(self):
+        '''(w, csr_map, indices, indptr) of a stencil- or block-grid-form
+        matrix on its device: the flat weight buffer and the pattern's int32
+        tables (:func:`device_csr_tables`), so a fresh Newton jacobian
+        uploads nothing but its weights.'''
+        w = self._device_op()[1][0].reshape(-1)
+        cmap = self._csr_map
+        if callable(cmap):
+            cmap = self._csr_map = cmap()
+        pattern = getattr(self, '_pattern', None) or self._pattern_src
+        return (w,) + device_csr_tables(pattern, cmap, w.device)
+
     def _device_precon(self, precon, preconargs):
-        '''(kind, minv) for the device CG: the default is the Schur-aware
-        inverse diagonal (plain Jacobi on rows with a healthy diagonal),
-        computed on the host.'''
+        '''(kind, minv) for the device Krylov solvers.  The default is the
+        Schur-aware inverse diagonal: plain Jacobi on rows with a healthy
+        diagonal, a diagonal Schur-complement estimate on rows whose diagonal
+        is negligible (the pressure block of saddle-point systems).  It is
+        computed on the device (kernel K7) from the device weights and
+        pattern-cached tables, and cached per matrix.'''
         if precon is None:
-            from .ops.sparse import schur_diag_inverse
-            return 'diag', schur_diag_inverse(_host(self.data), self.indices, self.indptr, self.shape[0])
+            cached = getattr(self, '_device_precon_cache', None)
+            if cached is None:
+                from .ops.sparse import schur_diag_inverse_device
+                w, cmap, indices, indptr = self._csr_tables()
+                cached = self._device_precon_cache = (
+                    'diag', schur_diag_inverse_device(w, cmap, indices, indptr, self.shape[0]))
+            return cached
         return self.getprecon(precon, **(preconargs or {}))
 
     def _mg(self):
@@ -170,6 +229,55 @@ class Matrix:
             out = _mg.setup(form, self.data, self.indices, self.indptr, dtype=w.dtype,
                             device=self._device_op()[1][0].device)
         self._mg_cache = out
+        return out
+
+    def _fieldsplit(self):
+        '''Cached block-diagonal (fieldsplit) preconditioner for multi-field
+        systems: each diagonal field block that is a coarsenable grid stencil
+        gets a geometric-multigrid V-cycle (kernels K1-K3), the rest get the
+        Schur-aware inverse diagonal.  Returns (kind, operands) or None when
+        no field coarsens.'''
+        cached = getattr(self, '_fieldsplit_cache', '?')
+        if cached != '?':
+            return cached
+        from .ops import mg as _mgmod
+        from .ops import stencil as _st
+        from .ops.sparse import schur_diag_inverse
+        offsets = tuple(int(o) for o in self._field_offsets)
+        A = self._scipy()
+        data = _host(self.data)
+        dt = data.dtype
+        dev = self._device_op()[1][0].device
+        minv_full = schur_diag_inverse(data, self.indices, self.indptr, self.shape[0])
+        # strong-diagonal test against the FULL row norm: a saddle-point
+        # pressure block (diagonal = eps-stabilization only) keeps the
+        # Schur-complement scaling
+        d_full = A.diagonal()
+        rownorm = numpy.sqrt(numpy.asarray(A.multiply(A).sum(axis=1)).ravel())
+        strong = numpy.abs(d_full) > 1e-3 * numpy.maximum(rownorm, 1e-300)
+        grids = getattr(self, '_field_grids', None)
+        kinds, ops = [], []
+        any_mg = False
+        for i in range(len(offsets) - 1):
+            lo, hi = offsets[i], offsets[i + 1]
+            Ab = A[lo:hi, lo:hi].tocsr()
+            mg = None
+            if strong[lo:hi].mean() > 0.9 and Ab.nnz:
+                hint = grids[i] if grids is not None else None
+                form = _st.from_csr_grid(Ab.data, Ab.indices, Ab.indptr, hint[0]) if hint is not None else None
+                if form is None:
+                    raise NotImplementedError('stencil inference of a field block without a registered grid '
+                                              'is not ported yet (ROADMAP A6)')
+                mg = _mgmod.setup(form, Ab.data, Ab.indices, Ab.indptr, dtype=dt, device=dev)
+            if mg is not None:
+                kinds.append(('mg', mg.levels))
+                ops.append((mg.ws, mg.dinvs, mg.coarse_inv))
+                any_mg = True
+            else:
+                kinds.append('diag')
+                ops.append(torch.as_tensor(minv_full[lo:hi].astype(dt), device=dev))
+        out = (('fieldsplit', offsets, tuple(kinds)), tuple(ops)) if any_mg else None
+        self._fieldsplit_cache = out
         return out
 
     def _inf_norm(self):
@@ -196,25 +304,36 @@ class Matrix:
     def _device_krylov(self, method, rhs, *, atol, rtol, maxiter=None, restart=100,
                        precon=None, preconargs=None):
         '''Mixed-precision iteratively refined device Krylov solve: the inner
-        CG runs on the device in the assembly dtype inside a float64
+        CG or GMRES runs on the device in the assembly dtype inside a float64
         refinement loop whose true residual is computed on the device
         (ops/sparse.refined_solve_op).  Stencil operators get the geometric
-        multigrid V-cycle as preconditioner.  The float64 device residual is
-        the acceptance test (``_accept``).'''
+        multigrid V-cycle as preconditioner (it also preconditions GMRES on
+        nonsymmetric stencils), others the device Schur diagonal; a
+        multi-field solve that the diagonal scaling does not carry to the
+        target is retried with the fieldsplit preconditioner.  The float64
+        device residual is the acceptance test (``_accept``).'''
         from .ops.sparse import refined_solve_op
         b64 = numpy.asarray(rhs, dtype=numpy.float64)
         target = max(atol, rtol * float(numpy.linalg.norm(b64)))
         mv_kind, op = self._device_op()
         dt = op[0].dtype
         kind = minv = None
-        if method == 'cg' and precon is None and mv_kind[0] == 'stencil':
+        if method in ('cg', 'gmres') and precon is None and mv_kind[0] == 'stencil':
             mg = self._mg()
             if mg is not None:
                 kind = ('mg', mg.levels)
                 minv = (mg.ws, mg.dinvs, mg.coarse_inv)
+        elif precon == 'fieldsplit' and getattr(self, '_field_offsets', None) is not None:
+            # opt-in segregated preconditioner (velocity-block MG + Schur
+            # diagonal); also the second tier below
+            fs = self._fieldsplit()
+            if fs is not None:
+                kind, minv = fs
+            else:
+                precon = None
         if kind is None:
             kind, minv = self._device_precon(precon, preconargs)
-            minv = torch.as_tensor(numpy.asarray(minv), device=op[0].device).to(dt)
+            minv = torch.as_tensor(minv, device=op[0].device).to(dt)
         n = self.shape[0]
         cap = maxiter or max(1024, int(16 * numpy.sqrt(n)))
         op64 = getattr(self, '_op64_cache', None)
@@ -235,6 +354,14 @@ class Matrix:
             'accepted_on_device': False,
         }
         if not self._accept(x, resnorm, target, numpy.float64):
+            if precon is None and getattr(self, '_field_offsets', None) is not None \
+                    and self._fieldsplit() is not None:
+                # second tier: stiff (diffusion-dominant) multi-field systems
+                # defeat the diagonal scaling but converge under the
+                # segregated velocity-MG preconditioner
+                log.debug(f'{method} with diagonal scaling stalled; retrying with fieldsplit')
+                return self._device_krylov(method, rhs, atol=atol, rtol=rtol, maxiter=maxiter,
+                                           restart=restart, precon='fieldsplit')
             raise ToleranceNotReached(numpy.where(numpy.isfinite(x), x, 0.0))
         self._solve_stats['accepted_on_device'] = True
         log.debug(f'{method} converged in {iters} device iterations / {rounds} refinement rounds '
@@ -246,6 +373,12 @@ class Matrix:
         refinement (see _device_krylov).'''
         return self._device_krylov('cg', rhs, atol=atol, rtol=rtol, maxiter=maxiter,
                                    precon=precon, preconargs=preconargs)
+
+    def _solve_gmres(self, rhs, *, atol, rtol, maxiter=None, restart=100, precon=None, preconargs=None):
+        '''Restarted GMRES(m): device inner loop + float64 iterative
+        refinement (see _device_krylov).'''
+        return self._device_krylov('gmres', rhs, atol=atol, rtol=rtol, maxiter=maxiter,
+                                   restart=restart, precon=precon, preconargs=preconargs)
 
 
 class _StencilMatrix(Matrix):
@@ -304,4 +437,45 @@ class _StencilMatrix(Matrix):
                 else torch.as_tensor(numpy.asarray(self._w), device=config.torch_device())
             cached = self._device_op_cache = (('stencil', self._ks, self._grid, self._periodic),
                                               (w.reshape((W,) + self._grid),))
+        return cached
+
+
+class _BlockGridMatrix(Matrix):
+    '''Matrix whose device payload is the flat block-grid weight buffer
+    (solver block-grid-form jacobian assembly of multi-field structured
+    systems): the device solvers consume it directly with zero copies, and
+    the CSR data array materializes lazily (host gather through
+    ``csr_map``) only when some other operation needs it.'''
+
+    def __init__(self, pattern, w_flat, meta, sizes, csr_map, woff=None):
+        self._pattern = pattern  # pattern-level device-table caches persist across Newton steps
+        self.shape = tuple(pattern.shape)
+        self._w = w_flat
+        self._meta = meta
+        self._sizes = tuple(int(s) for s in sizes)
+        self._woff = tuple(int(o) for o in woff) if woff is not None \
+            else tuple(int(o) for o in numpy.concatenate([[0], numpy.cumsum(self._sizes)[:-1]]))
+        self._csr_map = csr_map
+
+    def __getattr__(self, name):
+        if name in ('indptr', 'indices'):
+            self.indptr = self._pattern.indptr
+            self.indices = self._pattern.indices
+            return getattr(self, name)
+        if name == 'data':
+            self.data = _host(self._w)[self._csr_map]
+            return self.data
+        raise AttributeError(name)
+
+    def _device_data(self):
+        '''CSR values gathered on the device from the weight buffer.'''
+        w, cmap, _indices, _indptr = self._csr_tables()
+        return w[cmap.long()]
+
+    def _device_op(self):
+        cached = getattr(self, '_device_op_cache', None)
+        if cached is None:
+            w = self._w if isinstance(self._w, torch.Tensor) \
+                else torch.as_tensor(numpy.asarray(self._w), device=config.torch_device())
+            cached = self._device_op_cache = (('blockgrid', self._meta, self._woff), (w.reshape(-1),))
         return cached

@@ -1,19 +1,31 @@
-'''Preconditioned CG with float64 iterative refinement on the device.
+'''Device Krylov solvers with float64 iterative refinement: preconditioned
+CG and left-preconditioned restarted GMRES(m), and the Schur-aware inverse
+diagonal.
 
-The CG part of ``nutils_tpu.ops.sparse`` with its exact semantics: a
-true-residual refresh every 64 iterations and whenever the recursion claims
-convergence, a stall exit after four refreshes without 1% progress, and a
-direction restart (beta = 0) after a refuted claim.  The JAX package runs the
-loop as ``lax.while_loop``; here it is a Python loop over device tensors.
-alpha and beta stay 0-d device tensors; each iteration reads one scalar (the
-recursive residual norm) to the host for the exit and refresh tests.  The
-vector work is kernel K4 (``ops/_triton_cg.py``), the matvec kernel K1, the
-multigrid preconditioner kernels K2 and K3 (``ops/mg.py``).
+The CG and GMRES parts of ``nutils_tpu.ops.sparse`` with their exact
+semantics.  The JAX package runs the loops as ``lax.while_loop``; here they
+are Python loops over device tensors.
 
-Only what the structured Laplace slice reaches is ported: the stencil
-operator, the ``diag`` and ``('mg', levels)`` preconditioners and the CG
-method.  GMRES, BiCGStab, the Schur diagonal, block-grid and unstructured
-operators are ROADMAP A4 and A6.
+* CG: a true-residual refresh every 64 iterations and whenever the recursion
+  claims convergence, a stall exit after four refreshes without 1%
+  progress, and a direction restart (beta = 0) after a refuted claim.
+  alpha and beta stay 0-d device tensors; each iteration reads one scalar
+  (the recursive residual norm) for the exit and refresh tests.  Vector
+  work: kernel K4 (``ops/_triton_cg.py``).
+* GMRES: CGS2 orthogonalization, Givens rotations, a triangular solve, true-
+  residual restarts and a stall exit after five restarts without 0.1%
+  progress.  The Arnoldi vector work is kernel K6
+  (``ops/_triton_gmres.py``); each inner iteration reads the new Hessenberg
+  column (j + 2 values) and does the rotations on the host in the working
+  dtype, and each restart solves the small triangular system there.
+* The Schur-aware inverse diagonal is kernel K7 (``csrc/schur.cu``,
+  :func:`schur_diag_inverse_device`).
+
+Operators: the stencil matvec K1 (``ops/stencil.py``) and the block-grid
+matvec K5 (``ops/blockgrid.py``).  Preconditioners: ``diag``,
+``('mg', levels)`` (kernels K2 and K3, ``ops/mg.py``) and
+``('fieldsplit', offsets, subkinds)``.  BiCGStab, block Jacobi and the
+unstructured operator forms are ROADMAP A6.
 '''
 
 import math
@@ -21,9 +33,12 @@ import math
 import numpy
 import torch
 
+from .. import _kernels
+from . import blockgrid as _bg
 from . import mg as _mg
 from . import stencil as _st
 from ._triton_cg import cg_axpy_norm, cg_dot, cg_xpby
+from ._triton_gmres import gmres_combine, gmres_normalize, gmres_project, gmres_update
 
 
 def schur_diag_inverse(data, indices, indptr, n, weak_rel=1e-3):
@@ -51,17 +66,76 @@ def schur_diag_inverse(data, indices, indptr, n, weak_rel=1e-3):
     return minv
 
 
+def schur_diag_plain(w, csr_map, indices, indptr, n, weak_rel=1e-3):
+    '''Plain torch version of :func:`schur_diag_inverse_device`: the segment
+    sums of ``nutils_tpu.ops.sparse._schur_diag_kernel`` over the CSR values
+    ``w[csr_map]``.'''
+    data = w[csr_map.long()]
+    idx = indices.long()
+    rows = torch.repeat_interleave(torch.arange(n, device=w.device), torch.diff(indptr.long()),
+                                   output_size=idx.shape[0])
+    sq = data * data
+    zero = torch.zeros(n, dtype=w.dtype, device=w.device)
+    d = zero.index_add(0, rows, torch.where(idx == rows, data, torch.zeros_like(data)))
+    rownorm2 = zero.index_add(0, rows, sq)
+    strong = d.abs() > weak_rel * torch.sqrt(rownorm2)
+    one = torch.ones((), dtype=w.dtype, device=w.device)
+    dsafe = torch.where(strong, d.abs(), one)
+    schur = zero.index_add(0, rows, sq / dsafe[idx])
+    return torch.where(strong, 1.0 / torch.where(strong, d, one),
+                       torch.where(schur > 0, 1.0 / torch.where(schur > 0, schur, one), one))
+
+
+def schur_diag_inverse_device(w, csr_map, indices, indptr, n, weak_rel=1e-3):
+    '''Device Schur-aware inverse diagonal of the CSR operator whose values
+    are ``w[csr_map]`` (kernel K7, ``csrc/schur.cu``), replacing
+    ``nutils_tpu.ops.sparse._schur_diag_kernel``.  ``csr_map``, ``indices``
+    and ``indptr`` are int32 tables beside ``w``.  Memory-bound: two passes
+    over the nonzeros (map, value, column) and one over the rows; one warp
+    per row with a fixed-order shuffle reduction.  Tensors on the CPU take
+    :func:`schur_diag_plain`; a CUDA tensor launches the kernel or raises.'''
+    n = int(n)
+    if w.device.type == 'cpu':
+        return schur_diag_plain(w, csr_map, indices, indptr, n, weak_rel)
+    nnz = int(indices.shape[0])
+    for name, t, shape in (('csr_map', csr_map, (nnz,)), ('indices', indices, (nnz,)), ('indptr', indptr, (n + 1,))):
+        if t.device != w.device or t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f'schur_diag_inverse_device: {name} must be a contiguous int32 tensor of shape '
+                             f'{shape} on {w.device}')
+    _kernels.check_operands('schur_diag_inverse_device', w, (w.shape[0],), w.dtype)
+    d = torch.empty(n, dtype=w.dtype, device=w.device)
+    dsafe = torch.empty_like(d)
+    strong = torch.empty(n, dtype=torch.uint8, device=w.device)
+    minv = torch.empty_like(d)
+    _kernels.call('ntt_schur_diag', w, [w, csr_map, indices, indptr, d, dsafe, strong, minv],
+                  scalars=(n, float(weak_rel)))
+    schur_diag_inverse_device.launches += 1
+    return minv
+
+
+schur_diag_inverse_device.launches = 0
+
+
 # ------------------------------------------------------------ precon apply
 
 def _precon_apply(kind):
-    '''Resolve a precon kind — ``'diag'`` or ``('mg', levels)`` with the
-    static per-level (ks, shape, periodic) tuple — to apply(operand, r).'''
+    '''Resolve a precon kind — ``'diag'``, ``('mg', levels)`` with the
+    static per-level (ks, shape, periodic) tuple, or
+    ``('fieldsplit', offsets, subkinds)`` — to apply(operand, r).'''
     if isinstance(kind, tuple) and kind[0] == 'mg':
         levels = kind[1]
         shape = levels[0][1]
 
         def apply(operand, r):
             return _mg.vcycle(levels, operand, r.reshape(shape)).reshape(-1)
+        return apply
+    if isinstance(kind, tuple) and kind[0] == 'fieldsplit':
+        offs, subkinds = kind[1], kind[2]
+        subs = [_precon_apply(k) for k in subkinds]
+
+        def apply(operand, r):
+            return torch.cat([sub(op_i, r[lo:hi]) for sub, op_i, lo, hi
+                              in zip(subs, operand, offs[:-1], offs[1:])])
         return apply
     if kind == 'diag':
         return lambda minv, r: minv * r
@@ -75,6 +149,13 @@ def _make_matvec(mv_kind):
         def mv(op, x):
             (w,) = op
             return _st.stencil_matvec(w, x.reshape(shape), ks, shape, periodic).reshape(-1)
+        return mv
+    if mv_kind[0] == 'blockgrid':
+        _kind, meta, woff = mv_kind
+
+        def mv(op, x):
+            (w,) = op
+            return _bg.blockgrid_matvec(w, x, meta, woff)
         return mv
     raise NotImplementedError(f'matvec kind {mv_kind[0]!r} is not ported yet (ROADMAP A4, A6)')
 
@@ -129,17 +210,101 @@ def cg_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag'):
     return _cg_driver(precon, mv_kind)(tuple(op), b, minv, atol, maxiter)
 
 
+# ------------------------------------------------------------ GMRES(m)
+
+def _gmres_driver(precon_kind, restart, mv_kind):
+    apply_m = _precon_apply(precon_kind)
+    matvec_op = _make_matvec(mv_kind)
+    m = int(restart)
+
+    def run(op, b, minv, atol, maxiter):
+        '''Returns (x, resnorm, iters); b is not modified.  The Hessenberg
+        column, the rotations and the residual estimate are numpy scalars
+        of the working dtype, as the JAX package's loop state is.'''
+        dt = numpy.float32 if b.dtype == torch.float32 else numpy.float64
+        eps = dt(numpy.finfo(dt).tiny * 16)
+        eps_dev = torch.tensor(eps, dtype=b.dtype, device=b.device)
+        atol = dt(atol)
+        maxiter = int(maxiter)
+        n = b.shape[0]
+        V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)  # once per solve
+        x = torch.zeros_like(b)
+        resnorm = dt(float(torch.linalg.norm(b)))
+        stall = it = 0
+        while resnorm > atol and it < maxiter and stall < 5:
+            r = b - matvec_op(op, x)
+            z = apply_m(minv, r)
+            beta, rn = (dt(v) for v in torch.stack([torch.linalg.norm(z), torch.linalg.norm(r)]).tolist())
+            beta_safe = max(beta, eps)
+            # map the true-residual tolerance into the preconditioned scale
+            inner_tol = dt(0.25) * atol * beta_safe / max(rn, eps)
+            torch.div(z, float(beta_safe), out=V[0])
+            R = numpy.zeros((m, m), dtype=dt)
+            g = numpy.zeros(m + 1, dtype=dt)
+            g[0] = beta
+            cs = numpy.zeros(m, dtype=dt)
+            sn = numpy.zeros(m, dtype=dt)
+            j = 0
+            res = beta
+            while j < m and res > inner_tol:
+                w = apply_m(minv, matvec_op(op, V[j]))
+                # CGS2 against V[0..j]
+                h1 = gmres_project(V, j, w)
+                gmres_update(V, j, h1, w)
+                h2 = gmres_project(V, j, w)
+                hn = torch.sqrt(gmres_update(V, j, h2, w))
+                gmres_normalize(w, hn, eps_dev, V[j + 1])
+                h = torch.cat([h1 + h2, hn.reshape(1)]).cpu().numpy()  # j + 2 values
+                for i in range(j):  # the earlier rotations
+                    t = cs[i] * h[i] + sn[i] * h[i + 1]
+                    h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
+                    h[i] = t
+                # the new rotation annihilating h[j+1]
+                denom = numpy.sqrt(h[j] ** 2 + h[j + 1] ** 2)
+                denom_safe = max(denom, eps)
+                c_new, s_new = h[j] / denom_safe, h[j + 1] / denom_safe
+                cs[j], sn[j] = c_new, s_new
+                h[j], h[j + 1] = denom, 0
+                R[:j + 1, j] = h[:j + 1]
+                g[j + 1] = -s_new * g[j]
+                g[j] = c_new * g[j]
+                res = abs(g[j + 1])
+                j += 1
+            if j:
+                import scipy.linalg
+                y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False).astype(dt, copy=False)
+                gmres_combine(V, j, torch.as_tensor(y, device=b.device), x)
+            new_resnorm = dt(float(torch.linalg.norm(b - matvec_op(op, x))))
+            # restart cycles that stop reducing the true residual: stalled
+            stall = stall + 1 if new_resnorm > dt(0.999) * resnorm else 0
+            resnorm = new_resnorm
+            it += j
+        return x, float(resnorm), it
+
+    return run
+
+
+def gmres_op(mv_kind, op, b, *, atol, maxiter, restart=60, minv, precon='diag'):
+    '''Left-preconditioned restarted GMRES(m) over an operator-kind/operand
+    pair; returns (x, resnorm, iters).'''
+    restart = max(2, min(int(restart), int(len(b))))
+    return _gmres_driver(precon, restart, mv_kind)(tuple(op), b, minv, atol, maxiter)
+
+
 # ---------------------------------------- iterative refinement (device)
 
 def _refined_driver(method, precon_kind, mv_kind, restart):
-    '''The mixed-precision refined solve: the working-precision inner CG
-    nested in a float64 outer refinement loop whose true residual is
+    '''The mixed-precision refined solve: the working-precision inner CG or
+    GMRES nested in a float64 outer refinement loop whose true residual is
     computed on the device with the operator weights widened to float64
     (exact, since they were assembled in the lower precision).'''
-    if method != 'cg':
-        raise NotImplementedError(f'refined {method} is not ported yet (ROADMAP A4, A6)')
     matvec_op = _make_matvec(mv_kind)
-    inner = _cg_driver(precon_kind, mv_kind)
+    if method == 'cg':
+        inner = _cg_driver(precon_kind, mv_kind)
+    elif method == 'gmres':
+        inner = _gmres_driver(precon_kind, restart, mv_kind)
+    else:
+        raise NotImplementedError(f'refined {method} is not ported yet (ROADMAP A6)')
 
     def run(op32, op64, b64, minv, target, inner_floor, cap, maxrounds):
         dt32 = op32[0].dtype
@@ -173,6 +338,18 @@ def refined_solve_op(method, mv_kind, op, b, *, target, maxiter, restart=100,
                      minv, precon, op64=None, maxrounds=30):
     '''Refined device solve; returns (x64 numpy, resnorm, iters, rounds).
     ``op64`` defaults to widening ``op``; ``b`` is a host or device vector.'''
+    x, rn, it, rounds = refined_solve_device(method, mv_kind, op, b, target=target, maxiter=maxiter,
+                                             restart=restart, minv=minv, precon=precon, op64=op64,
+                                             maxrounds=maxrounds)
+    return x.cpu().numpy(), rn, it, rounds
+
+
+def refined_solve_device(method, mv_kind, op, b, *, target, maxiter, restart=100,
+                         minv, precon, op64=None, maxrounds=30):
+    ''':func:`refined_solve_op` with the solution left on the device as a
+    float64 tensor; returns (x64, resnorm, iters, rounds).'''
+    if method == 'gmres':
+        restart = max(2, min(int(restart), int(len(b))))
     run = _refined_driver(method, precon, mv_kind, restart)
     if op64 is None:
         op64 = tuple(o.to(torch.float64) for o in op)
@@ -181,4 +358,4 @@ def refined_solve_op(method, mv_kind, op, b, *, target, maxiter, restart=100,
                                                else numpy.float64).eps))
     x, rn, it, rounds = run(tuple(op), tuple(op64), b64, minv, float(target), inner_floor,
                             int(maxiter), int(maxrounds))
-    return x.cpu().numpy(), float(rn), int(it), int(rounds)
+    return x, float(rn), int(it), int(rounds)

@@ -15,13 +15,18 @@ match it exactly.  The traces are torch:
   the local dofs, giving exact per-element dense blocks
   (``torch.func.linearize`` traces with ``make_fx``, which refuses the
   nested forward-mode jvps of the coordinate ``Grad`` nodes);
-* values land in the flat stencil weight buffer ``w`` through strided slice
-  adds into a zeroed buffer, in place, after the transforms have produced
-  them (``_apply_value_plan``).
+* values land in the flat stencil or block-grid weight buffer ``w`` through
+  strided slice adds into a zeroed buffer, in place, after the transforms
+  have produced them (``_apply_value_plan``).
 
+Multi-field structured systems (Taylor-Hood velocity and pressure) assemble
+into block-grid weights (``_plan_blockgrid_jacobian``, ``ops/blockgrid.py``),
+in the natural axis order of each block: the JAX package's axis
+permutation for the TPU's tiling is not ported.  ``fused_step_op`` is the
+assemble + Schur diagonal + refined GMRES step as a plain composition.
 Element-chunked assembly (more than ``config.assembly_chunk`` elements in a
-batch), block-grid and CSR jacobian forms, and the solution methods
-(Newton etc.) are ROADMAP A2, A4 and A5.
+batch), CSR jacobians and the solution methods (Newton etc.) are ROADMAP
+A2, A6 and A5.
 '''
 
 import functools
@@ -912,9 +917,9 @@ class System:
                                        cols_k.reshape(cols_k.shape[0], -1)))
                         chunk_meta.append((bi, ci, u, li, reduce_axes, rows_k.size))
         pattern = _LazyPattern(rows_all, cols_all, (self._ntest, self._ntrial))
-        # block-grid (multi-field) plans are ROADMAP A4: None means no
-        # stencil form, which the port cannot assemble yet
         jplan = self._plan_stencil_jacobian(segs2d, pattern)
+        if jplan is None:
+            jplan = self._plan_blockgrid_jacobian(segs2d, pattern)
         return chunk_meta, pattern, jplan
 
     def _plan_stencil_jacobian(self, segs2d, pattern):
@@ -1016,6 +1021,70 @@ class System:
         return dict(form='stencil', ks=tuple(ks), grid=grid, total=W * n, segs=segs,
                     csr_map=csr_map, periodic=tuple(bool(p) for p in per))
 
+    def _field_partition(self):
+        '''(offsets, grids): the dof vector partitioned into registered
+        field parts — one per trial for plain fields, several for composite
+        (vectorized) fields; fields without a registered layout contribute a
+        single part with grid None.'''
+        offsets = [0]
+        grids = []
+        for t, sl in zip(self.trials, self._trial_slices):
+            size = sl.stop - sl.start
+            parts = function.field_parts(t, size)
+            if parts is None:
+                offsets.append(offsets[-1] + size)
+                grids.append(None)
+            else:
+                for psize, grid, per in parts:
+                    offsets.append(offsets[-1] + psize)
+                    grids.append((grid, per))
+        return tuple(offsets), tuple(grids)
+
+    def _plan_blockgrid_jacobian(self, segs2d, pattern):
+        '''Assemble the jacobian of a multi-field structured system directly
+        in block-grid form (ops/blockgrid.py): values land in the
+        concatenated per-(block, phase) weight buffers through static slice
+        adds, and the device Krylov operand comes out of assembly with zero
+        copies.  Host planning copied from the JAX package, in the natural
+        axis order of each block.'''
+        from .ops import blockgrid as bg
+        if self._ntest != self._ntrial or not segs2d:
+            return None
+        offsets, grids = self._field_partition()
+        if len(grids) < 2 or any(g is None for g in grids):
+            return None
+        form = bg.detect(numpy.ones(pattern.nnz), pattern.indices, pattern.indptr,
+                         offsets, grids=grids)
+        if form is None:
+            return None
+        sizes, windex, wpos = form.fill
+        # buffer offsets aligned to each buffer's own grid size, so the
+        # mixed-radix slice layouts of the nested views start at a grid-row
+        # boundary (a mid-row base defeats the no-wrap check of _grid_plan)
+        shapes = bg._w_shapes(form.meta)
+        woff = numpy.zeros(len(sizes) + 1, dtype=numpy.int64)
+        for i, (sz, shp) in enumerate(zip(sizes, shapes)):
+            npix = int(numpy.prod(shp[1:]))
+            woff[i] = -(-woff[i] // npix) * npix if npix else woff[i]
+            woff[i + 1] = woff[i] + sz
+        tgt_slot = woff[windex] + wpos          # per CSR slot
+        tgt_entry = tgt_slot[pattern.slot]      # per original assembly entry
+        wind_entry = windex[pattern.slot]
+        total = int(woff[-1])
+        segs = []
+        pos = 0
+        for rowsT, _colsT in segs2d:
+            m = rowsT.size
+            tseg = tgt_entry[pos:pos + m].reshape(rowsT.shape[0], -1)
+            wseg = wind_entry[pos:pos + m].reshape(rowsT.shape[0], -1)
+            pos += m
+            segs.append(_plan_value_table(tseg, wseg, total))
+        assert pos == len(tgt_entry)
+        return dict(form='blockgrid', meta=form.meta, sizes=tuple(int(sz) for sz in sizes),
+                    woff=tuple(int(o) for o in woff[:-1]), total=total, segs=segs,
+                    csr_map=tgt_slot, field_offsets=tuple(offsets),
+                    field_grids=tuple(grids))
+
     def _jacobian_trace(self, args, tables):
         chunk_meta, pattern, jplan = self._jac_layout
         vals = []
@@ -1035,9 +1104,10 @@ class System:
             if reduce_axes:
                 V = V.sum(dim=reduce_axes)
             vals.append(V)
-        # direct stencil-form assembly: values land in w[(2k+1)^d * n]
-        # through static slice adds (grid-affine segments) or small
-        # constant-table adds, into a zeroed buffer after the transforms
+        # direct stencil- or block-grid-form assembly: values land in the
+        # flat weight buffer through static slice adds (grid-affine
+        # segments) or small constant-table adds, into a zeroed buffer after
+        # the transforms
         w = torch.zeros(jplan['total'], dtype=config.torch_dtype(float), device=config.torch_device())
         for (skind, payload), V in zip(jplan['segs'], vals):
             _apply_value_plan(w, skind, payload, V)
@@ -1054,8 +1124,8 @@ class System:
             self._check_batch_size()
             jplan = self._jac_layout[2]
             if jplan is None and which == 'jacres':
-                raise NotImplementedError('this jacobian has no stencil form; CSR and block-grid '
-                                          'jacobians are not ported yet (ROADMAP A4, A6)')
+                raise NotImplementedError('this jacobian has neither stencil nor block-grid form; CSR '
+                                          'jacobians are not ported yet (ROADMAP A6)')
             trace = {'residual': self._residual_trace,
                      'jacres': lambda args, tables: (self._jacobian_trace(args, tables),
                                                      self._residual_trace(args, tables))}[which]
@@ -1063,8 +1133,46 @@ class System:
         return fn
 
     def _wrap_matrix(self, pattern, jplan, data):
-        return matrix._StencilMatrix(pattern, data, jplan['ks'], jplan['grid'],
-                                     jplan['csr_map'], jplan.get('periodic'))
+        if jplan['form'] == 'stencil':
+            return matrix._StencilMatrix(pattern, data, jplan['ks'], jplan['grid'],
+                                         jplan['csr_map'], jplan.get('periodic'))
+        m = matrix._BlockGridMatrix(pattern, data, jplan['meta'], jplan['sizes'],
+                                    jplan['csr_map'], jplan['woff'])
+        m._field_offsets = jplan['field_offsets']
+        m._field_grids = jplan['field_grids']
+        return m
+
+    def fused_step_op(self, *, solver='gmres', rtol=1e-3, restart=100, maxiter=None, maxrounds=30):
+        '''Newton sub-step for unconstrained block-grid systems as one
+        call ``clean_args -> (dx, resnorm, iters)``: jacobian + residual
+        assembly, the device Schur-aware diagonal (kernel K7) and the
+        mixed-precision refined Krylov solve, with no host round trip of the
+        operator.  ``dx`` is a float64 device tensor; ``resnorm`` is the
+        device-computed float64 true residual, target ``rtol * |res|``.  The
+        contract of the JAX package's one-program ``fused_step_op``, as a
+        plain composition (a CUDA graph of it is later work).'''
+        from .ops.sparse import refined_solve_device, schur_diag_inverse_device
+        fn = self._compiled('jacres')
+        _chunk_meta, pattern, jplan = self._jac_layout
+        if jplan is None or jplan['form'] != 'blockgrid':
+            raise NotImplementedError('fused_step_op requires the blockgrid jacobian form')
+        meta, woff = jplan['meta'], jplan['woff']
+        n = int(pattern.shape[0])
+        cap = int(maxiter or max(1024, int(16 * numpy.sqrt(n))))
+        mv_kind = ('blockgrid', meta, woff)
+
+        def step(clean):
+            w, res = fn(clean)
+            # the pattern's tables, shared with the split path's matrices
+            tabs = matrix.device_csr_tables(pattern, jplan['csr_map'], w.device)
+            minv = schur_diag_inverse_device(w, *tabs, n)
+            b64 = res.to(torch.float64)
+            target = rtol * float(torch.linalg.norm(b64))
+            x, rn, it, _rounds = refined_solve_device(solver, mv_kind, (w,), b64, target=target, maxiter=cap,
+                                                      restart=restart, minv=minv, precon='diag',
+                                                      op64=(w.to(torch.float64),), maxrounds=maxrounds)
+            return x, rn, it
+        return step
 
     @log.withcontext
     def assemble_jacobian_residual(self, arguments, x=None):

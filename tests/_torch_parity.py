@@ -43,6 +43,81 @@ def build_periodic(pkg, nelems):
     return solver.System(energy, trial='u')
 
 
+def _taylor_hood_namespace(pkg, topo, geom):
+    function = importlib.import_module(f'{pkg}.function')
+    Namespace = importlib.import_module(f'{pkg}.expression').Namespace
+    ns = Namespace()
+    ns.x = geom
+    ns.define_for('x', gradient='∇', jacobians=('dV',))
+    ns.u = topo.field('u', btype='std', degree=2, shape=[2])
+    ns.p = topo.field('p', btype='std', degree=1)
+    ns.v = function.replace_arguments(ns.u, 'u:v')
+    ns.q = function.replace_arguments(ns.p, 'p:q')
+    return ns
+
+
+def build_ns(pkg, nelems, dtype=numpy.float64):
+    """The bench's Navier-Stokes Newton step (``bench.build_ns``): Taylor-Hood
+    P2/P1 implicit-Euler step on the unit square, convection linearized at a
+    random state.  Returns (system, args); leaves ``config.floatx`` at
+    ``dtype``."""
+    function, mesh, solver, config = modules(pkg)
+    config.floatx.value = dtype
+    topo, geom = mesh.unitsquare(nelems, 'square')
+    ns = _taylor_hood_namespace(pkg, topo, geom)
+    ns.δ = function.eye(2)
+    ns.u0_i = 'sin(x_0) cos(x_1) δ_i0 - cos(x_0) sin(x_1) δ_i1'  # prior state (divergence-free)
+    ns.dt = 0.01
+    ns.nu = 0.001
+    ns.eps = 0.001  # pressure stabilization: removes the nullspace without BCs
+    res = topo.integral(
+        '(v_i (u_i - u0_i) / dt + v_i u_j ∇_j(u_i) + nu ∇_j(v_i) ∇_j(u_i)'
+        ' - p ∇_i(v_i) + q ∇_i(u_i) + eps p q) dV' @ ns, degree=6)
+    system = solver.System(res, trial='u,p', test='v,q')
+    rng = numpy.random.default_rng(0)
+    args = {t: 0.1 * rng.standard_normal(shape)
+            for t, shape in zip(system.trials, system.trial_shapes)}
+    return system, args
+
+
+def build_th_periodic(pkg, nelems):
+    """The Taylor-Hood step of ``__graft_entry__._build_th_system``: periodic
+    in axis 0, explicit vertex coordinates."""
+    function, mesh, solver, _config = modules(pkg)
+    topo, geom = mesh.rectilinear([numpy.linspace(0, 1, nelems + 1)] * 2, periodic=(0,))
+    ns = _taylor_hood_namespace(pkg, topo, geom)
+    ns.δ = function.eye(2)
+    ns.π = numpy.pi
+    ns.u0_i = 'sin(2 π x_0) cos(π x_1) δ_i0'
+    ns.dt = 0.01
+    ns.nu = 0.01
+    ns.eps = 0.001
+    res = topo.integral(
+        '(v_i (u_i - u0_i) / dt + v_i u_j ∇_j(u_i) + nu ∇_j(v_i) ∇_j(u_i)'
+        ' - p ∇_i(v_i) + q ∇_i(u_i) + eps p q) dV' @ ns, degree=6)
+    return solver.System(res, trial='u,p', test='v,q')
+
+
+def build_stokes(pkg, nelems=12, dtype=numpy.float64, mass=0.01, nu=1.0):
+    """The Stokes-class mixed system of ``tests/test_device_op.py``
+    (``_taylor_hood_system``): P2 velocity, P1 pressure, a small mass
+    regularization; returns its jacobian at zero arguments, assembled with
+    ``config.floatx`` at ``dtype``."""
+    _function, mesh, solver, config = modules(pkg)
+    with config.floatx(dtype):
+        topo, geom = mesh.unitsquare(nelems, 'square')
+        ns = _taylor_hood_namespace(pkg, topo, geom)
+        ns.m = mass
+        ns.nu = nu
+        ns.eps = 0.001
+        res = topo.integral('(m u_i v_i + nu ∇_j(v_i) ∇_j(u_i) - p ∇_i(v_i)'
+                            ' + q ∇_i(u_i) + eps p q) dV' @ ns, degree=5)
+        system = solver.System(res, trial='u,p', test='v,q')
+        args = {t: numpy.zeros(shape) for t, shape in zip(system.trials, system.trial_shapes)}
+        jac, _ = system.assemble_jacobian_residual(args)
+    return jac
+
+
 def rel(a, b):
     '''Normwise relative difference of two arrays.'''
     a = numpy.asarray(a, dtype=numpy.float64)

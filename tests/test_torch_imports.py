@@ -29,11 +29,57 @@ print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m =
 '''
 
 
+_NS_SCRIPT = '''
+import sys
+import numpy
+from nutils_tpu_torch import function, mesh
+from nutils_tpu_torch.expression import Namespace
+from nutils_tpu_torch.solver import System
+from nutils_tpu_torch.utils import config
+with config.device('cpu'):
+    topo, geom = mesh.unitsquare(6, 'square')
+    ns = Namespace()
+    ns.x = geom
+    ns.define_for('x', gradient='∇', jacobians=('dV',))
+    ns.u = topo.field('u', btype='std', degree=2, shape=[2])
+    ns.p = topo.field('p', btype='std', degree=1)
+    ns.v = function.replace_arguments(ns.u, 'u:v')
+    ns.q = function.replace_arguments(ns.p, 'p:q')
+    ns.δ = function.eye(2)
+    ns.u0_i = 'sin(x_0) cos(x_1) δ_i0 - cos(x_0) sin(x_1) δ_i1'
+    ns.dt = 0.01
+    ns.nu = 0.001
+    ns.eps = 0.001
+    res = topo.integral('(v_i (u_i - u0_i) / dt + v_i u_j ∇_j(u_i) + nu ∇_j(v_i) ∇_j(u_i)'
+                        ' - p ∇_i(v_i) + q ∇_i(u_i) + eps p q) dV' @ ns, degree=6)
+    system = System(res, trial='u,p', test='v,q')
+    rng = numpy.random.default_rng(0)
+    args = {t: 0.1 * rng.standard_normal(s) for t, s in zip(system.trials, system.trial_shapes)}
+    jac, res = system.assemble_jacobian_residual(args)
+    dx = jac.solve_leniently(res, solver='gmres', rtol=1e-3)
+assert jac._solve_stats['op_form'] == 'blockgrid' and jac._solve_stats['method'] == 'gmres'
+assert numpy.linalg.norm(res - jac @ dx) <= 1e-3 * numpy.linalg.norm(res)
+print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'nutils_tpu'
+             or m.startswith('nutils_tpu.')))
+'''
+
+
+def _run_alone(script):
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
+    env = dict(os.environ, PYTHONPATH=root)
+    return subprocess.run([sys.executable, '-c', script], capture_output=True, text=True, env=env,
+                          cwd=root, timeout=120, check=False)
+
+
 def test_no_jax_after_a_solve():
-    root = os.path.join(os.path.dirname(__file__), '..')
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
-    out = subprocess.run([sys.executable, '-c', _SCRIPT], capture_output=True, text=True, env=env,
-                         cwd=os.path.abspath(root), timeout=120, check=False)
+    out = _run_alone(_SCRIPT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]'
+
+
+def test_no_jax_after_a_navier_stokes_step():
+    # the block-grid assembly and the GMRES solve with the Schur diagonal
+    out = _run_alone(_NS_SCRIPT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == '[]'
 
