@@ -9,9 +9,9 @@ Phases, each printing JSON lines:
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; fails without a CUDA card.
-2. build    — builds the CUDA kernels K1-K3, K5 and K7 from
+2. build    — builds the CUDA kernels K1-K3, K5, K7, K8 and K9 from
    ``nutils_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, in
-   parallel) and compiles the Triton kernels of K4 and K6.
+   parallel) and compiles the Triton kernels of K4, K6 and K10.
 3. kernel   — K1-K4 against their plain PyTorch versions on the card, at
    the Laplace slice's shapes (1025^2 grid, W = 9, float32 and float64) and
    on a periodic 2-D and a 3-D stencil: error, CUDA-event times, the bound
@@ -29,6 +29,18 @@ Phases, each printing JSON lines:
    warm assembly and one warm solve.
 7. ns_parity — the step at 6x6 elements in float64 on the card and on the
    CPU: the solutions agree to 1e-8 relative, in as many iterations.
+8. ns_tri   — the same Newton step on ``unitsquare(330, 'triangle')``
+   (217,800 triangles, 983,403 dofs) in float32: System, CSR pattern,
+   assembly through the value scatter K8, the device Schur diagonal on CSR
+   values (K7), refined GMRES and refined BiCGStab to rtol 1e-3 on the CSR
+   operator (K9, K6, K10), through the kernels (launch counts read around
+   the run), and a profile of one warm assembly and one warm solve of each
+   method.
+9. ns_tri_kernels — K7 on CSR values and K8-K10 against their plain
+   versions at the triangle step's shapes.
+10. ns_tri_parity — the triangle step at 6x6 elements in float64 on the
+   card and on the CPU: both methods' solutions agree to 1e-8 relative, in
+   as many iterations.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
@@ -59,11 +71,22 @@ KERNELS = {
     'gmres_normalize': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
     'gmres_combine': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
     'schur_diag_inverse_device': ('cuda', 'nutils_tpu_torch/csrc/schur.cu', 'nutils_tpu/ops/sparse.py:198'),
+    # K7's map-free variant on a CSR matrix's values: the same wrapper, read
+    # on the triangle step
+    'schur_diag_inverse_device[csr]': ('cuda', 'nutils_tpu_torch/csrc/schur.cu', 'nutils_tpu/ops/sparse.py:198'),
+    'csr_scatter': ('cuda', 'nutils_tpu_torch/csrc/csr_scatter.cu', 'nutils_tpu/matrix.py:83'),
+    'csr_matvec': ('cuda', 'nutils_tpu_torch/csrc/csr_spmv.cu', 'nutils_tpu/ops/sparse.py:274'),
+    'bicg_dots': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
+    'bicg_s': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
+    'bicg_xr': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
+    'bicg_p': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
 }
 LAPLACE_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'mg_restrict', 'mg_prolong_add', 'cg_dot', 'cg_axpy_norm',
                    'cg_xpby')
 NS_KERNELS = ('blockgrid_matvec', 'gmres_project', 'gmres_update', 'gmres_normalize', 'gmres_combine',
               'schur_diag_inverse_device')
+TRI_KERNELS = ('csr_scatter', 'csr_matvec', 'schur_diag_inverse_device', 'gmres_project', 'gmres_update',
+               'gmres_normalize', 'gmres_combine', 'bicg_dots', 'bicg_s', 'bicg_xr', 'bicg_p')
 # kernel vs plain: float32 sums in another order (and with fused multiply-
 # adds) differ by a few ulps, float64 ones by a few ulps of float64
 TOL = {'float32': 1e-6, 'float64': 1e-14}
@@ -86,14 +109,17 @@ def emit(phase, **fields):
 
 
 def wrappers():
-    from nutils_tpu_torch.ops import _triton_cg, _triton_gmres, blockgrid, mg, sparse, stencil
+    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_cg, _triton_gmres, blockgrid, mg, sparse, stencil
     return {'stencil_matvec': stencil.stencil_matvec, 'jacobi_smooth': mg.jacobi_smooth,
             'mg_restrict': mg.mg_restrict, 'mg_prolong_add': mg.mg_prolong_add,
             'cg_dot': _triton_cg.cg_dot, 'cg_axpy_norm': _triton_cg.cg_axpy_norm, 'cg_xpby': _triton_cg.cg_xpby,
             'blockgrid_matvec': blockgrid.blockgrid_matvec, 'gmres_project': _triton_gmres.gmres_project,
             'gmres_update': _triton_gmres.gmres_update, 'gmres_normalize': _triton_gmres.gmres_normalize,
             'gmres_combine': _triton_gmres.gmres_combine,
-            'schur_diag_inverse_device': sparse.schur_diag_inverse_device}
+            'schur_diag_inverse_device': sparse.schur_diag_inverse_device, 'csr_scatter': sparse.csr_scatter,
+            'csr_matvec': sparse.csr_matvec, 'bicg_dots': _triton_bicgstab.bicg_dots,
+            'bicg_s': _triton_bicgstab.bicg_s, 'bicg_xr': _triton_bicgstab.bicg_xr,
+            'bicg_p': _triton_bicgstab.bicg_p}
 
 
 def reset_launches():
@@ -155,17 +181,17 @@ def time_eager_ms(fn, calls=10, reps=5):
     return _events(run, reps) / calls
 
 
-def build_ns(nelems, dtype):
+def build_ns(nelems, dtype, etype='square'):
     '''bench.build_ns, written against nutils_tpu_torch: the Taylor-Hood
     (P2/P1) Navier-Stokes implicit-Euler step with convection linearized at
-    a random state.'''
+    a random state, on the unit square of ``etype`` elements.'''
     import numpy
     from nutils_tpu_torch import function, mesh
     from nutils_tpu_torch.expression import Namespace
     from nutils_tpu_torch.solver import System
     from nutils_tpu_torch.utils import config
     config.floatx.value = dtype
-    topo, geom = mesh.unitsquare(nelems, 'square')
+    topo, geom = mesh.unitsquare(nelems, etype)
     ns = Namespace()
     ns.x = geom
     ns.define_for('x', gradient='∇', jacobians=('dV',))
@@ -219,7 +245,7 @@ def phase_device():
 def phase_build():
     import torch
     from nutils_tpu_torch import _kernels
-    from nutils_tpu_torch.ops import _triton_cg, _triton_gmres
+    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_cg, _triton_gmres
     path, seconds, diag = _kernels.build(verbose=True)
     _kernels.library()
     t0 = time.perf_counter()
@@ -234,6 +260,12 @@ def phase_build():
         _triton_gmres.gmres_update(V, 1, h, a.clone())
         _triton_gmres.gmres_normalize(a, s, s, V[2])
         _triton_gmres.gmres_combine(V, 2, h, a.clone())
+        sc = _triton_bicgstab.scalars(dtype, 'cuda')
+        _triton_bicgstab.bicg_dots(a, a, None, sc, _triton_bicgstab.RV)
+        _triton_bicgstab.bicg_dots(a, a, a, sc, _triton_bicgstab.TT, _triton_bicgstab.TS)
+        _triton_bicgstab.bicg_s(a, a, sc, a.clone(), _triton_bicgstab.RHO[0])
+        _triton_bicgstab.bicg_xr(*[a.clone() for _ in range(7)], sc)
+        _triton_bicgstab.bicg_p(a.clone(), a, a, a.clone(), sc, False, *_triton_bicgstab.RHO)
     torch.cuda.synchronize()
     ptxas = [line.strip() for line in diag.splitlines() if 'registers' in line or 'spill' in line]
     emit('build', library=str(path.relative_to(ROOT)), nvcc_seconds=seconds,
@@ -637,15 +669,18 @@ def phase_ns_kernels(jac):
     return results
 
 
-def phase_ns_profile(system, jac, res, clean):
-    """torch.profiler over one warm assembly and one warm solve of the step:
-    device busy time against wall time, and the top device operations."""
+def phase_ns_profile(system, jac, res, clean, methods=('gmres',), phase='ns_profile'):
+    """torch.profiler over one warm assembly and one warm solve of the step
+    with each of ``methods``: device busy time against wall time, and the
+    top device operations."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn = system._compiled('jacres')
-    for label, run in (('assemble', lambda: fn(clean)),
-                       ('solve', lambda: jac.solve_leniently(res, solver='gmres', rtol=1e-3))):
+    runs = [('assemble', lambda: fn(clean))]
+    runs += [(f'solve {method}', lambda method=method: jac.solve_leniently(res, solver=method, rtol=1e-3))
+             for method in methods]
+    for label, run in runs:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -660,7 +695,7 @@ def phase_ns_profile(system, jac, res, clean):
         full = [e for e in prof.key_averages() if e.key == 'Command Buffer Full']
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-        emit('ns_profile', run=label, wall_s=wall, device_busy_s=busy, kernel_launches=sum(e.count for e in kernels),
+        emit(phase, run=label, wall_s=wall, device_busy_s=busy, kernel_launches=sum(e.count for e in kernels),
              command_buffer_full=sum(e.count for e in full),
              top=[{'name': e.key[:80], 'device_ms': e.self_device_time_total / 1e3, 'count': e.count} for e in top])
 
@@ -684,6 +719,221 @@ def phase_ns_parity(devices=('cuda', 'cpu')):
                              f'and {sb["iters"]}')
 
 
+TRI_METHODS = ('gmres', 'bicgstab')
+
+
+def phase_ns_tri(nelems=330, device='cuda'):
+    """The third main path: the Navier-Stokes Newton step on an unstructured
+    triangle mesh at 983,403 dofs, its jacobian in CSR form, solved with
+    refined GMRES and refined BiCGStab through the kernels; returns (launch
+    counts, the step's system, jacobian, residual and arguments)."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.utils import config
+    with config.device(device):
+        t_system, (system, args) = _sync_time(lambda: build_ns(nelems, numpy.float32, 'triangle'))
+        ndofs = sum(int(numpy.prod(s)) for s in system.trial_shapes)
+        emit('ns_tri_system', ndofs=ndofs, nelems=2 * nelems * nelems, t_system=t_system)
+        # host planning: the CSR pattern sort and the value scatter's plan
+        t_pattern, (_meta, lazy, jplan) = _sync_time(lambda: system._jac_layout)
+        t_pattern_sort, pattern = _sync_time(lazy.get)
+        if jplan is not None:
+            raise AssertionError(f'the triangle step planned a {jplan["form"]} jacobian, expected CSR')
+        fn = system._compiled('jacres')
+        clean = system._clean(args)
+        times = [_sync_time(lambda: fn(clean))[0] for _ in range(3)]
+        emit('ns_tri_assembly', form='csr', entries=int(len(pattern.slot)), nnz=int(pattern.nnz),
+             max_row_nnz=int(numpy.diff(pattern.indptr).max()), t_pattern=t_pattern + t_pattern_sort,
+             t_assemble_first=times[0], t_assemble=min(times[1:]))
+        del times
+        torch.cuda.empty_cache()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t_jacres, (jac, res) = _sync_time(lambda: system.assemble_jacobian_residual(args))
+        t_precon, _minv = _sync_time(lambda: jac._device_precon(None, None))
+        # host: the operator's form (stencil and block-grid inference, which
+        # this pattern refutes), once per pattern
+        t_op_plan, _op = _sync_time(jac._device_op)
+        solves = {}
+        for method in TRI_METHODS:
+            t_solve, dx = _sync_time(lambda: jac.solve_leniently(res, solver=method, rtol=1e-3))
+            stats = dict(jac._solve_stats)
+            t_solve_again, _dx = _sync_time(lambda: jac.solve_leniently(res, solver=method, rtol=1e-3))
+            solves[method] = dx, stats, t_solve, t_solve_again
+        launches = read_launches(TRI_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+    norm_res = float(numpy.linalg.norm(res))
+    out = {}
+    for method, (dx, stats, t_solve, t_solve_again) in solves.items():
+        rel_residual = float(numpy.linalg.norm(res - jac @ dx)) / norm_res
+        out[method] = dict(t_solve=t_solve, t_solve_again=t_solve_again, solve_stats=stats,
+                           rel_residual=rel_residual)
+        if dx.shape != (ndofs,) or not numpy.isfinite(dx).all():
+            raise AssertionError(f'triangle step ({method}): the solution is not a finite vector of the dof count')
+        want = {'method': method, 'op_form': 'csr', 'precon': 'diag', 'accepted_on_device': True}
+        if any(stats[k] != v for k, v in want.items()):
+            raise AssertionError(f'triangle step solved through {stats}, expected {want}')
+        if not rel_residual <= 1e-3:
+            raise AssertionError(f'triangle step ({method}) misses rtol 1e-3: {rel_residual:.3e}')
+    emit('ns_tri', ndofs=ndofs, nnz=int(pattern.nnz), t_system=t_system, t_pattern=t_pattern + t_pattern_sort,
+         t_jacres=t_jacres, t_precon=t_precon, t_op_plan=t_op_plan, solves=out, peak_device_bytes=peak,
+         launches=launches)
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f'kernels not launched on the triangle Navier-Stokes path: {missing}')
+    return launches, system, jac, res, clean
+
+
+def phase_ns_tri_kernels(system, jac):
+    """K7 on CSR values and K8-K10 against their plain versions at the
+    triangle step's shapes (its entry values and CSR operator, BiCGStab
+    vectors of its length); returns {name: row} in float32."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import _triton_bicgstab as tbi
+    from nutils_tpu_torch.ops import sparse
+    rng = numpy.random.default_rng(2)
+    results = {}
+    pattern = system._jac_layout[1].get()
+    data32, _none, indices, indptr = jac._csr_tables()
+    dev = data32.device
+    n, nnz, m = jac.shape[0], int(indices.shape[0]), len(pattern.slot)
+    order, segptr = (torch.as_tensor(a.astype(numpy.int32), device=dev) for a in (pattern._order, pattern._segptr))
+    slot = torch.as_tensor(pattern.slot, device=dev)
+    A = torch.sparse_csr_tensor(indptr, indices, data32, size=(n, n))
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split('.')[1]
+        isz = 4 if dtype == torch.float32 else 8
+        # K8 on random entry values; compared on the scale of the slot sums
+        # of their magnitudes
+        values = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=dev)
+        got, want = sparse.csr_scatter(values, order, segptr, slot), sparse.scatter_plain(values, slot, nnz)
+        scale = sparse.scatter_plain(values.abs(), slot, nnz).max()
+        torch.cuda.synchronize()
+        err, relerr = _compare(got, want, scale)
+        (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: sparse.csr_scatter(values, order, segptr, slot)), \
+            time_ms(lambda: sparse.scatter_plain(values, slot, nnz))
+        lib = time_ms(lambda: torch.zeros(nnz, dtype=dtype, device=dev).index_add_(0, slot, values))[0]
+        # the function reads each entry's value and slot and writes the
+        # output; the kernel also reads the segment pointers (its traffic)
+        fields = row(err, ms, plain_ms, m * (isz + 4) + nnz * isz, m, lib)
+        check_row('csr_scatter', 'ns_tri', dname, relerr,
+                  dict(fields, entries=m, nnz=nnz, kernel_bytes=m * (isz + 4) + (nnz + 1) * 4 + nnz * isz,
+                       call_ms=call_ms))
+        if dtype == torch.float32:
+            results['csr_scatter'] = fields
+        # K9 on the step's operator (float64: the refinement's widened copy)
+        data = data32.to(dtype)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        got, want = sparse.csr_matvec(data, indices, indptr, x), sparse.csr_matvec_plain(data, indices, indptr, x)
+        scale = sparse.csr_matvec_plain(data.abs(), indices, indptr, x.abs()).max()
+        torch.cuda.synchronize()
+        err, relerr = _compare(got, want, scale)
+        (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: sparse.csr_matvec(data, indices, indptr, x)), \
+            time_ms(lambda: sparse.csr_matvec_plain(data, indices, indptr, x))
+        Ad = A if dtype == torch.float32 else A.to(dtype)
+        lib = time_eager_ms(lambda: torch.mv(Ad, x))
+        fields = row(err, ms, plain_ms, nnz * (isz + 4) + (n + 1) * 4 + 2 * n * isz, 2 * nnz, lib)
+        check_row('csr_matvec', 'ns_tri', dname, relerr,
+                  dict(fields, n=n, nnz=nnz, call_ms=call_ms))
+        if dtype == torch.float32:
+            results['csr_matvec'] = fields
+        # K7 with no map: the values are the CSR data
+        got = sparse.schur_diag_inverse_device(data, None, indices, indptr, n)
+        want = sparse.schur_diag_plain(data, None, indices, indptr, n)
+        torch.cuda.synchronize()
+        err, relerr = _compare(got, want)
+        (ms, call_ms), (plain_ms, _pc) = \
+            time_ms(lambda: sparse.schur_diag_inverse_device(data, None, indices, indptr, n)), \
+            time_ms(lambda: sparse.schur_diag_plain(data, None, indices, indptr, n))
+        # each input read once: value and column per nonzero, the row
+        # pointers; minv written once
+        fields = row(err, ms, plain_ms, nnz * (isz + 4) + (n + 1) * 4 + n * isz, 6 * nnz)
+        check_row('schur_diag_inverse_device', 'ns_tri csr', dname, relerr,
+                  dict(fields, n=n, nnz=nnz, call_ms=call_ms))
+        if dtype == torch.float32:
+            results['schur_diag_inverse_device[csr]'] = fields
+        del data, values
+        # K10 on BiCGStab vectors of the step's length; sums compared on the
+        # scale of their terms, the rest on their largest value
+        x, r, phat, shat, s, t, rhat, v, p = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+                                              for _ in range(9))
+        sc = tbi.scalars(dtype, dev)
+        sc[:tbi.EPS] = torch.as_tensor(rng.random(tbi.EPS) + 0.5, dtype=dtype, device=dev)
+
+        def both(kernel, plain, *args):
+            a = [u.clone() if isinstance(u, torch.Tensor) else u for u in args]
+            b = [u.clone() if isinstance(u, torch.Tensor) else u for u in args]
+            kernel(*a)
+            plain(*b)
+            torch.cuda.synchronize()
+            return a, b
+        checks = {}
+        a, b = both(tbi.bicg_dots, tbi.dots_plain, rhat, v, None, sc, tbi.RV)
+        checks['bicg_dots'] = [(a[3], b[3], (rhat * v).abs().sum())]
+        a, b = both(tbi.bicg_dots, tbi.dots_plain, t, t, s, sc, tbi.TT, tbi.TS)
+        checks['bicg_dots/two'] = [(a[3], b[3], (t * t).sum() + (t * s).abs().sum())]
+        a, b = both(tbi.bicg_s, tbi.s_plain, r, v, sc, s, tbi.RHO[0])
+        checks['bicg_s'] = [(a[3], b[3], None), (a[2], b[2], None)]
+        a, b = both(tbi.bicg_xr, tbi.xr_plain, x, r, phat, shat, s, t, rhat, sc)
+        checks['bicg_xr'] = [(a[0], b[0], None), (a[1], b[1], None), (a[7][:tbi.RR], b[7][:tbi.RR], None),
+                             (a[7], b[7], (a[1] * a[1]).sum() + (a[1] * rhat).abs().sum())]
+        a, b = both(tbi.bicg_p, tbi.p_plain, p, r, v, rhat, sc, False, *tbi.RHO)
+        checks['bicg_p'] = [(u, w, None) for u, w in zip(a[:5], b[:5])]
+        a, b = both(tbi.bicg_p, tbi.p_plain, p, r, v, rhat, sc, True, *tbi.RHO)
+        checks['bicg_p/breakdown'] = [(u, w, None) for u, w in zip(a[:5], b[:5])]
+        sc1, sc2, x1, x2, r1, r2, p1, p2 = sc.clone(), sc.clone(), x.clone(), x.clone(), r.clone(), r.clone(), \
+            p.clone(), p.clone()
+        timed = {  # kernel, plain, vectors moved, operations, library call
+            'bicg_dots': (lambda: tbi.bicg_dots(rhat, v, None, sc1, tbi.RV),
+                          lambda: tbi.dots_plain(rhat, v, None, sc2, tbi.RV), 2, 2, lambda: torch.dot(rhat, v)),
+            'bicg_dots/two': (lambda: tbi.bicg_dots(t, t, s, sc1, tbi.TT, tbi.TS),
+                              lambda: tbi.dots_plain(t, t, s, sc2, tbi.TT, tbi.TS), 2, 4, None),
+            'bicg_s': (lambda: tbi.bicg_s(r, v, sc1, s, tbi.RHO[0]),
+                       lambda: tbi.s_plain(r, v, sc2, s, tbi.RHO[0]), 3, 2, None),
+            'bicg_xr': (lambda: tbi.bicg_xr(x1, r1, phat, shat, s, t, rhat, sc1),
+                        lambda: tbi.xr_plain(x2, r2, phat, shat, s, t, rhat, sc2), 8, 10, None),
+            'bicg_p': (lambda: tbi.bicg_p(p1, r, v, rhat, sc1, False, *tbi.RHO),
+                       lambda: tbi.p_plain(p2, r, v, rhat, sc2, False, *tbi.RHO), 4, 4, None),
+            'bicg_p/breakdown': (lambda: tbi.bicg_p(p1, r, v, r1, sc1, True, *tbi.RHO),
+                                 lambda: tbi.p_plain(p2, r, v, r2, sc2, True, *tbi.RHO), 4, 0, None),
+        }
+        for name, triples in checks.items():
+            errs = [_compare(got, want, scale) for got, want, scale in triples]
+            err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
+            kernel, plain, nvec, flops, lib = timed[name]
+            (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
+            fields = row(err, ms, plain_ms, nvec * n * isz, flops * n,
+                         time_ms(lib)[0] if lib is not None else None)
+            check_row(name, 'ns_tri', dname, relerr, dict(fields, n=n, call_ms=call_ms))
+            if dtype == torch.float32 and '/' not in name:
+                results[name] = fields
+    return results
+
+
+def phase_ns_tri_parity(devices=('cuda', 'cpu')):
+    """The triangle step at 6x6 elements in float64 on the card (kernels)
+    and the CPU (plain versions), with both methods."""
+    import numpy
+    from nutils_tpu_torch.utils import config
+    out = {}
+    for device in devices:
+        with config.device(device):
+            system, args = build_ns(6, numpy.float64, 'triangle')
+            jac, res = system.assemble_jacobian_residual(args)
+            for method in TRI_METHODS:
+                out[device, method] = (jac.solve_leniently(res, solver=method, rtol=1e-3),
+                                       dict(jac._solve_stats))
+    for method in TRI_METHODS:
+        (xa, sa), (xb, sb) = (out[d, method] for d in devices)
+        rel = float(numpy.linalg.norm(xa - xb) / numpy.linalg.norm(xb))
+        emit('ns_tri_parity', method=method, ndofs=len(xb), rel_x=rel, tol=1e-8, devices=list(devices),
+             stats=[sa, sb])
+        if not (rel <= 1e-8 and sa['iters'] == sb['iters'] and sa['op_form'] == 'csr'):
+            raise AssertionError(f'card and CPU triangle steps ({method}) differ: {rel:.3e}, iterations '
+                                 f'{sa["iters"]} and {sb["iters"]}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -704,6 +954,17 @@ def main():
     torch.cuda.empty_cache()
     phase_ns_parity()
     launches.update(ns_launches)
+    tri_launches, system, jac, res, clean = phase_ns_tri()
+    measured.update(phase_ns_tri_kernels(system, jac))
+    phase_ns_profile(system, jac, res, clean, methods=TRI_METHODS, phase='ns_tri_profile')
+    del system, jac, res, clean
+    torch.cuda.empty_cache()
+    phase_ns_tri_parity()
+    # the kernels new on the triangle path count its launches; K7's CSR
+    # variant is the same wrapper, read on that path
+    launches.update({name: tri_launches[name] for name in ('csr_scatter', 'csr_matvec', 'bicg_dots', 'bicg_s',
+                                                           'bicg_xr', 'bicg_p')})
+    launches['schur_diag_inverse_device[csr]'] = tri_launches['schur_diag_inverse_device']
     emit('done', seconds=time.perf_counter() - t0)
     print(json.dumps({'kernels': [
         {'name': name, 'route': route, 'source': source, 'replaces': replaces, 'launches': launches[name],

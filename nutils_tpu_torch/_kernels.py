@@ -1,16 +1,17 @@
 '''Build, load and launch of the hand-written CUDA kernels.
 
 K1 (``csrc/stencil.cu``), K2 and K3 (``csrc/mg.cu``), K5
-(``csrc/blockgrid.cu``) and K7 (``csrc/schur.cu``) compile with ``nvcc`` for
+(``csrc/blockgrid.cu``), K7 (``csrc/schur.cu``), K8 (``csrc/csr_scatter.cu``)
+and K9 (``csrc/csr_spmv.cu``) compile with ``nvcc`` for
 ``sm_90a``, one ``nvcc`` per source, all started together, and link into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use, into ``build/nutils_tpu_torch/<hash of the sources and
 flags>/`` at the root of the checkout, so a change of any source rebuilds.
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``;
-:func:`launch` and :func:`call` turn a nonzero code into an exception.  K4
-and K6 are Triton and compile through Triton's own cache
-(``ops/_triton_cg.py``, ``ops/_triton_gmres.py``).
+:func:`launch` and :func:`call` turn a nonzero code into an exception.  K4,
+K6 and K10 are Triton and compile through Triton's own cache
+(``ops/_triton_cg.py``, ``ops/_triton_gmres.py``, ``ops/_triton_bicgstab.py``).
 '''
 
 import ctypes
@@ -44,6 +45,8 @@ _SIG = {
     'ntt_prolong_add': (_I, _P, _P, _I, _PI64, _PI64, _P),
     'ntt_blockgrid_matvec': (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     'ntt_schur_diag': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_double, _P),
+    'ntt_csr_scatter': (_I, _P, _P, _P, _P, _I, _P),
+    'ntt_csr_spmv': (_I, _P, _P, _P, _P, _P, _I, _P),
 }
 
 
@@ -169,6 +172,6 @@ def call(fn, ref, tensors, scalars=()):
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
         err = getattr(lib, fn)(0 if ref.dtype == torch.float32 else 1,
-                               *[t.data_ptr() for t in tensors], *scalars, stream)
+                               *[None if t is None else t.data_ptr() for t in tensors], *scalars, stream)
     if err:
         raise RuntimeError(f'{fn}: CUDA error {err}: {lib.ntt_error_string(err).decode()}')

@@ -92,6 +92,15 @@ class _CSRPattern:
         self.indices = numpy.asarray(indices)
 
 
+def csr_matrix_from_numpy(data, indices, indptr, shape, device=None, dtype=None):
+    '''A ``nutils_tpu`` CSR jacobian (``numpy.asarray(jac.data)``,
+    ``jac.indices``, ``jac.indptr``, ``jac.shape``) -> the port's ``Matrix``
+    with its values on ``device`` in ``dtype`` (default: the values' dtype).
+    Its device operator is routed as for an assembled CSR jacobian.'''
+    data = numpy.array(data, dtype=dtype)
+    return matrix.Matrix(indptr, indices, torch.as_tensor(data, device=_device(device)), shape)
+
+
 def blockgrid_matrix_from_numpy(data, indices, indptr, field_offsets, field_grids, device=None, dtype=None):
     '''A ``nutils_tpu`` block-grid jacobian's CSR values and pattern
     (``numpy.asarray(jac.data)``, ``jac.indices``, ``jac.indptr``,

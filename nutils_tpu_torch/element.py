@@ -427,7 +427,20 @@ def _simplex_lagrange(ndims, degree):
 def lagrange_coeffs(ref, degree):
     """Nodal (equispaced-lattice) Lagrange basis tables, same layout and dof
     order as ``bernstein_coeffs`` (reference: element.py
-    get_poly_coeffs('lagrange'), topology.py:1801 basis_lagrange)."""
+    get_poly_coeffs('lagrange'), topology.py:1801 basis_lagrange).  The
+    table depends on the reference type and degree only: it is computed once
+    for each and returned read-only."""
+    return _lagrange_table(type(ref), int(degree))
+
+
+@functools.lru_cache(maxsize=None)
+def _lagrange_table(reftype, degree):
+    table = _lagrange_of(reftype(), degree)
+    table.flags.writeable = False
+    return table
+
+
+def _lagrange_of(ref, degree):
     if isinstance(ref, (LineReference, TriangleReference, TetReference)):
         return _simplex_lagrange(ref.ndims, degree)
     if isinstance(ref, QuadReference):
@@ -445,7 +458,19 @@ def lagrange_coeffs(ref, degree):
 def bernstein_coeffs(ref, degree):
     """Per-reference Bernstein basis tables in tensor power layout, local dof
     order matching the reference (simplex: barycentric enumeration; tensor:
-    C-order products)."""
+    C-order products).  The table depends on the reference type and degree
+    only: it is computed once for each and returned read-only."""
+    return _bernstein_table(type(ref), int(degree))
+
+
+@functools.lru_cache(maxsize=None)
+def _bernstein_table(reftype, degree):
+    table = _bernstein_of(reftype(), degree)
+    table.flags.writeable = False
+    return table
+
+
+def _bernstein_of(ref, degree):
     if isinstance(ref, (LineReference, TriangleReference, TetReference)):
         return _simplex_bernstein(ref.ndims, degree)
     if isinstance(ref, QuadReference):

@@ -1823,6 +1823,11 @@ def field(name, *arrays, shape=(), dtype=float):
             size = int(numpy.prod(tuple(grid) + tuple(shape), dtype=numpy.int64))
             register_field_grid(name, size, tuple(grid) + tuple(shape), per)
             break
+    else:
+        # a field without a grid layout (an unstructured basis) replaces any
+        # earlier field of the same name and size: its hint would be stale
+        size = int(numpy.prod([asarray(a).shape[0] for a in arrays] + list(shape), dtype=numpy.int64))
+        _FIELD_GRIDS.pop((name, size), None)
     return dotarg(name, *arrays, shape=shape, dtype=dtype)
 
 
@@ -1833,8 +1838,9 @@ def field(name, *arrays, shape=(), dtype=float):
 # block-grid device operators and the multigrid setup.  Values are lists of
 # (size, grid, periodic) parts — one for plain fields, several for
 # composite (vectorized) fields whose dof vector concatenates sub-bases on
-# different grids.  Keyed by (name, flat size); a re-registration with a
-# conflicting layout poisons the key (the hint is dropped).
+# different grids.  Keyed by (name, flat size); the latest field of a name
+# and size holds the key, and a System reads its fields' layouts when it is
+# made.
 _FIELD_GRIDS = {}
 
 
@@ -1843,7 +1849,7 @@ def register_field_parts(name, size, parts):
     val = tuple((int(s), tuple(int(g) for g in grid),
                  tuple(bool(p) for p in per) + (False,) * (len(grid) - len(per)))
                 for s, grid, per in parts)
-    _FIELD_GRIDS[key] = val if _FIELD_GRIDS.get(key, val) == val else None
+    _FIELD_GRIDS[key] = val
 
 
 def register_field_grid(name, size, grid, periodic=()):

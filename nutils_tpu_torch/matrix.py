@@ -1,26 +1,31 @@
-'''Sparse matrices: host-built CSR pattern, stencil- and block-grid-form
-device operators and the refined device Krylov solves.
+'''Sparse matrices: host-built CSR pattern, the CSR, stencil- and
+block-grid-form device operators and the refined device Krylov solves.
 
-The part of ``nutils_tpu.matrix`` that the structured Laplace and
-Taylor-Hood Navier-Stokes slices reach.  The sparsity pattern is
-argument-independent and built once host-side (``SparsePattern``, numpy
-lexsort); assembly writes the jacobian straight into stencil weights
-(``_StencilMatrix``) or block-grid weights (``_BlockGridMatrix``), which go
-to the device solver with zero copies.  Solve backends:
+The part of ``nutils_tpu.matrix`` that the structured Laplace, the
+structured Taylor-Hood and the triangle Navier-Stokes slices reach.  The
+sparsity pattern is argument-independent and built once host-side
+(``SparsePattern``, numpy lexsort).  Assembly writes the jacobian straight
+into stencil weights (``_StencilMatrix``) or block-grid weights
+(``_BlockGridMatrix``), which go to the device solver with zero copies, or,
+on patterns with neither form, into CSR values on the device through the
+pattern's value scatter (kernel K8); a ``Matrix`` of CSR values routes its
+device operator as the JAX package does: stencil, else block-grid, else the
+CSR operand itself (kernel K9).  Solve backends:
 
 * ``direct`` — scipy sparse LU on the host (small systems);
-* ``cg`` and ``gmres`` — preconditioned Krylov on the device in the assembly
-  dtype, inside a float64 iterative refinement whose true residual is
-  computed on the device (``ops/sparse.refined_solve_op``).  Stencil
-  operators get the multigrid V-cycle, others the Schur-aware inverse
-  diagonal computed on the device (kernel K7); a multi-field system whose
-  diagonal scaling stalls is retried with the fieldsplit preconditioner
-  (velocity multigrid, pressure scaling).  Float64 is native on the card,
-  so the device residual is accepted under the same ``_accept`` contract as
-  the JAX package's host polish loop, which is not ported.
+* ``cg``, ``gmres`` and ``bicgstab`` — preconditioned Krylov on the device
+  in the assembly dtype, inside a float64 iterative refinement whose true
+  residual is computed on the device (``ops/sparse.refined_solve_op``).
+  Stencil operators get the multigrid V-cycle, others the Schur-aware
+  inverse diagonal computed on the device (kernel K7); a multi-field system
+  whose diagonal scaling stalls is retried with the fieldsplit
+  preconditioner (velocity multigrid, pressure scaling).  Float64 is native
+  on the card, so the device residual is accepted under the same
+  ``_accept`` contract as the JAX package's host polish loop, which is not
+  ported.
 
-BiCGStab, constrained (masked-operator) solves and unstructured operators
-are ROADMAP A3 and A6.
+The host scipy solvers, constrained (masked-operator) solves and block
+Jacobi are ROADMAP A3 and A6.
 '''
 
 import time
@@ -68,6 +73,30 @@ class SparsePattern:
         self.slot = numpy.empty(len(rows), dtype=numpy.int64)
         self.slot[order] = slot_sorted
         self.urows = urows
+        # the value scatter's plan: entries in slot order (lexsort is
+        # stable, so a slot's entries keep their original order) and each
+        # slot's first position in that order
+        self._order = order
+        self._segptr = numpy.append(numpy.flatnonzero(newpair), len(rs))
+
+    def scatter(self, values):
+        '''Device: accumulate a flat entry-value tensor into CSR data
+        (kernel K8 on a card; ``index_add_`` for a tensor on the CPU).  The
+        pattern's tables move to the device once and stay cached here.'''
+        from .ops.sparse import csr_scatter
+        tabs = getattr(self, '_scatter_tables', None)
+        if tabs is None or tabs[0].device != values.device:
+            if values.device.type == 'cpu':
+                # the plain version adds through each entry's slot
+                tabs = (torch.as_tensor(self._segptr), None, torch.as_tensor(self.slot))
+            else:
+                if len(self.slot) >= 2**31:
+                    raise ValueError('the value scatter indexes entries in 32 bits: 2^31 entries or more')
+                tabs = (torch.as_tensor(self._segptr.astype(numpy.int32), device=values.device),
+                        torch.as_tensor(self._order.astype(numpy.int32), device=values.device), None)
+            self._scatter_tables = tabs
+        segptr, order, slot = tabs
+        return csr_scatter(values, order, segptr, slot)
 
 
 def _host(a):
@@ -77,26 +106,39 @@ def _host(a):
 def device_csr_tables(pattern, csr_map, device):
     '''(csr_map, indices, indptr) of ``pattern`` as int32 tensors on
     ``device``: CSR value k of a matrix on the pattern is ``w[csr_map[k]]``
-    of its flat weight buffer.  The tables depend on the pattern only, so
-    they are uploaded once per device, cached on ``pattern`` and shared by
-    every Newton-step matrix and the fused step.'''
-    tabs = getattr(pattern, '_device_csr_tables', None)
-    if tabs is None or tabs[0].device != device:
-        tabs = pattern._device_csr_tables = tuple(
-            torch.as_tensor(numpy.asarray(a, dtype=numpy.int32), device=device)
-            for a in (csr_map, pattern.indices, pattern.indptr))
-    return tabs
+    of its flat weight buffer, or value k itself where ``csr_map`` is None
+    (a CSR matrix; the first entry is then None).  The tables depend on the
+    pattern only, so they are uploaded once per device, cached on
+    ``pattern`` and shared by every Newton-step matrix and the fused step.'''
+    def upload(a):
+        return torch.as_tensor(numpy.asarray(a, dtype=numpy.int32), device=device)
+    idx = getattr(pattern, '_device_index_tables', None)
+    if idx is None or idx[0].device != device:
+        idx = pattern._device_index_tables = (upload(pattern.indices), upload(pattern.indptr))
+    if csr_map is None:
+        return (None,) + idx
+    cmap = getattr(pattern, '_device_csr_map', None)
+    if cmap is None or cmap.device != device:
+        cmap = pattern._device_csr_map = upload(csr_map)
+    return (cmap,) + idx
 
 
 class Matrix:
     '''Square or rectangular CSR matrix with a solve (reference:
-    matrix/_base.py:33).'''
+    matrix/_base.py:33).  ``data`` is a numpy array or a tensor (assembly
+    leaves it on the device).'''
 
     def __init__(self, indptr, indices, data, shape):
         self.indptr = numpy.asarray(indptr)
         self.indices = numpy.asarray(indices)
         self.data = data
         self.shape = tuple(shape)
+
+    @classmethod
+    def from_pattern(cls, pattern, data):
+        m = cls(pattern.indptr, pattern.indices, data, pattern.shape)
+        m._pattern = pattern  # device-op plans and tables cache there across
+        return m              # Newton steps (constant pattern, fresh values)
 
     def _scipy(self):
         import scipy.sparse
@@ -163,6 +205,8 @@ class Matrix:
                 return self._solve_cg(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
             if solver == 'gmres':
                 return self._solve_gmres(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
+            if solver == 'bicgstab' and precon not in ('direct', 'splu', 'spilu', 'spilu0'):
+                return self._solve_bicgstab(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
         except ToleranceNotReached:
             if not fallback:
                 raise
@@ -173,7 +217,7 @@ class Matrix:
             x = self._solve_direct(rhs)
             self._solve_stats = {'method': 'direct', 'accepted_on_device': False, 'fallback_from': failed}
             return x
-        raise NotImplementedError(f'solver {solver!r} is not ported yet (ROADMAP A6)')
+        raise NotImplementedError(f'solver {solver!r} (the host scipy solvers) is not ported yet (ROADMAP A6)')
 
     def _solve_direct(self, rhs):
         import scipy.sparse.linalg
@@ -182,25 +226,93 @@ class Matrix:
         except RuntimeError as e:
             raise MatrixError(str(e)) from e
 
+    def _pattern_of(self):
+        '''Where the device tables and plans cache: the assembly's pattern,
+        or this matrix itself when it was built from CSR arrays.'''
+        return getattr(self, '_pattern', None) or getattr(self, '_pattern_src', None) or self
+
+    def _device_data(self):
+        '''CSR values as a tensor on the device: assembled values as they
+        are, host values uploaded once.'''
+        if isinstance(self.data, torch.Tensor):
+            return self.data
+        cached = getattr(self, '_device_data_cache', None)
+        if cached is None:
+            cached = self._device_data_cache = torch.as_tensor(numpy.asarray(self.data), device=config.torch_device())
+        return cached
+
     def _csr_tables(self):
-        '''(w, csr_map, indices, indptr) of a stencil- or block-grid-form
-        matrix on its device: the flat weight buffer and the pattern's int32
+        '''(w, csr_map, indices, indptr) on the device: a stencil- or
+        block-grid-form matrix's flat weight buffer and the pattern's int32
         tables (:func:`device_csr_tables`), so a fresh Newton jacobian
-        uploads nothing but its weights.'''
-        w = self._device_op()[1][0].reshape(-1)
-        cmap = self._csr_map
-        if callable(cmap):
-            cmap = self._csr_map = cmap()
-        pattern = getattr(self, '_pattern', None) or self._pattern_src
-        return (w,) + device_csr_tables(pattern, cmap, w.device)
+        uploads nothing but its weights; for a CSR matrix its values, None
+        and the tables.'''
+        cmap = getattr(self, '_csr_map', None)
+        if cmap is None:
+            w = self._device_data()
+        else:
+            w = self._device_op()[1][0].reshape(-1)
+            if callable(cmap):
+                cmap = self._csr_map = cmap()
+        return (w,) + device_csr_tables(self._pattern_of(), cmap, w.device)
+
+    def _device_op(self):
+        '''(mv_kind, operands) for the device Krylov drivers, routed as the
+        JAX package routes it (``nutils_tpu/matrix.py:230``) and cached: a
+        verified grid stencil (kernel K1), else a block-grid form (K5), else
+        the CSR operand itself, ``('csr',)`` with (data, indices, indptr)
+        (K9), whatever ``spmv`` layout the JAX package would pick (its
+        ``bell``, ``ell`` and ``csr`` forms are the TPU's layouts of one
+        function).  The plan depends on the pattern only and caches there.'''
+        cached = getattr(self, '_device_op_cache', None)
+        if cached is not None:
+            return cached
+        from .ops import blockgrid as _bg
+        from .ops import stencil as _st
+        pattern = self._pattern_of()
+        plan = getattr(pattern, '_device_op_plan', None)
+        if plan is None:
+            data = _host(self.data)
+            grids = getattr(self, '_field_grids', None)
+            form = bgform = None
+            if self.shape[0] == self.shape[1]:
+                if grids is not None and len(grids) == 1 and grids[0] is not None:
+                    # exact dof-grid hint from the solver: no inference
+                    form = _st.from_csr_grid(data, self.indices, self.indptr, grids[0][0])
+                if form is None:
+                    form = _st.from_csr(data, self.indices, self.indptr, self.shape[0])
+                if form is None and getattr(self, '_field_offsets', None) is not None:
+                    bgform = _bg.detect(data, self.indices, self.indptr, self._field_offsets, grids=grids)
+            if form is not None:
+                plan = ('stencil', (form.ks, form.shape, form.slot, form.rows, form.periodic))
+            elif bgform is not None:
+                woff = numpy.concatenate([[0], numpy.cumsum(bgform.fill[0])[:-1]]).astype(numpy.int64)
+                plan = ('blockgrid', (bgform.meta, bgform.fill, tuple(int(o) for o in woff)))
+            else:
+                plan = ('csr', None)
+            pattern._device_op_plan = plan
+        kind, payload = plan
+        if kind == 'stencil':
+            ks, gshape, slot, rows, per = payload
+            w = _st.refill(ks, gshape, slot, rows, _host(self.data))
+            cached = (('stencil', ks, gshape, per), (torch.as_tensor(w, device=config.torch_device()),))
+        elif kind == 'blockgrid':
+            meta, fill, woff = payload
+            w = numpy.concatenate([a.ravel() for a in _bg.refill(fill, _host(self.data), meta)])
+            cached = (('blockgrid', meta, woff), (torch.as_tensor(w, device=config.torch_device()),))
+        else:
+            data, _cmap, indices, indptr = self._csr_tables()
+            cached = (('csr',), (data, indices, indptr))
+        self._device_op_cache = cached
+        return cached
 
     def _device_precon(self, precon, preconargs):
         '''(kind, minv) for the device Krylov solvers.  The default is the
         Schur-aware inverse diagonal: plain Jacobi on rows with a healthy
         diagonal, a diagonal Schur-complement estimate on rows whose diagonal
         is negligible (the pressure block of saddle-point systems).  It is
-        computed on the device (kernel K7) from the device weights and
-        pattern-cached tables, and cached per matrix.'''
+        computed on the device (kernel K7) from the device weights or CSR
+        values and pattern-cached tables, and cached per matrix.'''
         if precon is None:
             cached = getattr(self, '_device_precon_cache', None)
             if cached is None:
@@ -219,14 +331,20 @@ class Matrix:
             return cached
         from .ops import mg as _mg
         from .ops import stencil as _stencil
-        out = None
+        out = form = None
         if getattr(self, '_ks', None) is not None:
             # stencil-form assembled matrix: exact metadata, zero inference
             W = int(numpy.prod([2 * k + 1 for k in self._ks]))
-            w = _host(self._w)
-            form = _stencil.StencilForm(w.reshape((W,) + self._grid), self._ks, self._grid, None, None,
-                                        self._periodic)
-            out = _mg.setup(form, self.data, self.indices, self.indptr, dtype=w.dtype,
+            form = _stencil.StencilForm(_host(self._w).reshape((W,) + self._grid), self._ks, self._grid, None,
+                                        None, self._periodic)
+        elif self.shape[0] == self.shape[1]:
+            grids = getattr(self, '_field_grids', None)
+            if grids is not None and len(grids) == 1 and grids[0] is not None:
+                form = _stencil.from_csr_grid(_host(self.data), self.indices, self.indptr, grids[0][0])
+            if form is None:
+                form = _stencil.from_csr(_host(self.data), self.indices, self.indptr, self.shape[0])
+        if form is not None:
+            out = _mg.setup(form, _host(self.data), self.indices, self.indptr, dtype=_host(self.data).dtype,
                             device=self._device_op()[1][0].device)
         self._mg_cache = out
         return out
@@ -266,9 +384,9 @@ class Matrix:
                 hint = grids[i] if grids is not None else None
                 form = _st.from_csr_grid(Ab.data, Ab.indices, Ab.indptr, hint[0]) if hint is not None else None
                 if form is None:
-                    raise NotImplementedError('stencil inference of a field block without a registered grid '
-                                              'is not ported yet (ROADMAP A6)')
-                mg = _mgmod.setup(form, Ab.data, Ab.indices, Ab.indptr, dtype=dt, device=dev)
+                    form = _st.from_csr(Ab.data, Ab.indices, Ab.indptr, hi - lo)
+                if form is not None:
+                    mg = _mgmod.setup(form, Ab.data, Ab.indices, Ab.indptr, dtype=dt, device=dev)
             if mg is not None:
                 kinds.append(('mg', mg.levels))
                 ops.append((mg.ws, mg.dinvs, mg.coarse_inv))
@@ -304,7 +422,7 @@ class Matrix:
     def _device_krylov(self, method, rhs, *, atol, rtol, maxiter=None, restart=100,
                        precon=None, preconargs=None):
         '''Mixed-precision iteratively refined device Krylov solve: the inner
-        CG or GMRES runs on the device in the assembly dtype inside a float64
+        CG, GMRES or BiCGStab runs on the device in the assembly dtype inside a float64
         refinement loop whose true residual is computed on the device
         (ops/sparse.refined_solve_op).  Stencil operators get the geometric
         multigrid V-cycle as preconditioner (it also preconditions GMRES on
@@ -312,13 +430,13 @@ class Matrix:
         multi-field solve that the diagonal scaling does not carry to the
         target is retried with the fieldsplit preconditioner.  The float64
         device residual is the acceptance test (``_accept``).'''
-        from .ops.sparse import refined_solve_op
+        from .ops.sparse import refined_solve_op, widen
         b64 = numpy.asarray(rhs, dtype=numpy.float64)
         target = max(atol, rtol * float(numpy.linalg.norm(b64)))
         mv_kind, op = self._device_op()
         dt = op[0].dtype
         kind = minv = None
-        if method in ('cg', 'gmres') and precon is None and mv_kind[0] == 'stencil':
+        if precon is None and mv_kind[0] == 'stencil':
             mg = self._mg()
             if mg is not None:
                 kind = ('mg', mg.levels)
@@ -338,7 +456,7 @@ class Matrix:
         cap = maxiter or max(1024, int(16 * numpy.sqrt(n)))
         op64 = getattr(self, '_op64_cache', None)
         if op64 is None:
-            op64 = self._op64_cache = tuple(o.to(torch.float64) for o in op)
+            op64 = self._op64_cache = widen(op)
         t0 = time.perf_counter()
         x, resnorm, iters, rounds = refined_solve_op(
             method, mv_kind, op, b64, target=target, maxiter=cap, restart=restart,
@@ -379,6 +497,12 @@ class Matrix:
         refinement (see _device_krylov).'''
         return self._device_krylov('gmres', rhs, atol=atol, rtol=rtol, maxiter=maxiter,
                                    restart=restart, precon=precon, preconargs=preconargs)
+
+    def _solve_bicgstab(self, rhs, *, atol, rtol, maxiter=None, precon=None, preconargs=None):
+        '''Right-preconditioned BiCGStab: device inner loop + float64
+        iterative refinement (see _device_krylov).'''
+        return self._device_krylov('bicgstab', rhs, atol=atol, rtol=rtol, maxiter=maxiter,
+                                   precon=precon, preconargs=preconargs)
 
 
 class _StencilMatrix(Matrix):

@@ -1,5 +1,6 @@
 '''Mesh generators (reference: mesh.py:34 rectilinear, :686 unitsquare):
-the structured ones of ``nutils_tpu.mesh``.'''
+the structured ones of ``nutils_tpu.mesh`` and its triangle and mixed unit
+squares.'''
 
 import numpy
 
@@ -64,10 +65,81 @@ def line(nodes, periodic=False, space='X', bnames=None):
 
 
 def unitsquare(nelems, etype='square'):
-    '''Unit square [0,1]^2 as structured squares.  The triangle, mixed and
-    multipatch variants of ``nutils_tpu.mesh.unitsquare`` need unstructured
-    and multipatch topologies (ROADMAP A6, A11).'''
+    '''Unit square [0,1]^2 as structured squares, unstructured triangles, or a
+    mixed triangle/square mesh (reference: mesh.py:686; the triangle/mixed
+    vertex and element numbering is the JAX package's, so dof orderings and
+    sparsity patterns match).  The multipatch variant needs multipatch
+    topologies (ROADMAP A11).'''
+    from . import element
+    from .unstructured import UnstructuredTopology
+
     if etype in ('square', 'rectilinear'):
         topo, geom = rectilinear([nelems, nelems])
         return topo, geom / nelems
-    raise NotImplementedError(f'unitsquare etype {etype!r} is not ported yet (ROADMAP A6)')
+    if etype == 'multipatch':
+        raise NotImplementedError('unitsquare etype \'multipatch\' is not ported yet (ROADMAP A11)')
+    if etype not in ('triangle', 'mixed'):
+        raise ValueError(f'invalid element type {etype!r}')
+
+    n = nelems
+    # vertex grid: id = i*(n+1)+j at coordinates (i, j); each cell (i, j),
+    # row-major, split into two sorted-vertex triangles with a
+    # parity-dependent diagonal
+    i, j = numpy.divmod(numpy.arange(n * n), n)
+    v00 = i * (n + 1) + j
+    v01, v10 = v00 + 1, v00 + (n + 1)
+    v11 = v10 + 1
+    even = (i % 2 == j % 2)[:, None]
+    first = numpy.where(even, numpy.stack([v00, v01, v10], 1), numpy.stack([v00, v01, v11], 1))
+    second = numpy.where(even, numpy.stack([v01, v10, v11], 1), numpy.stack([v00, v10, v11], 1))
+    elem_verts = numpy.stack([first, second], axis=1).reshape(2 * n * n, 3)
+    tri = element.simplex(2)
+    refs = [tri] * len(elem_verts)
+
+    if etype == 'mixed':
+        square = element.hypercube(2)
+        elem_verts = list(elem_verts)
+        isquares = [i * n + j for i in range(n) for j in range(n) if i % 2 == j % 3]
+        for cell in sorted(isquares, reverse=True):
+            merged = numpy.unique(numpy.concatenate([elem_verts[2 * cell], elem_verts[2 * cell + 1]]))
+            refs[2 * cell:2 * cell + 2] = [square]
+            elem_verts[2 * cell:2 * cell + 2] = [merged]
+
+    v = numpy.arange(n + 1, dtype=float)
+    coords = numeric.meshgrid(v, v).reshape(2, -1).T
+    topo = UnstructuredTopology('X', refs, elem_verts, (n + 1) ** 2)
+    basis = topo.basis('std', degree=1)
+    if etype == 'mixed':
+        # coords permuted to the basis's merged dof numbering (first
+        # appearance order of vertices over elements; reference: mesh.py:748)
+        order = numpy.argsort(numpy.unique(numpy.concatenate(elem_verts), return_index=True)[1])
+        coords = coords[order]
+    geom = function.matmul(basis, function.asarray(coords))
+
+    # named boundary groups from boundary-edge centroids
+    btopo = topo.boundary
+    bsmp = btopo.sample('_centroid', None)
+    x, y = numpy.asarray(bsmp.eval(geom)).T
+    perm = _sample_elem_perm(bsmp, btopo)
+    masks = {'left': x < .1, 'right': x > n - .1, 'bottom': y < .1, 'top': y > n - .1}
+    groups = {}
+    for name, m in masks.items():
+        medges = numpy.zeros(len(btopo), dtype=bool)
+        medges[perm] = m
+        groups[name] = btopo[medges]
+    topo = topo.withboundary(**groups)
+    return topo, geom / n
+
+
+def _sample_elem_perm(smp, topo):
+    '''Map sample row order to topology element order (chained samples order
+    elements bucket-by-bucket).'''
+    from .sample import ChainedSample
+    if not isinstance(smp, ChainedSample):
+        return numpy.arange(len(topo))
+    buckets = {}
+    for k, (ielem, iedge) in enumerate(topo._edges):
+        ref = topo.parent._refs[ielem]
+        key = (type(ref).__name__, type(ref.edges[iedge][3]).__name__)
+        buckets.setdefault(key, []).append(k)
+    return numpy.asarray([k for rows in buckets.values() for k in rows])

@@ -108,11 +108,11 @@ def _phase_index(ph, qr):
 def detect(data, indices, indptr, offsets, grids=None, max_shift=4, max_phase_terms=128):
     '''Detect the block-grid form of an n x n CSR matrix whose dof vector is
     partitioned at ``offsets`` (field boundaries); returns a BlockGridForm
-    or None.  ``grids`` carries per-field (shape, periodic) layout hints
-    registered by the solver; inferring a field's grid from its diagonal
-    block is not ported (ROADMAP A6).  Each block of ``meta`` is
-    ``(i, j, gr, gc, qr, qc, amin, awid, wrap, phmeta)`` with its grid axes
-    in natural order.  O(nnz) vectorized host work.'''
+    or None.  ``grids`` optionally carries per-field (shape, periodic)
+    layout hints registered by the solver (exact, alias-free); fields
+    without a hint infer their grid from the diagonal block.  Each block
+    of ``meta`` is ``(i, j, gr, gc, qr, qc, amin, awid, wrap, phmeta)`` with
+    its grid axes in natural order.  O(nnz) vectorized host work.'''
     data = numpy.asarray(data)
     indices = numpy.asarray(indices).astype(numpy.int64)
     indptr = numpy.asarray(indptr)
@@ -124,13 +124,22 @@ def detect(data, indices, indptr, offsets, grids=None, max_shift=4, max_phase_te
     counts = numpy.diff(indptr)
     rows = numpy.repeat(numpy.arange(n), counts)
 
+    # field grids: solver hints, else inferred from the diagonal blocks
+    import scipy.sparse
+    from . import stencil as _stencil
+    A = scipy.sparse.csr_matrix((data, indices, indptr), shape=(n, n))
     fieldshapes = []
     for i in range(F):
         hint = grids[i] if grids is not None and i < len(grids) else None
-        if hint is None:
-            raise NotImplementedError('block-grid detection without registered field grids '
-                                      '(grid inference from CSR) is not ported yet (ROADMAP A6)')
-        fieldshapes.append(tuple(int(s) for s in hint[0]))
+        if hint is not None:
+            fieldshapes.append(tuple(int(s) for s in hint[0]))
+            continue
+        lo, hi = offsets[i], offsets[i + 1]
+        Ab = A[lo:hi, lo:hi].tocsr()
+        form = _stencil.from_csr(Ab.data, Ab.indices, Ab.indptr, hi - lo) if Ab.nnz else None
+        if form is None:
+            return None
+        fieldshapes.append(form.shape)
 
     rfield = numpy.searchsorted(offsets, rows, side='right') - 1
     cfield = numpy.searchsorted(offsets, indices, side='right') - 1

@@ -1,10 +1,11 @@
 '''Device Krylov solvers with float64 iterative refinement: preconditioned
-CG and left-preconditioned restarted GMRES(m), and the Schur-aware inverse
-diagonal.
+CG, left-preconditioned restarted GMRES(m) and right-preconditioned
+BiCGStab, the unstructured (CSR) operator, the CSR value scatter of
+assembly, and the Schur-aware inverse diagonal.
 
-The CG and GMRES parts of ``nutils_tpu.ops.sparse`` with their exact
-semantics.  The JAX package runs the loops as ``lax.while_loop``; here they
-are Python loops over device tensors.
+The CG, GMRES and BiCGStab parts of ``nutils_tpu.ops.sparse`` with their
+exact semantics.  The JAX package runs the loops as ``lax.while_loop``; here
+they are Python loops over device tensors.
 
 * CG: a true-residual refresh every 64 iterations and whenever the recursion
   claims convergence, a stall exit after four refreshes without 1%
@@ -18,14 +19,22 @@ are Python loops over device tensors.
   (``ops/_triton_gmres.py``); each inner iteration reads the new Hessenberg
   column (j + 2 values) and does the rotations on the host in the working
   dtype, and each restart solves the small triangular system there.
+* BiCGStab: two matvecs and two preconditioner applies an iteration, the
+  CG driver's refresh and stall discipline, and a restart of the recurrence
+  from the true residual on a rho or omega breakdown or a refuted claim.
+  The scalars stay on the device; each iteration reads three of them
+  (omega, |r|^2, rhat . r) for the exit, refresh and breakdown tests.
+  Vector work: kernel K10 (``ops/_triton_bicgstab.py``).
 * The Schur-aware inverse diagonal is kernel K7 (``csrc/schur.cu``,
   :func:`schur_diag_inverse_device`).
 
-Operators: the stencil matvec K1 (``ops/stencil.py``) and the block-grid
-matvec K5 (``ops/blockgrid.py``).  Preconditioners: ``diag``,
-``('mg', levels)`` (kernels K2 and K3, ``ops/mg.py``) and
-``('fieldsplit', offsets, subkinds)``.  BiCGStab, block Jacobi and the
-unstructured operator forms are ROADMAP A6.
+Operators: the stencil matvec K1 (``ops/stencil.py``), the block-grid
+matvec K5 (``ops/blockgrid.py``) and the CSR matvec K9 (``csrc/csr_spmv.cu``,
+:func:`csr_matvec`).  Preconditioners: ``diag``, ``('mg', levels)``
+(kernels K2 and K3, ``ops/mg.py``) and ``('fieldsplit', offsets,
+subkinds)``.  The CSR value scatter of assembly is kernel K8
+(``csrc/csr_scatter.cu``, :func:`csr_scatter`).  Block Jacobi and the masked
+operator are ROADMAP A6 and A3.
 '''
 
 import math
@@ -37,6 +46,7 @@ from .. import _kernels
 from . import blockgrid as _bg
 from . import mg as _mg
 from . import stencil as _st
+from . import _triton_bicgstab as _bicg
 from ._triton_cg import cg_axpy_norm, cg_dot, cg_xpby
 from ._triton_gmres import gmres_combine, gmres_normalize, gmres_project, gmres_update
 
@@ -69,8 +79,8 @@ def schur_diag_inverse(data, indices, indptr, n, weak_rel=1e-3):
 def schur_diag_plain(w, csr_map, indices, indptr, n, weak_rel=1e-3):
     '''Plain torch version of :func:`schur_diag_inverse_device`: the segment
     sums of ``nutils_tpu.ops.sparse._schur_diag_kernel`` over the CSR values
-    ``w[csr_map]``.'''
-    data = w[csr_map.long()]
+    ``w[csr_map]``, or ``w`` itself where ``csr_map`` is None.'''
+    data = w if csr_map is None else w[csr_map.long()]
     idx = indices.long()
     rows = torch.repeat_interleave(torch.arange(n, device=w.device), torch.diff(indptr.long()),
                                    output_size=idx.shape[0])
@@ -88,7 +98,9 @@ def schur_diag_plain(w, csr_map, indices, indptr, n, weak_rel=1e-3):
 
 def schur_diag_inverse_device(w, csr_map, indices, indptr, n, weak_rel=1e-3):
     '''Device Schur-aware inverse diagonal of the CSR operator whose values
-    are ``w[csr_map]`` (kernel K7, ``csrc/schur.cu``), replacing
+    are ``w[csr_map]`` (a stencil or block-grid weight buffer), or ``w``
+    itself where ``csr_map`` is None (a CSR matrix): kernel K7
+    (``csrc/schur.cu``), replacing
     ``nutils_tpu.ops.sparse._schur_diag_kernel``.  ``csr_map``, ``indices``
     and ``indptr`` are int32 tables beside ``w``.  Memory-bound: two passes
     over the nonzeros (map, value, column) and one over the rows; one warp
@@ -98,11 +110,15 @@ def schur_diag_inverse_device(w, csr_map, indices, indptr, n, weak_rel=1e-3):
     if w.device.type == 'cpu':
         return schur_diag_plain(w, csr_map, indices, indptr, n, weak_rel)
     nnz = int(indices.shape[0])
-    for name, t, shape in (('csr_map', csr_map, (nnz,)), ('indices', indices, (nnz,)), ('indptr', indptr, (n + 1,))):
+    tables = (('indices', indices, (nnz,)), ('indptr', indptr, (n + 1,)))
+    if csr_map is not None:
+        tables += (('csr_map', csr_map, (nnz,)),)
+    for name, t, shape in tables:
         if t.device != w.device or t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f'schur_diag_inverse_device: {name} must be a contiguous int32 tensor of shape '
                              f'{shape} on {w.device}')
-    _kernels.check_operands('schur_diag_inverse_device', w, (w.shape[0],), w.dtype)
+    _kernels.check_operands('schur_diag_inverse_device', w, (w.shape[0] if csr_map is not None else nnz,),
+                            w.dtype)
     d = torch.empty(n, dtype=w.dtype, device=w.device)
     dsafe = torch.empty_like(d)
     strong = torch.empty(n, dtype=torch.uint8, device=w.device)
@@ -114,6 +130,75 @@ def schur_diag_inverse_device(w, csr_map, indices, indptr, n, weak_rel=1e-3):
 
 
 schur_diag_inverse_device.launches = 0
+
+
+# ------------------------------------------------------------ CSR kernels
+
+def csr_matvec_plain(data, indices, indptr, x):
+    '''Plain torch version of :func:`csr_matvec`: an ``index_add_`` of
+    ``data * x[indices]`` into the rows.'''
+    n = indptr.shape[0] - 1
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device), torch.diff(indptr.long()),
+                                   output_size=indices.shape[0])
+    return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(0, rows, data * x[indices.long()])
+
+
+def csr_matvec(data, indices, indptr, x):
+    '''``y = A x`` for the CSR matrix (data, indices, indptr), kernel K9
+    (``csrc/csr_spmv.cu``), replacing the unstructured operator kinds of
+    ``nutils_tpu.ops.sparse._make_matvec`` (csr, ell, bell: the TPU's
+    layouts of one function).  ``indices`` and ``indptr`` are int32 beside
+    ``data``.  Memory-bound: four lanes per row with a fixed-order shuffle
+    reduction.  Tensors on the CPU take :func:`csr_matvec_plain`; a
+    CUDA tensor launches the kernel or raises.'''
+    if x.device.type == 'cpu':
+        return csr_matvec_plain(data, indices, indptr, x)
+    n = int(indptr.shape[0]) - 1
+    nnz = int(indices.shape[0])
+    for name, t, shape in (('indices', indices, (nnz,)), ('indptr', indptr, (n + 1,))):
+        if t.device != x.device or t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f'csr_matvec: {name} must be a contiguous int32 tensor of shape {shape} on {x.device}')
+    _kernels.check_operands('csr_matvec', x, (n,), x.dtype, data=(data, (nnz,)))
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    _kernels.call('ntt_csr_spmv', x, [data, indices, indptr, x, y], scalars=(n,))
+    csr_matvec.launches += 1
+    return y
+
+
+csr_matvec.launches = 0
+
+
+def scatter_plain(values, slot, nnz):
+    '''Plain torch version of :func:`csr_scatter`:
+    ``zeros(nnz).index_add_(0, slot, values)``.'''
+    return torch.zeros(nnz, dtype=values.dtype, device=values.device).index_add_(0, slot, values)
+
+
+def csr_scatter(values, order, segptr, slot=None):
+    '''CSR values ``data[s] = sum(values[j] for slot[j] == s)`` of an
+    assembly's entry values, kernel K8 (``csrc/csr_scatter.cu``), replacing
+    ``nutils_tpu.matrix.SparsePattern.scatter``.  ``order`` (the entries
+    sorted by slot, stable) and ``segptr`` (each slot's first position in
+    ``order``, nnz + 1) are int32 tables of the pattern; one thread per slot
+    sums its entries in that order, so the result is bitwise reproducible.
+    Tensors on the CPU take :func:`scatter_plain` with ``slot`` (int64); a
+    CUDA tensor launches the kernel or raises.'''
+    nnz = int(segptr.shape[0]) - 1
+    if values.device.type == 'cpu':
+        return scatter_plain(values, slot, nnz)
+    m = int(values.shape[0])
+    for name, t, shape in (('order', order, (m,)), ('segptr', segptr, (nnz + 1,))):
+        if t.device != values.device or t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f'csr_scatter: {name} must be a contiguous int32 tensor of shape {shape} on '
+                             f'{values.device}')
+    _kernels.check_operands('csr_scatter', values, (m,), values.dtype)
+    data = torch.empty(nnz, dtype=values.dtype, device=values.device)
+    _kernels.call('ntt_csr_scatter', values, [values, order, segptr, data], scalars=(nnz,))
+    csr_scatter.launches += 1
+    return data
+
+
+csr_scatter.launches = 0
 
 
 # ------------------------------------------------------------ precon apply
@@ -156,6 +241,11 @@ def _make_matvec(mv_kind):
         def mv(op, x):
             (w,) = op
             return _bg.blockgrid_matvec(w, x, meta, woff)
+        return mv
+    if mv_kind[0] == 'csr':
+        def mv(op, x):
+            data, indices, indptr = op
+            return csr_matvec(data, indices, indptr, x)
         return mv
     raise NotImplementedError(f'matvec kind {mv_kind[0]!r} is not ported yet (ROADMAP A4, A6)')
 
@@ -291,11 +381,75 @@ def gmres_op(mv_kind, op, b, *, atol, maxiter, restart=60, minv, precon='diag'):
     return _gmres_driver(precon, restart, mv_kind)(tuple(op), b, minv, atol, maxiter)
 
 
+# ------------------------------------------------------------ BiCGStab
+
+def _bicgstab_driver(precon_kind, mv_kind):
+    apply_m = _precon_apply(precon_kind)
+    matvec_op = _make_matvec(mv_kind)
+
+    def run(op, b, minv, atol, maxiter):
+        '''Returns (x, resnorm, iters); b is not modified.  The scalars
+        (rho, alpha, omega and the dot products) stay in the device slots
+        of K10; the host reads omega, |r|^2 and rhat . r once an iteration
+        and decides the refresh, the breakdown and the exit in the working
+        dtype, with the JAX package's expressions.'''
+        dt = numpy.float32 if b.dtype == torch.float32 else numpy.float64
+        eps = dt(numpy.finfo(dt).tiny * 16)
+        atol = dt(atol)
+        maxiter = int(maxiter)
+        sc = _bicg.scalars(b.dtype, b.device)
+        x = torch.zeros_like(b)
+        r, rhat, p = b.clone(), b.clone(), b.clone()
+        v, s = torch.zeros_like(b), torch.empty_like(b)
+        # rho = b . b, and |r|^2 = rhat . r = b . b
+        _bicg.bicg_dots(b, b, b, sc, _bicg.RR, _bicg.RHOR)
+        sc[_bicg.RHO[0]] = sc[_bicg.RR]
+        rnorm = lastres = numpy.sqrt(dt(float(sc[_bicg.RR])))
+        k = stall = 0
+        while rnorm > atol and k < maxiter and stall < 4:
+            rho_old, rho_new = _bicg.RHO[k % 2], _bicg.RHO[1 - k % 2]
+            phat = apply_m(minv, p)
+            v = matvec_op(op, phat)
+            _bicg.bicg_dots(rhat, v, None, sc, _bicg.RV)
+            _bicg.bicg_s(r, v, sc, s, rho_old)
+            shat = apply_m(minv, s)
+            t = matvec_op(op, shat)
+            _bicg.bicg_dots(t, t, s, sc, _bicg.TT, _bicg.TS)
+            _bicg.bicg_xr(x, r, phat, shat, s, t, rhat, sc)
+            omega, rr, rhor = (dt(val) for val in sc[_bicg.OMEGA:_bicg.RHOR + 1].tolist())
+            claimed = numpy.sqrt(rr) <= atol
+            need = (k + 1) % 64 == 0 or claimed
+            if need:
+                # true-residual refresh on a 64-iteration schedule and
+                # whenever the recursion claims convergence
+                torch.sub(b, matvec_op(op, x), out=r)
+                _bicg.bicg_dots(r, r, rhat, sc, _bicg.RR, _bicg.RHOR)
+                rr, rhor = (dt(val) for val in sc[_bicg.RR:_bicg.RHOR + 1].tolist())
+            rnorm = numpy.sqrt(rr)
+            if need:
+                stall = stall + 1 if rnorm > dt(0.99) * lastres else 0
+                lastres = rnorm
+            # rho/omega breakdown or refuted convergence: restart the
+            # recurrence from the true residual (rhat = r, p = r)
+            breakdown = abs(rhor) <= eps or abs(omega) <= eps or claimed
+            _bicg.bicg_p(p, r, v, rhat, sc, breakdown, rho_old, rho_new)
+            k += 1
+        return x, float(rnorm), k
+
+    return run
+
+
+def bicgstab_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag'):
+    '''Right-preconditioned BiCGStab over an operator-kind/operand pair;
+    returns (x, resnorm, iters).'''
+    return _bicgstab_driver(precon, mv_kind)(tuple(op), b, minv, atol, maxiter)
+
+
 # ---------------------------------------- iterative refinement (device)
 
 def _refined_driver(method, precon_kind, mv_kind, restart):
-    '''The mixed-precision refined solve: the working-precision inner CG or
-    GMRES nested in a float64 outer refinement loop whose true residual is
+    '''The mixed-precision refined solve: the working-precision inner CG,
+    GMRES or BiCGStab nested in a float64 outer refinement loop whose true residual is
     computed on the device with the operator weights widened to float64
     (exact, since they were assembled in the lower precision).'''
     matvec_op = _make_matvec(mv_kind)
@@ -303,8 +457,10 @@ def _refined_driver(method, precon_kind, mv_kind, restart):
         inner = _cg_driver(precon_kind, mv_kind)
     elif method == 'gmres':
         inner = _gmres_driver(precon_kind, restart, mv_kind)
+    elif method == 'bicgstab':
+        inner = _bicgstab_driver(precon_kind, mv_kind)
     else:
-        raise NotImplementedError(f'refined {method} is not ported yet (ROADMAP A6)')
+        raise ValueError(f'unknown refined method {method!r}')
 
     def run(op32, op64, b64, minv, target, inner_floor, cap, maxrounds):
         dt32 = op32[0].dtype
@@ -334,6 +490,12 @@ def _refined_driver(method, precon_kind, mv_kind, restart):
     return run
 
 
+def widen(op):
+    '''The float64 operator of the refinement: floating operands widened,
+    index tables (CSR columns and row pointers) as they are.'''
+    return tuple(o.to(torch.float64) if o.is_floating_point() else o for o in op)
+
+
 def refined_solve_op(method, mv_kind, op, b, *, target, maxiter, restart=100,
                      minv, precon, op64=None, maxrounds=30):
     '''Refined device solve; returns (x64 numpy, resnorm, iters, rounds).
@@ -352,7 +514,7 @@ def refined_solve_device(method, mv_kind, op, b, *, target, maxiter, restart=100
         restart = max(2, min(int(restart), int(len(b))))
     run = _refined_driver(method, precon, mv_kind, restart)
     if op64 is None:
-        op64 = tuple(o.to(torch.float64) for o in op)
+        op64 = widen(op)
     b64 = torch.as_tensor(b, device=op[0].device).to(torch.float64)
     inner_floor = float(numpy.sqrt(numpy.finfo(numpy.float32 if op[0].dtype == torch.float32
                                                else numpy.float64).eps))

@@ -10,9 +10,10 @@ stencil:
 with zero padding or periodic wrap per axis.  The matvec is the device
 kernel K1 (``csrc/stencil.cu``, :func:`stencil_matvec`); :func:`matvec_plain`
 is its plain torch version (the literal port of ``_matvec_fn``), taken for
-tensors on the CPU.  :func:`from_csr_grid` (used by the multigrid set-up)
-is pattern-verified host work: every nonzero must decompose into in-window
-per-axis shifts.
+tensors on the CPU.  :func:`from_csr` (grid inference) and
+:func:`from_csr_grid` (a known grid, used by the multigrid set-up) are
+pattern-verified host work: every nonzero must decompose into in-window
+per-axis shifts; an unstructured pattern gives None.
 '''
 
 import itertools
@@ -69,6 +70,182 @@ def _decompose(d, pitches, dims, rows, max_k=None):
         A.append(a)
         periodic.append(wrap)
     return numpy.ones(len(d), dtype=bool), A, periodic
+
+
+def _pitch_dims(pitches_desc, n):
+    '''Grid dims (outermost first) for descending pitches; None when the
+    pitch tower is not a divisor chain of n.'''
+    dims = []
+    prev = n
+    for p in pitches_desc:
+        if prev % p:
+            return None
+        dims.append(prev // p)
+        prev = p
+    if prev != 1:
+        # innermost pitch > 1: dofs within a pitch-1 residue never couple;
+        # expose them as an extra innermost axis with zero window
+        dims.append(prev)
+        return dims, list(pitches_desc) + [1]
+    return dims, list(pitches_desc)
+
+
+def from_csr(data, indices, indptr, n, max_k=3, max_dim=4, sample=8192):
+    '''Detect a d-dimensional grid-stencil layout of an n x n CSR matrix;
+    returns a StencilForm or None.  O(nnz) vectorized host work; pitch
+    candidates are pre-screened on the (small) set of unique offsets and a
+    row sample so unstructured matrices reject cheaply.'''
+    data = numpy.asarray(data)
+    indices = numpy.asarray(indices)
+    if n == 0 or len(data) == 0:
+        return None
+    counts = numpy.diff(indptr)
+    rows = numpy.repeat(numpy.arange(n), counts)
+    d = indices.astype(numpy.int64) - rows
+    offs = numpy.unique(numpy.abs(d))
+    offs = offs[offs > 0]
+    if len(offs) == 0:
+        return None  # pure diagonal: Jacobi handles it better than a stencil
+    step = max(1, len(d) // sample)
+    d_s, rows_s = d[::step], rows[::step]
+
+    def covered(o, pitches_desc):
+        rem = int(o)
+        for p in pitches_desc:
+            a = (rem + (p >> 1)) // p
+            if abs(a) > max_k:
+                return False
+            rem -= a * p
+        return rem == 0
+
+    wrap_k = [None]  # pass 1: plain deltas only; pass 2 allows periodic wrap
+
+    def verify(pitches_desc):
+        pd = _pitch_dims(pitches_desc, n)
+        if pd is None:
+            return None
+        dims, pitches = pd
+        if len(dims) > max_dim:
+            return None
+        _ok, A_s, _per = _decompose(d_s, pitches, dims, rows_s, wrap_k[0])
+        if max((int(numpy.abs(a).max(initial=0)) for a in A_s), default=0) > max_k:
+            return None
+        _ok, A, periodic = _decompose(d, pitches, dims, rows, wrap_k[0])
+        ks = [int(numpy.abs(a).max(initial=0)) for a in A]
+        if max(ks, default=0) > max_k:
+            return None
+        if int(numpy.prod([2 * k + 1 for k in ks])) > (2 * max_k + 1) ** 3:
+            return None  # window too large to slice-enumerate profitably
+        return dims, pitches, ks, A, periodic
+
+    budget = [96]  # total candidate verifications across the whole search
+    hits = []      # all verified towers; the best by quality() wins
+
+    def quality(dims_, ks_, per_):
+        ncoarsen = sum(1 for s, p in zip(dims_, per_) if s >= 5 and s % 2 == 1 and not p)
+        W_ = int(numpy.prod([2 * k + 1 for k in ks_]))
+        return (ncoarsen, -W_)
+
+    def search(pitches_desc):
+        # smallest positive offset not representable with current pitches
+        # (round-division screen; the exact verify is the arbiter, so try it
+        # on the current tower first whenever the screen is in doubt)
+        unc = [o for o in offs if not covered(o, pitches_desc)]
+        if not unc or pitches_desc:
+            if budget[0] <= 0:
+                return
+            budget[0] -= 1
+            res = verify(pitches_desc)
+            if res is not None:
+                hits.append(res)
+            if not unc:
+                return
+        if len(pitches_desc) + 1 > max_dim or len(hits) >= 6:
+            return
+        o = int(unc[0])
+        span = max_k * sum(pitches_desc) if pitches_desc else 0
+        # a new outermost pitch p satisfies o = a*p + c for some covered
+        # combination c (|c| <= span) and a in [1, max_k]; overlapping
+        # windows are legal (the decomposition is exact coordinate deltas),
+        # so the only structural requirements are monotone growth and the
+        # divisor-chain check inside verify
+        prev = pitches_desc[0] if pitches_desc else 0
+        cands, seen = [], set()
+        for a in range(1, max_k + 1):            # likely candidates first:
+            for ac in range(span + 1):           # a=1 and small |c| (higher
+                for c in (ac, -ac) if ac else (0,):  # a aliases the grid)
+                    if (o - c) % a == 0:
+                        p = (o - c) // a
+                        # every pitch divides the next and the outermost
+                        # divides n, so any viable pitch divides n and is a
+                        # multiple of the previous one
+                        if p > prev and n % p == 0 and (prev == 0 or p % prev == 0) \
+                                and p not in seen:
+                            seen.add(p)
+                            cands.append(p)
+        for p in cands:
+            if budget[0] <= 0 or len(hits) >= 6:
+                return
+            search([p] + pitches_desc)
+
+    # prefer non-wrapped factorizations: a periodic reading can rescue an
+    # aliased tower, so wrap is only allowed once the plain pass fails;
+    # among verified towers the best hierarchy (most coarsenable axes, then
+    # smallest window) wins — aliased factorizations are exact but bloat
+    # the window and defeat multigrid
+    search([])
+    if not hits:
+        wrap_k[0] = max_k
+        budget[0] = 96
+        search([])
+    if not hits:
+        return None
+    dims, pitches, ks, A, periodic = max(hits, key=lambda h: quality(h[0], h[2], h[4]))
+
+    # axis-refinement pass: a flat factorization can merge a short inner
+    # axis (vector components) into a spatial one — exact for the matvec,
+    # but the merged even axis blocks multigrid coarsening.  Split even
+    # axes into (odd, short) pairs when the finer tower also verifies AND
+    # actually improves the hierarchy (more coarsenable axes, or the same
+    # with a smaller window).
+    changed = True
+    while changed:
+        changed = False
+        for ax in range(len(dims)):
+            if dims[ax] % 2 == 0:
+                for s in (2, 3, 4):
+                    if dims[ax] % s == 0 and (dims[ax] // s) % 2 == 1 and dims[ax] // s > 1:
+                        rdims = dims[:ax] + [dims[ax] // s, s] + dims[ax + 1:]
+                        rpitches = [int(numpy.prod(rdims[i + 1:])) for i in range(len(rdims))]
+                        res = verify(rpitches) if len(rdims) <= max_dim else None
+                        if res is not None and quality(res[0], res[2], res[4]) \
+                                > quality(dims, ks, periodic):
+                            dims, pitches, ks, A, periodic = res
+                            changed = True
+                            break
+                if changed:
+                    break
+    windows = [2 * k + 1 for k in ks]
+    W = int(numpy.prod(windows))
+    slot = numpy.zeros(len(d), dtype=numpy.int64)
+    for a, k, wdim in zip(A, ks, windows):
+        slot = slot * wdim + (a + k)
+    w = numpy.zeros((W, n), dtype=data.dtype)
+    w[slot, rows] = data
+    return StencilForm(w.reshape([W] + dims), tuple(ks), tuple(dims), slot, rows,
+                       tuple(periodic))
+
+
+def refill(ks, shape, slot, rows, data):
+    '''Rebuild the stencil weight array from fresh CSR values using a cached
+    (slot, rows) plan — the per-Newton-step path when the sparsity pattern is
+    constant and only values change (no re-detection).'''
+    data = numpy.asarray(data)
+    n = int(numpy.prod(shape))
+    W = int(numpy.prod([2 * k + 1 for k in ks]))
+    w = numpy.zeros((W, n), dtype=data.dtype)
+    w[slot, rows] = data
+    return w.reshape([W] + list(shape))
 
 
 def from_csr_grid(data, indices, indptr, shape, max_k=3):

@@ -22,11 +22,13 @@ match it exactly.  The traces are torch:
 Multi-field structured systems (Taylor-Hood velocity and pressure) assemble
 into block-grid weights (``_plan_blockgrid_jacobian``, ``ops/blockgrid.py``),
 in the natural axis order of each block: the JAX package's axis
-permutation for the TPU's tiling is not ported.  ``fused_step_op`` is the
-assemble + Schur diagonal + refined GMRES step as a plain composition.
-Element-chunked assembly (more than ``config.assembly_chunk`` elements in a
-batch), CSR jacobians and the solution methods (Newton etc.) are ROADMAP
-A2, A6 and A5.
+permutation for the TPU's tiling is not ported.  A jacobian with neither
+form (an unstructured mesh) assembles into CSR values on the device through
+the pattern's value scatter (kernel K8, ``SparsePattern.scatter``).
+``fused_step_op`` is the assemble + Schur diagonal + refined GMRES step of
+block-grid systems as a plain composition.  Element-chunked assembly (more
+than ``config.assembly_chunk`` elements in a batch) and the solution methods
+(Newton etc.) are ROADMAP A2 and A5.
 '''
 
 import functools
@@ -655,8 +657,8 @@ class System:
     the trial space) or a residual with explicit trial/test argument names:
 
     The port carries assembly (``assemble_jacobian_residual`` and friends)
-    of systems whose jacobian has the stencil form; the Newton-class
-    methods of ``System.solve`` are ROADMAP A5.
+    in stencil, block-grid and CSR form; the Newton-class methods of
+    ``System.solve`` are ROADMAP A5.
     '''
 
     def __init__(self, residual, /, trial, test=None):
@@ -775,6 +777,9 @@ class System:
             self._blocks.append(chunks)
 
         self._cache = {}
+        # the trials' registered dof layouts, read now: a later field of the
+        # same name and size replaces the registration
+        self._fields = self._field_partition()
 
     # -------------------------------------------------------- helpers
 
@@ -1050,7 +1055,7 @@ class System:
         from .ops import blockgrid as bg
         if self._ntest != self._ntrial or not segs2d:
             return None
-        offsets, grids = self._field_partition()
+        offsets, grids = self._fields
         if len(grids) < 2 or any(g is None for g in grids):
             return None
         form = bg.detect(numpy.ones(pattern.nnz), pattern.indices, pattern.indptr,
@@ -1104,6 +1109,11 @@ class System:
             if reduce_axes:
                 V = V.sum(dim=reduce_axes)
             vals.append(V)
+        if jplan is None:
+            # CSR form: the entries in pattern order, summed into their CSR
+            # slots (kernel K8)
+            return pattern.scatter(torch.cat([V.reshape(-1) for V in vals]) if len(vals) > 1
+                                   else vals[0].reshape(-1))
         # direct stencil- or block-grid-form assembly: values land in the
         # flat weight buffer through static slice adds (grid-affine
         # segments) or small constant-table adds, into a zeroed buffer after
@@ -1122,10 +1132,6 @@ class System:
         fn = self._cache.get(which)
         if fn is None:
             self._check_batch_size()
-            jplan = self._jac_layout[2]
-            if jplan is None and which == 'jacres':
-                raise NotImplementedError('this jacobian has neither stencil nor block-grid form; CSR '
-                                          'jacobians are not ported yet (ROADMAP A6)')
             trace = {'residual': self._residual_trace,
                      'jacres': lambda args, tables: (self._jacobian_trace(args, tables),
                                                      self._residual_trace(args, tables))}[which]
@@ -1133,6 +1139,16 @@ class System:
         return fn
 
     def _wrap_matrix(self, pattern, jplan, data):
+        if jplan is None:
+            m = matrix.Matrix.from_pattern(pattern.get(), data)
+            # the field partition: multi-field systems may have a block-grid
+            # operator, and single-field ones skip grid inference
+            # (matrix._device_op, _fieldsplit)
+            offsets, grids = self._fields
+            m._field_grids = tuple(grids)
+            if len(grids) > 1:
+                m._field_offsets = tuple(offsets)
+            return m
         if jplan['form'] == 'stencil':
             return matrix._StencilMatrix(pattern, data, jplan['ks'], jplan['grid'],
                                          jplan['csr_map'], jplan.get('periodic'))

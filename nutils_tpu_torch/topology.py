@@ -2,8 +2,9 @@
 
 The structured part of ``nutils_tpu.topology`` (copied): a topology produces
 batched sample *tables* (root coordinates, parent indices, affine maps,
-normals) host-side, in numpy.  Hierarchical, trimmed, unstructured and
-tensor-product topologies are not ported yet (ROADMAP A6, A11).
+normals) host-side, in numpy.  Unstructured topologies are in
+``unstructured.py``; hierarchical, trimmed and tensor-product topologies are
+not ported yet (ROADMAP A6, A11).
 '''
 
 import functools
@@ -51,6 +52,16 @@ class Topology:
     @property
     def boundary(self):
         raise NotImplementedError
+
+    def withboundary(self, **bgroups):
+        '''Attach named boundary groups; string values refer to existing
+        groups (reference: topology.py:734).'''
+        resolved = {}
+        for name, val in bgroups.items():
+            if isinstance(val, str):
+                val = self.boundary[val]
+            resolved[name] = val
+        return _WithGroupsTopology(self, resolved)
 
     # ------------------------------------------------------ subsets, refinement
 
@@ -329,6 +340,63 @@ class _StructuredBoundary(Topology):
 
     def basis(self, btype='std', degree=1, **kwargs):
         return self.parent.basis(btype, degree, **kwargs)
+
+
+class _WithGroupsTopology(Topology):
+    '''Topology wrapper with user-defined named boundary groups
+    (reference: topology.py:734 withboundary).'''
+
+    def __init__(self, parent, bgroups):
+        super().__init__(parent.space, parent.ndims)
+        self.parent = parent
+        self._bgroups = bgroups
+
+    def __getitem__(self, item):
+        return self.parent[item]
+
+    def __len__(self):
+        return len(self.parent)
+
+    def __getattr__(self, name):
+        return getattr(self.parent, name)
+
+    @property
+    def interfaces(self):
+        return self.parent.interfaces
+
+    @property
+    def refined(self):
+        return self.parent.refined
+
+    def sample(self, ischeme, degree=None):
+        return self.parent.sample(ischeme, degree)
+
+    def basis(self, btype='std', degree=1, **kwargs):
+        return self.parent.basis(btype, degree, **kwargs)
+
+    @functools.cached_property
+    def boundary(self):
+        '''The full boundary (each face once); named groups resolve through
+        aliases so whole-boundary integrals do not double count faces that
+        also appear in a group (reference: boundary groups are subsets of the
+        boundary, topology.py:734).'''
+        pbnd = self.parent.boundary
+        parts = dict(getattr(pbnd, 'parts', {}))
+        if parts:
+            return UnionTopology(self.space, self.ndims - 1, parts, aliases=self._bgroups)
+        if hasattr(pbnd, '_edges'):
+            # unstructured parent: named groups are edge subsets of the full
+            # boundary; an unnamed remainder keeps whole-boundary integrals
+            # and constraints on every exterior edge
+            named = set()
+            for g in self._bgroups.values():
+                named.update(getattr(g, '_edges', ()))
+            rest = [e for e in pbnd._edges if e not in named]
+            parts = dict(self._bgroups)
+            if rest:
+                parts['_unnamed'] = type(pbnd)(pbnd.parent, rest)
+            return UnionTopology(self.space, self.ndims - 1, parts)
+        return UnionTopology(self.space, self.ndims - 1, self._bgroups)
 
 
 class UnionTopology(Topology):

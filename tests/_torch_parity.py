@@ -56,14 +56,14 @@ def _taylor_hood_namespace(pkg, topo, geom):
     return ns
 
 
-def build_ns(pkg, nelems, dtype=numpy.float64):
+def build_ns(pkg, nelems, dtype=numpy.float64, etype='square'):
     """The bench's Navier-Stokes Newton step (``bench.build_ns``): Taylor-Hood
-    P2/P1 implicit-Euler step on the unit square, convection linearized at a
-    random state.  Returns (system, args); leaves ``config.floatx`` at
-    ``dtype``."""
+    P2/P1 implicit-Euler step on the unit square of ``etype`` elements,
+    convection linearized at a random state.  Returns (system, args); leaves
+    ``config.floatx`` at ``dtype``."""
     function, mesh, solver, config = modules(pkg)
     config.floatx.value = dtype
-    topo, geom = mesh.unitsquare(nelems, 'square')
+    topo, geom = mesh.unitsquare(nelems, etype)
     ns = _taylor_hood_namespace(pkg, topo, geom)
     ns.δ = function.eye(2)
     ns.u0_i = 'sin(x_0) cos(x_1) δ_i0 - cos(x_0) sin(x_1) δ_i1'  # prior state (divergence-free)
@@ -78,6 +78,12 @@ def build_ns(pkg, nelems, dtype=numpy.float64):
     args = {t: 0.1 * rng.standard_normal(shape)
             for t, shape in zip(system.trials, system.trial_shapes)}
     return system, args
+
+
+def build_ns_tri(pkg, nelems, dtype=numpy.float64):
+    """``build_ns``'s weak form on ``unitsquare(nelems, 'triangle')``: the
+    unstructured triangle slice, whose jacobian has CSR form."""
+    return build_ns(pkg, nelems, dtype, etype='triangle')
 
 
 def build_th_periodic(pkg, nelems):

@@ -37,7 +37,7 @@ from nutils_tpu_torch.expression import Namespace
 from nutils_tpu_torch.solver import System
 from nutils_tpu_torch.utils import config
 with config.device('cpu'):
-    topo, geom = mesh.unitsquare(6, 'square')
+    topo, geom = mesh.unitsquare(6, %(etype)r)
     ns = Namespace()
     ns.x = geom
     ns.define_for('x', gradient='∇', jacobians=('dV',))
@@ -56,9 +56,10 @@ with config.device('cpu'):
     rng = numpy.random.default_rng(0)
     args = {t: 0.1 * rng.standard_normal(s) for t, s in zip(system.trials, system.trial_shapes)}
     jac, res = system.assemble_jacobian_residual(args)
-    dx = jac.solve_leniently(res, solver='gmres', rtol=1e-3)
-assert jac._solve_stats['op_form'] == 'blockgrid' and jac._solve_stats['method'] == 'gmres'
-assert numpy.linalg.norm(res - jac @ dx) <= 1e-3 * numpy.linalg.norm(res)
+    for method in %(methods)r:
+        dx = jac.solve_leniently(res, solver=method, rtol=1e-3)
+        assert jac._solve_stats['op_form'] == %(form)r and jac._solve_stats['method'] == method
+        assert numpy.linalg.norm(res - jac @ dx) <= 1e-3 * numpy.linalg.norm(res)
 print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'nutils_tpu'
              or m.startswith('nutils_tpu.')))
 '''
@@ -79,7 +80,15 @@ def test_no_jax_after_a_solve():
 
 def test_no_jax_after_a_navier_stokes_step():
     # the block-grid assembly and the GMRES solve with the Schur diagonal
-    out = _run_alone(_NS_SCRIPT)
+    out = _run_alone(_NS_SCRIPT % dict(etype='square', methods=['gmres'], form='blockgrid'))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]'
+
+
+def test_no_jax_after_a_triangle_navier_stokes_step():
+    # the unstructured mesh, the CSR assembly through the value scatter, and
+    # the GMRES and BiCGStab solves on the CSR operator
+    out = _run_alone(_NS_SCRIPT % dict(etype='triangle', methods=['gmres', 'bicgstab'], form='csr'))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == '[]'
 

@@ -1,4 +1,4 @@
-'''The hand kernels of nutils_tpu_torch (K1-K7) against their plain PyTorch
+'''The hand kernels of nutils_tpu_torch (K1-K10) against their plain PyTorch
 versions, on a CUDA card.  This file imports no jax, so it runs where the
 card is:
 
@@ -12,6 +12,8 @@ import numpy
 import pytest
 import torch
 
+from nutils_tpu_torch import matrix
+from nutils_tpu_torch.ops import _triton_bicgstab as tbi
 from nutils_tpu_torch.ops import _triton_cg as tcg
 from nutils_tpu_torch.ops import _triton_gmres as tgm
 from nutils_tpu_torch.ops import blockgrid, mg, sparse, stencil
@@ -165,8 +167,9 @@ def test_gmres_kernels(cuda, j, dtype, tol):
     assert _rel(tgm.gmres_combine(V, j + 1, h, x1), tgm.combine_plain(V, j + 1, h, x2)) <= tol
 
 
+@pytest.mark.parametrize('mapped', [True, False])
 @pytest.mark.parametrize('dtype,tol', TOLS)
-def test_schur_diag(cuda, dtype, tol):
+def test_schur_diag(cuda, dtype, tol, mapped):
     # random CSR with strong rows and weak (near-zero diagonal) rows, its
     # values scattered through a map into a larger buffer
     import scipy.sparse
@@ -184,6 +187,9 @@ def test_schur_diag(cuda, dtype, tol):
     args = [torch.as_tensor(a, device=cuda) for a in (wbuf.astype(numpy.float64), cmap.astype(numpy.int32),
                                                       A.indices.astype(numpy.int32), A.indptr.astype(numpy.int32))]
     args[0] = args[0].to(dtype)
+    if not mapped:
+        # the CSR form: the values themselves, no map
+        args[:2] = [args[0][args[1].long()], None]
     launches = sparse.schur_diag_inverse_device.launches
     got = sparse.schur_diag_inverse_device(*args, n)
     assert sparse.schur_diag_inverse_device.launches == launches + 1
@@ -209,3 +215,114 @@ def test_cuda_ns_step_goes_through_the_kernels(cuda):
     (xa, ia), (xb, ib) = out
     assert ia == ib
     assert numpy.linalg.norm(xa - xb) <= 1e-8 * numpy.linalg.norm(xb)
+
+
+def _random_csr(n, rowlen, seed):
+    """A random n x n CSR matrix with rows of 0..2*rowlen entries (sorted,
+    distinct columns): (data, indices, indptr) as numpy arrays."""
+    import scipy.sparse
+    rng = numpy.random.default_rng(seed)
+    counts = rng.integers(0, 2 * rowlen + 1, n)
+    rows = numpy.repeat(numpy.arange(n), counts)
+    cols = rng.integers(0, n, len(rows))
+    A = scipy.sparse.csr_matrix((rng.standard_normal(len(rows)), (rows, cols)), shape=(n, n))
+    A.sum_duplicates()
+    return A.data, A.indices.astype(numpy.int32), A.indptr.astype(numpy.int32)
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('rowlen', [3, 29])
+def test_csr_matvec(cuda, rowlen, dtype, tol):
+    # rows of 0..6 entries (fewer than K9's four lanes, empty rows included)
+    # and of 0..58, the triangle operator's range
+    data, indices, indptr = _random_csr(30011, rowlen, 7 + rowlen)
+    x = numpy.random.default_rng(8).standard_normal(30011)
+    data, x = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (data, x))
+    indices, indptr = (torch.as_tensor(a, device=cuda) for a in (indices, indptr))
+    launches = sparse.csr_matvec.launches
+    got = sparse.csr_matvec(data, indices, indptr, x)
+    assert sparse.csr_matvec.launches == launches + 1
+    assert _rel(got, sparse.csr_matvec_plain(data, indices, indptr, x)) <= tol
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+def test_csr_scatter(cuda, dtype, tol):
+    # COO entries with repeats into their CSR slots: K8 against index_add_,
+    # and bitwise the same on a second launch
+    rng = numpy.random.default_rng(9)
+    n, m = 5003, 200000
+    rows, cols = rng.integers(0, n, m), rng.integers(0, n // 50, m)
+    pattern = matrix.SparsePattern(rows, cols, (n, n // 50))
+    values = torch.as_tensor(rng.standard_normal(m), dtype=dtype, device=cuda)
+    launches = sparse.csr_scatter.launches
+    got = pattern.scatter(values)
+    assert sparse.csr_scatter.launches == launches + 1
+    want = sparse.scatter_plain(values, torch.as_tensor(pattern.slot, device=cuda), pattern.nnz)
+    assert _rel(got, want) <= tol
+    assert torch.equal(got, pattern.scatter(values))
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('breakdown', [False, True])
+def test_bicgstab_kernels(cuda, dtype, tol, breakdown):
+    # each K10 kernel against its plain version on the same inputs; sums on
+    # the scale of their terms, the rest on their largest value
+    rng = numpy.random.default_rng(10)
+    n = 100003
+    x, r, phat, shat, s, t, rhat, v, p = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+                                          for _ in range(9))
+    sc = tbi.scalars(dtype, cuda)
+    sc[:tbi.EPS] = torch.as_tensor(rng.random(tbi.EPS) + 0.5, dtype=dtype, device=cuda)
+
+    def both(kernel, plain, *args):
+        a = [u.clone() if isinstance(u, torch.Tensor) else u for u in args]
+        b = [u.clone() if isinstance(u, torch.Tensor) else u for u in args]
+        kernel(*a)
+        plain(*b)
+        return a, b
+
+    def close(got, want, scale=None):
+        err = float((got - want).abs().max())
+        return err <= tol * (float(want.abs().max()) if scale is None else scale)
+
+    a, b = both(tbi.bicg_dots, tbi.dots_plain, t, t, s, sc, tbi.TT, tbi.TS)
+    assert close(a[3], b[3], float((t * t).sum() + (t * s).abs().sum()))
+    a, b = both(tbi.bicg_dots, tbi.dots_plain, rhat, v, None, sc, tbi.RV)
+    assert close(a[3], b[3], float((rhat * v).abs().sum()))
+    a, b = both(tbi.bicg_s, tbi.s_plain, r, v, sc, s, tbi.RHO[0])
+    assert close(a[3], b[3]) and close(a[2], b[2])
+    a, b = both(tbi.bicg_xr, tbi.xr_plain, x, r, phat, shat, s, t, rhat, sc)
+    assert all(close(u, w) for u, w in zip(a[:2], b[:2]))
+    assert close(a[7][:tbi.RR], b[7][:tbi.RR])
+    assert close(a[7], b[7], float((a[1] * a[1]).sum() + (a[1] * rhat).abs().sum()))
+    a, b = both(tbi.bicg_p, tbi.p_plain, p, r, v, rhat, sc, breakdown, tbi.RHO[0], tbi.RHO[1])
+    assert all(close(u, w) for u, w in zip(a[:5], b[:5]))
+
+
+def test_cuda_ns_tri_step_goes_through_the_kernels(cuda):
+    # the triangle Navier-Stokes step at 6x6 in float64 on the card: K6-K10
+    # launch, and the GMRES and BiCGStab solutions are the CPU's (plain
+    # versions) to 1e-8, in as many iterations
+    import _torch_parity as tp
+    from nutils_tpu_torch.utils import config
+    wrappers = {'gmres': [tgm.gmres_project, tgm.gmres_update, tgm.gmres_normalize, tgm.gmres_combine],
+                'bicgstab': [tbi.bicg_dots, tbi.bicg_s, tbi.bicg_xr, tbi.bicg_p]}
+    shared = [sparse.csr_scatter, sparse.csr_matvec, sparse.schur_diag_inverse_device]
+    out = {}
+    for device in ('cuda', 'cpu'):
+        with config.device(device):
+            system, args = tp.build_ns_tri('nutils_tpu_torch', 6, numpy.float64)
+            before = [wr.launches for wr in shared]
+            jac, res = system.assemble_jacobian_residual(args)
+            for method, own in wrappers.items():
+                own_before = [wr.launches for wr in own]
+                out[device, method] = (jac.solve_leniently(res, solver=method, rtol=1e-3),
+                                       dict(jac._solve_stats))
+                if device == 'cuda':
+                    assert all(wr.launches > b for wr, b in zip(own, own_before)), method
+            if device == 'cuda':
+                assert all(wr.launches > b for wr, b in zip(shared, before))
+    for method in wrappers:
+        (xa, sa), (xb, sb) = out['cuda', method], out['cpu', method]
+        assert sa['op_form'] == 'csr' and sa['accepted_on_device'] and sa['iters'] == sb['iters']
+        assert numpy.linalg.norm(xa - xb) <= 1e-8 * numpy.linalg.norm(xb)
