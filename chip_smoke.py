@@ -23,10 +23,12 @@ Phases, each printing JSON lines:
    CPU (plain versions): the solutions agree to 1e-8 relative.
 6. ns       — the bench's Taylor-Hood Navier-Stokes Newton step at
    983,403 dofs in float32: System, block-grid planning, assembly, the
-   device Schur diagonal, refined GMRES to rtol 1e-3 and the fused step,
-   through the kernels (launch counts read around the run); then K5-K7
-   against their plain versions at the step's shapes, and a profile of one
-   warm assembly and one warm solve.
+   device Schur diagonal, K5's compact plan and operand, refined GMRES to
+   rtol 1e-3 and the fused step, through the kernels (launch counts read
+   around the run); then K5-K7 against their plain versions at the step's
+   shapes (K5 also against the literal port on the weight buffer, and
+   cuSPARSE in float32 and float64), and a profile of one warm assembly and
+   one warm solve.
 7. ns_parity — the step at 6x6 elements in float64 on the card and on the
    CPU: the solutions agree to 1e-8 relative, in as many iterations.
 8. ns_tri   — the same Newton step on ``unitsquare(330, 'triangle')``
@@ -34,8 +36,9 @@ Phases, each printing JSON lines:
    assembly through the value scatter K8, the device Schur diagonal on CSR
    values (K7), refined GMRES and refined BiCGStab to rtol 1e-3 on the CSR
    operator (K9, K6, K10), through the kernels (launch counts read around
-   the run), and a profile of one warm assembly and one warm solve of each
-   method.
+   the run; the residual's rows with no slice plan sum through K8 too, and
+   two assemblies are bitwise equal), and a profile of one warm assembly
+   and one warm solve of each method.
 9. ns_tri_kernels — K7 on CSR values and K8-K10 against their plain
    versions at the triangle step's shapes.
 10. ns_tri_parity — the triangle step at 6x6 elements in float64 on the
@@ -392,7 +395,7 @@ def phase_kernels(device='cuda'):
             'cg_axpy_norm': (lambda: tcg.cg_axpy_norm(x1, r1, p, ap, alpha),
                              lambda: tcg.axpy_norm_plain(x2, r2, p, ap, alpha), 6 * n, 6 * n, None),
             'cg_xpby': (lambda: tcg.cg_xpby(p1, z, alpha), lambda: tcg.xpby_plain(p2, z, alpha), 3 * n, 2 * n,
-                        None),
+                        lambda: torch.addcmul(z, alpha, p1)),
         }
         for name, triples in compared.items():
             errs = [_compare(got, want, scale) for got, want, scale in triples]
@@ -529,6 +532,10 @@ def phase_ns(nelems=330, device='cuda'):
         torch.cuda.reset_peak_memory_stats()
         t_jacres, (jac, res) = _sync_time(lambda: system.assemble_jacobian_residual(args))
         t_precon, _minv = _sync_time(lambda: jac._device_precon(None, None))
+        # K5's plan (host, once per pattern) and the compact operand (one
+        # gather per matrix)
+        t_k5_plan, _plan = _sync_time(jac._k5_plan)
+        t_pack, _op = _sync_time(jac._device_op)
         t_solve, dx = _sync_time(lambda: jac.solve_leniently(res, solver='gmres', rtol=1e-3))
         stats = dict(jac._solve_stats)
         t_solve_again, _dx = _sync_time(lambda: jac.solve_leniently(res, solver='gmres', rtol=1e-3))
@@ -543,8 +550,8 @@ def phase_ns(nelems=330, device='cuda'):
     rel_residual = float(numpy.linalg.norm(res - jdx)) / norm_res
     rel_residual_fused = float(numpy.linalg.norm(res - jac @ dxf)) / norm_res
     emit('ns', ndofs=ndofs, t_system=t_system, t_pattern=t_pattern, t_jacres=t_jacres, t_precon=t_precon,
-         t_solve=t_solve, t_solve_again=t_solve_again, t_step_fused_first=t_step_fused_first,
-         t_step_fused=t_step_fused, iters_fused=int(itf), resnorm_fused=rnf, solve_stats=stats,
+         t_k5_plan=t_k5_plan, t_pack=t_pack, t_solve=t_solve, t_solve_again=t_solve_again,
+         t_step_fused_first=t_step_fused_first, t_step_fused=t_step_fused, iters_fused=int(itf), resnorm_fused=rnf, solve_stats=stats,
          rel_residual=rel_residual, rel_residual_fused=rel_residual_fused, t_host_matvec=t_host_matvec,
          peak_device_bytes=peak, launches=launches)
     if dx.shape != (ndofs,) or not numpy.isfinite(dx).all() or not numpy.isfinite(dxf).all():
@@ -557,12 +564,13 @@ def phase_ns(nelems=330, device='cuda'):
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the Navier-Stokes path: {missing}')
-    return launches, system, jac, res, clean
+    return launches, system, jac, res, clean, dict(t_k5_plan=t_k5_plan, t_pack=t_pack)
 
 
-def phase_ns_kernels(jac):
+def phase_ns_kernels(jac, k5_setup):
     """K5-K7 against their plain versions at the Navier-Stokes step's shapes
-    (its block-grid operator, its CSR tables, GMRES vectors of its length);
+    (its block-grid operator and K5's plan, whose host and pack times
+    ``k5_setup`` holds, its CSR tables, GMRES vectors of its length);
     returns {name: row} in float32."""
     import numpy
     import torch
@@ -570,44 +578,52 @@ def phase_ns_kernels(jac):
     from nutils_tpu_torch.ops import blockgrid, sparse
     rng = numpy.random.default_rng(1)
     results = {}
-    (_kind, meta, woff), (w32,) = jac._device_op()
+    (_kind, plan), _op = jac._device_op()
+    meta, woff = plan.meta, plan.woff
+    w32 = jac._weights()
     dev = w32.device
-    n = int(meta[0][-1])
-    shapes = blockgrid._w_shapes(meta)
-    nweights = sum(int(numpy.prod(shp)) for shp in shapes)
+    n = plan.n
     _w, cmap, indices, indptr = jac._csr_tables()
     nnz = int(indices.shape[0])
-    # K5's bound counts the values the operator holds (nnz), not the slots
-    # of its weight buffer; beside it, the weights in the (block, phase)
-    # slots that hold at least one nonzero, which a kernel that skips the
-    # structurally empty slots would read
-    npix = torch.tensor([int(numpy.prod(shp[1:])) for shp in shapes], device=dev)
-    start = torch.tensor(woff, device=dev)
-    k = torch.searchsorted(start, cmap.long(), right=True) - 1
-    slot = (cmap.long() - start[k]) // npix[k]
-    smax = max(shp[0] for shp in shapes)
-    live_weights = int(npix[torch.unique(k * smax + slot) // smax].sum())
-    del k, slot
+    # K5 reads exactly the operator's values: one per nonzero, no fallback
+    classes = plan.classes_per_block()
+    emit('ns_k5_plan', nnz=nnz, values=plan.nv, slot_weights=plan.total, classes=len(plan.ctab),
+         classes_per_block=classes, checked_classes=int(plan.ctab[:, 5].sum()), tiles=len(plan.tiles),
+         fallback=list(plan.fallback), **k5_setup)
+    if plan.nv != nnz or plan.fallback:
+        raise AssertionError(f'K5 reads {plan.nv} compact values for {nnz} nonzeros (fallback {plan.fallback})')
     # the same products as one cuSPARSE CSR matvec
     A = torch.sparse_csr_tensor(indptr, indices, jac._device_data(), size=(n, n))
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[1]
         isz = 4 if dtype == torch.float32 else 8
         w = w32.to(dtype)
+        v = blockgrid.pack(w, plan)
         x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
-        got, want = blockgrid.blockgrid_matvec(w, x, meta, woff), blockgrid.matvec_plain(w, x, meta, woff)
+        got = blockgrid.blockgrid_matvec(v, x, plan)
+        want, literal = blockgrid.compact_matvec_plain(v, x, plan), blockgrid.matvec_plain(w, x, meta, woff)
         torch.cuda.synchronize()
         err, relerr = _compare(got, want)
-        (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: blockgrid.blockgrid_matvec(w, x, meta, woff)), \
-            time_ms(lambda: blockgrid.matvec_plain(w, x, meta, woff))
-        lib = None
-        if dtype == torch.float32:
-            lib = time_eager_ms(lambda: torch.mv(A, x))
+        _lerr, literal_relerr = _compare(got, literal)
+        (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: blockgrid.blockgrid_matvec(v, x, plan)), \
+            time_ms(lambda: blockgrid.compact_matvec_plain(v, x, plan))
+        literal_ms = time_ms(lambda: blockgrid.matvec_plain(w, x, meta, woff))[0]
+        # cuSPARSE runs eagerly (not captured): beside it K5 eagerly too
+        eager_ms = time_eager_ms(lambda: blockgrid.blockgrid_matvec(v, x, plan))
+        Ad = A if dtype == torch.float32 else A.to(dtype)
+        lib = time_eager_ms(lambda: torch.mv(Ad, x))
+        lib_call_ms = _events(lambda: torch.mv(Ad, x), 7)
+        pack_ms = time_ms(lambda: blockgrid.pack(w, plan))[0]
+        del Ad
+        # the bound: each value, x and y once; the kernel also reads the row
+        # list and its small tables
+        tables = sum(t.numel() for key, t in plan.tables(dev).items() if key != 'index') * 4
         fields = row(err, ms, plain_ms, (nnz + 2 * n) * isz, 2 * nnz, lib)
-        check_row('blockgrid_matvec', 'ns', dname, relerr,
-                  dict(fields, n=n, nnz=nnz, slot_weights=nweights, live_slot_weights=live_weights,
-                       slot_bytes=(nweights + 2 * n) * isz, live_slot_bytes=(live_weights + 2 * n) * isz,
-                       call_ms=call_ms))
+        check_row('blockgrid_matvec', 'ns', dname, max(relerr, literal_relerr),
+                  dict(fields, n=n, nnz=nnz, values=plan.nv, slot_weights=plan.total, classes_per_block=classes,
+                       kernel_bytes=(plan.nv + 2 * n) * isz + tables, call_ms=call_ms, eager_ms=eager_ms,
+                       library_call_ms=lib_call_ms, literal_plain_ms=literal_ms, rel_err_compact_plain=relerr,
+                       rel_err_literal_plain=literal_relerr, pack_ms=pack_ms))
         if dtype == torch.float32:
             results['blockgrid_matvec'] = fields
         got = sparse.schur_diag_inverse_device(w, cmap, indices, indptr, n)
@@ -762,6 +778,16 @@ def phase_ns_tri(nelems=330, device='cuda'):
             solves[method] = dx, stats, t_solve, t_solve_again
         launches = read_launches(TRI_KERNELS)
         peak = torch.cuda.max_memory_allocated()
+        # the residual's rows with no slice plan sum through K8 in a fixed
+        # order: two assemblies are bitwise equal
+        before = launches['csr_scatter']
+        (jac1, res1), (jac2, res2) = fn(clean), fn(clean)
+        residual_k8 = read_launches(('csr_scatter',))['csr_scatter'] - before - 2  # one jacobian scatter each
+        bitwise = bool(torch.equal(res1, res2) and torch.equal(jac1, jac2))
+        del jac1, jac2, res1, res2
+    emit('ns_tri_determinism', k8_launches_per_residual=residual_k8 / 2, bitwise_equal=bitwise)
+    if residual_k8 <= 0 or not bitwise:
+        raise AssertionError(f'triangle step: residual K8 launches {residual_k8}, bitwise equal {bitwise}')
     norm_res = float(numpy.linalg.norm(res))
     out = {}
     for method, (dx, stats, t_solve, t_solve_again) in solves.items():
@@ -890,7 +916,8 @@ def phase_ns_tri_kernels(system, jac):
             'bicg_dots/two': (lambda: tbi.bicg_dots(t, t, s, sc1, tbi.TT, tbi.TS),
                               lambda: tbi.dots_plain(t, t, s, sc2, tbi.TT, tbi.TS), 2, 4, None),
             'bicg_s': (lambda: tbi.bicg_s(r, v, sc1, s, tbi.RHO[0]),
-                       lambda: tbi.s_plain(r, v, sc2, s, tbi.RHO[0]), 3, 2, None),
+                       lambda: tbi.s_plain(r, v, sc2, s, tbi.RHO[0]), 3, 2,
+                       lambda: torch.addcmul(r, sc1[tbi.ALPHA], v, value=-1)),
             'bicg_xr': (lambda: tbi.bicg_xr(x1, r1, phat, shat, s, t, rhat, sc1),
                         lambda: tbi.xr_plain(x2, r2, phat, shat, s, t, rhat, sc2), 8, 10, None),
             'bicg_p': (lambda: tbi.bicg_p(p1, r, v, rhat, sc1, False, *tbi.RHO),
@@ -947,8 +974,8 @@ def main():
     launches = phase_slice()
     phase_parity()
     torch.cuda.empty_cache()
-    ns_launches, system, jac, res, clean = phase_ns()
-    measured.update(phase_ns_kernels(jac))
+    ns_launches, system, jac, res, clean, k5_setup = phase_ns()
+    measured.update(phase_ns_kernels(jac, k5_setup))
     phase_ns_profile(system, jac, res, clean)
     del system, jac, res, clean
     torch.cuda.empty_cache()

@@ -123,6 +123,19 @@ def device_csr_tables(pattern, csr_map, device):
     return (cmap,) + idx
 
 
+def blockgrid_plan(pattern, meta, woff, csr_map):
+    '''The compact plan of kernel K5 (``ops/blockgrid.compact_plan``) for
+    the block-grid layout (meta, woff) of ``pattern``, whose CSR value k
+    sits at ``w[csr_map[k]]``.  It depends on the pattern only, so it is
+    built once, cached on ``pattern`` and shared by every Newton-step matrix
+    and the fused step.'''
+    plan = getattr(pattern, '_k5_plan', None)
+    if plan is None:
+        from .ops import blockgrid as _bg
+        plan = pattern._k5_plan = _bg.compact_plan(meta, woff, csr_map, pattern.indptr, pattern.indices)
+    return plan
+
+
 class Matrix:
     '''Square or rectangular CSR matrix with a solve (reference:
     matrix/_base.py:33).  ``data`` is a numpy array or a tensor (assembly
@@ -241,25 +254,29 @@ class Matrix:
             cached = self._device_data_cache = torch.as_tensor(numpy.asarray(self.data), device=config.torch_device())
         return cached
 
+    def _weights(self):
+        '''The device tensor that holds the operator's values: the CSR
+        values here, the flat weight buffer of a stencil- or block-grid-form
+        matrix.'''
+        return self._device_data()
+
     def _csr_tables(self):
         '''(w, csr_map, indices, indptr) on the device: a stencil- or
         block-grid-form matrix's flat weight buffer and the pattern's int32
         tables (:func:`device_csr_tables`), so a fresh Newton jacobian
         uploads nothing but its weights; for a CSR matrix its values, None
         and the tables.'''
+        w = self._weights()
         cmap = getattr(self, '_csr_map', None)
-        if cmap is None:
-            w = self._device_data()
-        else:
-            w = self._device_op()[1][0].reshape(-1)
-            if callable(cmap):
-                cmap = self._csr_map = cmap()
+        if callable(cmap):
+            cmap = self._csr_map = cmap()
         return (w,) + device_csr_tables(self._pattern_of(), cmap, w.device)
 
     def _device_op(self):
         '''(mv_kind, operands) for the device Krylov drivers, routed as the
         JAX package routes it (``nutils_tpu/matrix.py:230``) and cached: a
-        verified grid stencil (kernel K1), else a block-grid form (K5), else
+        verified grid stencil (kernel K1), else a block-grid form (K5, on the
+        compact operand of its plan, ``('blockgrid', plan)``), else
         the CSR operand itself, ``('csr',)`` with (data, indices, indptr)
         (K9), whatever ``spmv`` layout the JAX package would pick (its
         ``bell``, ``ell`` and ``csr`` forms are the TPU's layouts of one
@@ -299,7 +316,8 @@ class Matrix:
         elif kind == 'blockgrid':
             meta, fill, woff = payload
             w = numpy.concatenate([a.ravel() for a in _bg.refill(fill, _host(self.data), meta)])
-            cached = (('blockgrid', meta, woff), (torch.as_tensor(w, device=config.torch_device()),))
+            kplan = blockgrid_plan(pattern, meta, woff, numpy.asarray(woff)[fill[1]] + fill[2])
+            cached = (('blockgrid', kplan), (_bg.pack(torch.as_tensor(w, device=config.torch_device()), kplan),))
         else:
             data, _cmap, indices, indptr = self._csr_tables()
             cached = (('csr',), (data, indices, indptr))
@@ -345,7 +363,7 @@ class Matrix:
                 form = _stencil.from_csr(_host(self.data), self.indices, self.indptr, self.shape[0])
         if form is not None:
             out = _mg.setup(form, _host(self.data), self.indices, self.indptr, dtype=_host(self.data).dtype,
-                            device=self._device_op()[1][0].device)
+                            device=self._weights().device)
         self._mg_cache = out
         return out
 
@@ -365,7 +383,7 @@ class Matrix:
         A = self._scipy()
         data = _host(self.data)
         dt = data.dtype
-        dev = self._device_op()[1][0].device
+        dev = self._weights().device
         minv_full = schur_diag_inverse(data, self.indices, self.indptr, self.shape[0])
         # strong-diagonal test against the FULL row norm: a saddle-point
         # pressure block (diagonal = eps-stabilization only) keeps the
@@ -553,6 +571,9 @@ class _StencilMatrix(Matrix):
         W = int(numpy.prod([2 * k + 1 for k in self._ks]))
         return _host(self._w).reshape(W, -1)[(W - 1) // 2][:self.shape[0]].astype(numpy.float64)
 
+    def _weights(self):
+        return self._device_op()[1][0].reshape(-1)
+
     def _device_op(self):
         cached = getattr(self, '_device_op_cache', None)
         if cached is None:
@@ -567,8 +588,9 @@ class _StencilMatrix(Matrix):
 class _BlockGridMatrix(Matrix):
     '''Matrix whose device payload is the flat block-grid weight buffer
     (solver block-grid-form jacobian assembly of multi-field structured
-    systems): the device solvers consume it directly with zero copies, and
-    the CSR data array materializes lazily (host gather through
+    systems): the Schur diagonal reads it directly, the device solvers read
+    its compact operand (the values at the pattern's entries, one gather),
+    and the CSR data array materializes lazily (host gather through
     ``csr_map``) only when some other operation needs it.'''
 
     def __init__(self, pattern, w_flat, meta, sizes, csr_map, woff=None):
@@ -596,10 +618,23 @@ class _BlockGridMatrix(Matrix):
         w, cmap, _indices, _indptr = self._csr_tables()
         return w[cmap.long()]
 
+    def _weights(self):
+        if not isinstance(self._w, torch.Tensor):
+            self._w = torch.as_tensor(numpy.asarray(self._w), device=config.torch_device())
+        return self._w.reshape(-1)
+
+    def _k5_plan(self):
+        '''K5's compact plan of the pattern (:func:`blockgrid_plan`).'''
+        return blockgrid_plan(self._pattern, self._meta, self._woff, self._csr_map)
+
     def _device_op(self):
+        '''``('blockgrid', plan)`` and the compact operand: the weights'
+        values at the pattern's entries only, gathered on the device once
+        per matrix (``ops/blockgrid.pack``).  The float64 operator of the
+        refinement widens that operand, not the weight buffer.'''
         cached = getattr(self, '_device_op_cache', None)
         if cached is None:
-            w = self._w if isinstance(self._w, torch.Tensor) \
-                else torch.as_tensor(numpy.asarray(self._w), device=config.torch_device())
-            cached = self._device_op_cache = (('blockgrid', self._meta, self._woff), (w.reshape(-1),))
+            from .ops import blockgrid as _bg
+            plan = self._k5_plan()
+            cached = self._device_op_cache = (('blockgrid', plan), (_bg.pack(self._weights(), plan),))
         return cached

@@ -236,11 +236,11 @@ def _make_matvec(mv_kind):
             return _st.stencil_matvec(w, x.reshape(shape), ks, shape, periodic).reshape(-1)
         return mv
     if mv_kind[0] == 'blockgrid':
-        _kind, meta, woff = mv_kind
+        plan = mv_kind[1]
 
         def mv(op, x):
-            (w,) = op
-            return _bg.blockgrid_matvec(w, x, meta, woff)
+            (v,) = op
+            return _bg.blockgrid_matvec(v, x, plan)
         return mv
     if mv_kind[0] == 'csr':
         def mv(op, x):
@@ -491,8 +491,9 @@ def _refined_driver(method, precon_kind, mv_kind, restart):
 
 
 def widen(op):
-    '''The float64 operator of the refinement: floating operands widened,
-    index tables (CSR columns and row pointers) as they are.'''
+    '''The float64 operator of the refinement: floating operands widened
+    (a block-grid operator's compact values, not its weight buffer), index
+    tables (CSR columns and row pointers) as they are.'''
     return tuple(o.to(torch.float64) if o.is_floating_point() else o for o in op)
 
 

@@ -293,7 +293,59 @@ def _plan_value_table(tseg, groupkey, total, depth=2):
                     lo = hi
                 if scat * 4 <= tseg.size and len(bands) <= 16:
                     return 'banded', (ny, nx, True, bands)
-    return 'scatter', tseg.ravel()
+    return 'scatter', _RowSums(tseg)
+
+
+class _RowSums:
+    '''Accumulation of values into constant targets of a flat buffer,
+    ``w[targets] += values``, in the same order on every run.  On a card the
+    values are summed per distinct target by the value scatter K8 (the
+    targets sorted once, stably, with a segment pointer per distinct
+    target: a fixed order) and each sum is added to its target once, so no
+    two additions race; float atomics (``index_add_`` over the raw targets)
+    add in an order that changes from run to run.  A buffer on the CPU takes
+    ``index_add_``, which adds in entry order there.'''
+
+    def __init__(self, targets):
+        self.targets = numpy.ascontiguousarray(targets).reshape(-1)
+        self._tables = {}
+
+    def _device_tables(self, device):
+        '''(distinct targets, order, segment pointers, segment of each
+        entry) on ``device``: int32 order and pointers for K8 on a card,
+        int64 segment ids for its plain version on the CPU.'''
+        key = str(device)
+        if key not in self._tables:
+            order = numpy.argsort(self.targets, kind='stable')
+            ts = self.targets[order]
+            new = numpy.ones(len(ts), dtype=bool)
+            numpy.not_equal(ts[1:], ts[:-1], out=new[1:])
+            segptr = numpy.append(numpy.flatnonzero(new), len(ts))
+            if device.type == 'cpu':
+                seg = numpy.empty(len(ts), dtype=numpy.int64)
+                seg[order] = numpy.cumsum(new) - 1
+                tabs = (None, torch.as_tensor(segptr), torch.as_tensor(seg))
+            else:
+                if len(ts) >= 2**31:
+                    raise ValueError('the value scatter indexes entries in 32 bits: 2^31 entries or more')
+                tabs = tuple(torch.as_tensor(a.astype(numpy.int32), device=device) for a in (order, segptr)) \
+                    + (None,)
+            self._tables[key] = (torch.as_tensor(ts[new], dtype=torch.int64, device=device),) + tabs
+        return self._tables[key]
+
+    def add_into(self, w, values):
+        '''``w[targets] += values`` in place (``values`` flat, in target
+        order).'''
+        if w.device.type == 'cpu':
+            return w.index_add_(0, torch.as_tensor(self.targets, dtype=torch.int64), values)
+        return self.add_sorted(w, values)
+
+    def add_sorted(self, w, values):
+        '''The sorted segment sums added into ``w``: K8 on a card, its
+        plain version on the CPU.'''
+        from .ops.sparse import csr_scatter
+        utargets, order, segptr, seg = self._device_tables(w.device)
+        return w.index_add_(0, utargets, csr_scatter(values, order, segptr, seg))
 
 
 def _apply_value_plan(w, skind, payload, V):
@@ -313,7 +365,7 @@ def _apply_value_plan(w, skind, payload, V):
             sub = V3[:, lo:hi] if inner else V3[lo:hi]
             _apply_value_plan(w, sp[0], sp[1], sub.reshape(-1, V3.shape[2]))
         return w
-    return w.index_add_(0, torch.as_tensor(payload, dtype=torch.int64, device=w.device), Vf.reshape(-1))
+    return payload.add_into(w, Vf.reshape(-1))
 
 
 class _LazyPattern:
@@ -856,8 +908,8 @@ class System:
             r = torch.zeros(n, dtype=fdt, device=dev)
             for c in chunks:
                 v = c.fn(args, {}, tables)
-                plan = getattr(c, '_row_plan', '?')
-                if plan == '?':
+                plan = getattr(c, '_row_plan', None)
+                if plan is None:
                     rows_np = numpy.asarray(c.rows)
                     # sum v over axes the row table broadcasts along, then
                     # plan the structured slice-scatter layout (whole-affine,
@@ -867,19 +919,17 @@ class System:
                     sq = rows_np
                     for ax in reversed(bcast):
                         sq = numpy.squeeze(sq, ax)
-                    if sq.ndim >= 2 and sq.shape[0] > 1:
-                        plan = c._row_plan = (bcast, _plan_value_table(
-                            sq.reshape(sq.shape[0], -1), None, n))
-                    else:
-                        plan = c._row_plan = (None, None)
+                    vplan = _plan_value_table(sq.reshape(sq.shape[0], -1), None, n) \
+                        if sq.ndim >= 2 and sq.shape[0] > 1 else None
+                    # rows with no slice plan: the sorted segment sums of
+                    # every entry (deterministic on a card)
+                    plan = c._row_plan = (bcast, vplan) if vplan is not None and vplan[0] != 'scatter' \
+                        else (None, _RowSums(numpy.broadcast_to(c.rows, c.shape)))
                 bcast, vplan = plan
-                if vplan is not None and vplan[0] != 'scatter':
-                    vv = v.sum(dim=bcast) if bcast else v
-                    _apply_value_plan(r, vplan[0], vplan[1], vv)
+                if isinstance(vplan, _RowSums):
+                    vplan.add_into(r, v.reshape(-1))
                 else:
-                    rows = torch.as_tensor(numpy.broadcast_to(c.rows, c.shape).reshape(-1),
-                                           dtype=torch.int64, device=dev)
-                    r.index_add_(0, rows, v.reshape(-1))
+                    _apply_value_plan(r, vplan[0], vplan[1], v.sum(dim=bcast) if bcast else v)
             parts.append(r)
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
@@ -1167,26 +1217,28 @@ class System:
         device-computed float64 true residual, target ``rtol * |res|``.  The
         contract of the JAX package's one-program ``fused_step_op``, as a
         plain composition (a CUDA graph of it is later work).'''
+        from .ops.blockgrid import pack
         from .ops.sparse import refined_solve_device, schur_diag_inverse_device
         fn = self._compiled('jacres')
         _chunk_meta, pattern, jplan = self._jac_layout
         if jplan is None or jplan['form'] != 'blockgrid':
             raise NotImplementedError('fused_step_op requires the blockgrid jacobian form')
-        meta, woff = jplan['meta'], jplan['woff']
         n = int(pattern.shape[0])
         cap = int(maxiter or max(1024, int(16 * numpy.sqrt(n))))
-        mv_kind = ('blockgrid', meta, woff)
+        # the pattern's K5 plan and tables, shared with the split path
+        plan = matrix.blockgrid_plan(pattern, jplan['meta'], jplan['woff'], jplan['csr_map'])
+        mv_kind = ('blockgrid', plan)
 
         def step(clean):
             w, res = fn(clean)
-            # the pattern's tables, shared with the split path's matrices
             tabs = matrix.device_csr_tables(pattern, jplan['csr_map'], w.device)
             minv = schur_diag_inverse_device(w, *tabs, n)
+            v = pack(w, plan)
             b64 = res.to(torch.float64)
             target = rtol * float(torch.linalg.norm(b64))
-            x, rn, it, _rounds = refined_solve_device(solver, mv_kind, (w,), b64, target=target, maxiter=cap,
+            x, rn, it, _rounds = refined_solve_device(solver, mv_kind, (v,), b64, target=target, maxiter=cap,
                                                       restart=restart, minv=minv, precon='diag',
-                                                      op64=(w.to(torch.float64),), maxrounds=maxrounds)
+                                                      op64=(v.to(torch.float64),), maxrounds=maxrounds)
             return x, rn, it
         return step
 

@@ -124,6 +124,23 @@ def build_stokes(pkg, nelems=12, dtype=numpy.float64, mass=0.01, nu=1.0):
     return jac
 
 
+def blockgrid_csr(name):
+    """(data, indices, indptr, field offsets, field grids) of a Taylor-Hood
+    jacobian that nutils_tpu assembles: ``'stokes8'``, the Stokes system on
+    8x8 elements, or ``'th_periodic12'``, the periodic Navier-Stokes step
+    on 12x12 (at 8 elements the periodic pressure axis is too short for the
+    wrapped block form in both packages)."""
+    if name == 'stokes8':
+        jac = build_stokes('nutils_tpu', 8)
+    else:
+        system = build_th_periodic('nutils_tpu', 12)
+        rng = numpy.random.default_rng(0)
+        args = {t: 0.1 * rng.standard_normal(s) for t, s in zip(system.trials, system.trial_shapes)}
+        jac, _res = system.assemble_jacobian_residual(args)
+    return (numpy.asarray(jac.data), numpy.asarray(jac.indices), numpy.asarray(jac.indptr),
+            tuple(jac._field_offsets), tuple(jac._field_grids))
+
+
 def rel(a, b):
     '''Normwise relative difference of two arrays.'''
     a = numpy.asarray(a, dtype=numpy.float64)

@@ -16,18 +16,8 @@ from nutils_tpu_torch.ops import blockgrid as bg_torch
 @pytest.fixture(scope='module', params=['stokes8', 'th_periodic12'])
 def csr(request):
     '''(data, indices, indptr, field offsets, field grids) of a jacobian
-    nutils_tpu assembles: the Stokes system (8x8 elements) or the periodic
-    Navier-Stokes step (12x12; at 8 elements the periodic pressure axis is
-    too short for the wrapped block form in both packages).'''
-    if request.param == 'stokes8':
-        jac = tp.build_stokes('nutils_tpu', 8)
-    else:
-        system = tp.build_th_periodic('nutils_tpu', 12)
-        rng = numpy.random.default_rng(0)
-        args = {t: 0.1 * rng.standard_normal(s) for t, s in zip(system.trials, system.trial_shapes)}
-        jac, _res = system.assemble_jacobian_residual(args)
-    return (numpy.asarray(jac.data), numpy.asarray(jac.indices), numpy.asarray(jac.indptr),
-            tuple(jac._field_offsets), tuple(jac._field_grids))
+    nutils_tpu assembles (``_torch_parity.blockgrid_csr``).'''
+    return tp.blockgrid_csr(request.param)
 
 
 def _natural(block):
@@ -90,7 +80,8 @@ def test_matvec_matches_jax_and_scipy(csr):
     fj = bg_jax.detect(data, indices, indptr, offsets, grids=grids)
     ft = bg_torch.detect(data, indices, indptr, offsets, grids=grids)
     w, woff = _flat(ft)
-    got = bg_torch.blockgrid_matvec(torch.as_tensor(w), torch.as_tensor(x), ft.meta, woff).numpy()
+    plan = bg_torch.compact_plan(ft.meta, woff, numpy.asarray(woff)[ft.fill[1]] + ft.fill[2], indptr, indices)
+    got = bg_torch.blockgrid_matvec(bg_torch.pack(torch.as_tensor(w), plan), torch.as_tensor(x), plan).numpy()
     want_jax = numpy.asarray(bg_jax.matvec(fj, [jnp.asarray(a) for a in fj.ws], jnp.asarray(x)))
     want = scipy.sparse.csr_matrix((data, indices, indptr), shape=(n, n)) @ x
     assert tp.rel(got, want) <= 1e-13
@@ -99,14 +90,20 @@ def test_matvec_matches_jax_and_scipy(csr):
 
 
 def test_kernel_tables(csr):
-    # the int32 tables K5 reads: one record per block, one per (block, phase)
+    # the int32 tables K5 reads: one record per block, one per class, one
+    # per (class, block) segment, one per live slot, every row once
     data, indices, indptr, offsets, grids = csr
     form = bg_torch.detect(data, indices, indptr, offsets, grids=grids)
     _w, woff = _flat(form)
-    brec, prec = bg_torch.tables(form.meta, woff)
-    assert brec.dtype == prec.dtype == numpy.int32
-    assert brec.shape == (4, 36) and prec.shape == (len(form.ws), 6)
-    assert list(prec[:, 0]) == list(woff)
-    assert list(prec[:, 5]) == [int(numpy.prod(w.shape[1:])) for w in form.ws]
-    assert list(brec[:, 32]) == [int(numpy.prod(b[7])) for b in form.meta[2]]
-    assert sum(brec[:, 34]) == len(form.ws)
+    plan = bg_torch.compact_plan(form.meta, woff, numpy.asarray(woff)[form.fill[1]] + form.fill[2], indptr,
+                                 indices)
+    n = len(indptr) - 1
+    for t in (plan.btab, plan.ctab, plan.stab, plan.slots, plan.rows, plan.tiles, plan.index):
+        assert t.dtype == numpy.int32
+    assert plan.btab.shape == (4, 22)
+    assert [tuple(r) for r in plan.btab[:, :2]] == [(offsets[b[0]], offsets[b[1]]) for b in form.meta[2]]
+    assert sorted(plan.rows) == list(range(n))
+    assert plan.ctab[:, 1].sum() == n and list(plan.ctab[:, 0]) == list(numpy.cumsum(plan.ctab[:, 1]) - plan.ctab[:, 1])
+    assert plan.stab[:, 2].sum() == len(plan.slots) and plan.stab[:, 2].min() >= 1
+    assert plan.stab.shape[0] == plan.ctab[:, 4].sum() and max(plan.ctab[:, 4]) <= 2
+    assert list(numpy.bincount(plan.tiles)) == list(-(-plan.ctab[:, 1] // bg_torch.ROWS_PER_CTA))

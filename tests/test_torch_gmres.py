@@ -34,8 +34,8 @@ def ns():
 def test_carried_operator(ns):
     # the carried block-grid operator is the JAX package's CSR operator
     tjac = ns['tjac']
-    (kind, _meta, _woff), (w,) = tjac._device_op()
-    assert kind == 'blockgrid' and w.dtype == torch.float64
+    (kind, _plan), (v,) = tjac._device_op()
+    assert kind == 'blockgrid' and v.dtype == torch.float64
     assert numpy.array_equal(tjac.data, numpy.asarray(ns['jac'].data))
     x = numpy.random.default_rng(1).standard_normal(tjac.shape[0])
     y = sp_torch._make_matvec(tjac._device_op()[0])(tjac._device_op()[1], torch.as_tensor(x)).numpy()

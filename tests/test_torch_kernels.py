@@ -117,9 +117,9 @@ def test_cuda_slice_goes_through_the_kernels(cuda):
 
 
 def _blockgrid_operator(name):
-    """(w, meta, woff) of a small Taylor-Hood jacobian assembled by the port
-    on the CPU: the Stokes system on the unit square, or the periodic
-    Navier-Stokes step."""
+    """K5's compact plan of a small Taylor-Hood jacobian assembled by the
+    port on the CPU: the Stokes system on the unit square, or the periodic
+    Navier-Stokes step (whose wrapped rows take the checked path)."""
     import _torch_parity as tp
     from nutils_tpu_torch.utils import config
     with config.device('cpu'):
@@ -129,21 +129,25 @@ def _blockgrid_operator(name):
             system = tp.build_th_periodic('nutils_tpu_torch', 12)
             args = {t: numpy.zeros(s) for t, s in zip(system.trials, system.trial_shapes)}
             jac, _res = system.assemble_jacobian_residual(args)
-    (_kind, meta, woff), (w,) = jac._device_op()
-    return w, meta, woff
+    return jac._k5_plan()
 
 
 @pytest.mark.parametrize('dtype,tol', TOLS)
 @pytest.mark.parametrize('name', ['stokes', 'periodic'])
 def test_blockgrid_matvec(cuda, name, dtype, tol):
-    w, meta, woff = _blockgrid_operator(name)
+    # random values at the pattern's entries (the weight buffer is zero
+    # elsewhere): the kernel against its plain version on the compact
+    # operand and against the literal port on the weights, one launch
+    plan = _blockgrid_operator(name)
     rng = numpy.random.default_rng(3)
-    w = torch.as_tensor(rng.standard_normal(w.shape[0]), dtype=dtype, device=cuda)
-    x = torch.as_tensor(rng.standard_normal(meta[0][-1]), dtype=dtype, device=cuda)
+    v = torch.as_tensor(rng.standard_normal(plan.nv), dtype=dtype, device=cuda)
+    x = torch.as_tensor(rng.standard_normal(plan.n), dtype=dtype, device=cuda)
     launches = blockgrid.blockgrid_matvec.launches
-    got = blockgrid.blockgrid_matvec(w, x, meta, woff)
+    got = blockgrid.blockgrid_matvec(v, x, plan)
     assert blockgrid.blockgrid_matvec.launches == launches + 1
-    assert _rel(got, blockgrid.matvec_plain(w, x, meta, woff)) <= tol
+    assert _rel(got, blockgrid.compact_matvec_plain(v, x, plan)) <= tol
+    assert _rel(got, blockgrid.matvec_plain(blockgrid.unpack(v, plan), x, plan.meta, plan.woff)) <= tol
+    assert name == 'stokes' or plan.ctab[:, 5].any()
 
 
 @pytest.mark.parametrize('dtype,tol', TOLS)
@@ -326,3 +330,23 @@ def test_cuda_ns_tri_step_goes_through_the_kernels(cuda):
         (xa, sa), (xb, sb) = out['cuda', method], out['cpu', method]
         assert sa['op_form'] == 'csr' and sa['accepted_on_device'] and sa['iters'] == sb['iters']
         assert numpy.linalg.norm(xa - xb) <= 1e-8 * numpy.linalg.norm(xb)
+
+
+def test_cuda_triangle_residual_is_deterministic(cuda):
+    # the triangle step's residual, assembled twice on the card through the
+    # sorted segment sums (K8): bitwise equal, and the CPU's to 1e-14
+    import _torch_parity as tp
+    from nutils_tpu_torch.utils import config
+    out = []
+    for device in ('cuda', 'cpu'):
+        with config.device(device):
+            system, args = tp.build_ns_tri('nutils_tpu_torch', 6, numpy.float64)
+            fn = system._compiled('residual')
+            clean = system._clean(args)
+            launches = sparse.csr_scatter.launches
+            out.append([fn(clean) for _ in range(2)])
+            if device == 'cuda':
+                assert sparse.csr_scatter.launches > launches
+    (r1, r2), (want, _) = out
+    assert torch.equal(r1, r2)
+    assert float((r1.cpu() - want).abs().max()) <= 1e-14 * float(want.abs().max())
