@@ -9,19 +9,28 @@ Phases, each printing JSON lines:
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; fails without a CUDA card.
-2. build    — builds the CUDA kernels K1-K3, K5, K7, K8 and K9 from
+2. build    — builds the CUDA kernels K1-K5, K7, K8 and K9 from
    ``nutils_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, in
-   parallel) and compiles the Triton kernels of K4, K6 and K10.
+   parallel) and compiles the Triton kernels of K6 and K10.
 3. kernel   — K1-K4 against their plain PyTorch versions on the card, at
    the Laplace slice's shapes (1025^2 grid, W = 9, float32 and float64) and
    on a periodic 2-D and a 3-D stencil: error, CUDA-event times, the bound
-   and, where one PyTorch call computes the same function, its time.
+   and, where one PyTorch call computes the same function, its time; K4's
+   entries also at grids of 1-8 blocks a multiprocessor.
 4. slice    — the bench's Laplace slice at 1,050,625 dofs in float32:
    System, assembly, multigrid set-up and the refined CG solve to rtol
-   1e-10, through the kernels (launch counts read around the run).
-5. parity   — the same slice at 65^2 dofs in float64 on the card and on the
+   1e-10, through the kernels, its loop replayed from CUDA graphs (launch
+   counts read around the run; a warm solve's counts are its replays times
+   each graph's launches, plus the refinement's residuals).
+5. slice_driver — on the same slice: the graph driver against the host
+   loop (bitwise x, the same iterations and rounds), warm solves at chunk
+   lengths 1-8, and an iteration's device time after the loop's stop,
+   with the multigrid kernels predicated on the loop's flag and without.
+6. slice_profile — torch.profiler over one warm solve with each driver:
+   wall time, device-busy time, kernel launches, replays and host reads.
+7. parity   — the same slice at 65^2 dofs in float64 on the card and on the
    CPU (plain versions): the solutions agree to 1e-8 relative.
-6. ns       — the bench's Taylor-Hood Navier-Stokes Newton step at
+8. ns       — the bench's Taylor-Hood Navier-Stokes Newton step at
    983,403 dofs in float32: System, block-grid planning, assembly, the
    device Schur diagonal, K5's compact plan and operand, refined GMRES to
    rtol 1e-3 and the fused step, through the kernels (launch counts read
@@ -29,9 +38,9 @@ Phases, each printing JSON lines:
    shapes (K5 also against the literal port on the weight buffer, and
    cuSPARSE in float32 and float64), and a profile of one warm assembly and
    one warm solve.
-7. ns_parity — the step at 6x6 elements in float64 on the card and on the
+9. ns_parity — the step at 6x6 elements in float64 on the card and on the
    CPU: the solutions agree to 1e-8 relative, in as many iterations.
-8. ns_tri   — the same Newton step on ``unitsquare(330, 'triangle')``
+10. ns_tri  — the same Newton step on ``unitsquare(330, 'triangle')``
    (217,800 triangles, 983,403 dofs) in float32: System, CSR pattern,
    assembly through the value scatter K8, the device Schur diagonal on CSR
    values (K7), refined GMRES and refined BiCGStab to rtol 1e-3 on the CSR
@@ -39,9 +48,9 @@ Phases, each printing JSON lines:
    the run; the residual's rows with no slice plan sum through K8 too, and
    two assemblies are bitwise equal), and a profile of one warm assembly
    and one warm solve of each method.
-9. ns_tri_kernels — K7 on CSR values and K8-K10 against their plain
+11. ns_tri_kernels — K7 on CSR values and K8-K10 against their plain
    versions at the triangle step's shapes.
-10. ns_tri_parity — the triangle step at 6x6 elements in float64 on the
+12. ns_tri_parity — the triangle step at 6x6 elements in float64 on the
    card and on the CPU: both methods' solutions agree to 1e-8 relative, in
    as many iterations.
 
@@ -65,9 +74,9 @@ KERNELS = {
     'jacobi_smooth': ('cuda', 'nutils_tpu_torch/csrc/mg.cu', 'nutils_tpu/ops/mg.py:162'),
     'mg_restrict': ('cuda', 'nutils_tpu_torch/csrc/mg.cu', 'nutils_tpu/ops/mg.py:123'),
     'mg_prolong_add': ('cuda', 'nutils_tpu_torch/csrc/mg.cu', 'nutils_tpu/ops/mg.py:142'),
-    'cg_dot': ('triton', 'nutils_tpu_torch/ops/_triton_cg.py', 'nutils_tpu/ops/sparse.py:322'),
-    'cg_axpy_norm': ('triton', 'nutils_tpu_torch/ops/_triton_cg.py', 'nutils_tpu/ops/sparse.py:322'),
-    'cg_xpby': ('triton', 'nutils_tpu_torch/ops/_triton_cg.py', 'nutils_tpu/ops/sparse.py:322'),
+    'cg_dot': ('cuda', 'nutils_tpu_torch/csrc/cg.cu', 'nutils_tpu/ops/sparse.py:322'),
+    'cg_step': ('cuda', 'nutils_tpu_torch/csrc/cg.cu', 'nutils_tpu/ops/sparse.py:322'),
+    'cg_xpby': ('cuda', 'nutils_tpu_torch/csrc/cg.cu', 'nutils_tpu/ops/sparse.py:322'),
     'blockgrid_matvec': ('cuda', 'nutils_tpu_torch/csrc/blockgrid.cu', 'nutils_tpu/ops/blockgrid.py:276'),
     'gmres_project': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
     'gmres_update': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
@@ -84,7 +93,7 @@ KERNELS = {
     'bicg_xr': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
     'bicg_p': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
 }
-LAPLACE_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'mg_restrict', 'mg_prolong_add', 'cg_dot', 'cg_axpy_norm',
+LAPLACE_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'mg_restrict', 'mg_prolong_add', 'cg_dot', 'cg_step',
                    'cg_xpby')
 NS_KERNELS = ('blockgrid_matvec', 'gmres_project', 'gmres_update', 'gmres_normalize', 'gmres_combine',
               'schur_diag_inverse_device')
@@ -112,10 +121,10 @@ def emit(phase, **fields):
 
 
 def wrappers():
-    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_cg, _triton_gmres, blockgrid, mg, sparse, stencil
+    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_gmres, blockgrid, cg, mg, sparse, stencil
     return {'stencil_matvec': stencil.stencil_matvec, 'jacobi_smooth': mg.jacobi_smooth,
             'mg_restrict': mg.mg_restrict, 'mg_prolong_add': mg.mg_prolong_add,
-            'cg_dot': _triton_cg.cg_dot, 'cg_axpy_norm': _triton_cg.cg_axpy_norm, 'cg_xpby': _triton_cg.cg_xpby,
+            'cg_dot': cg.cg_dot, 'cg_step': cg.cg_step, 'cg_xpby': cg.cg_xpby,
             'blockgrid_matvec': blockgrid.blockgrid_matvec, 'gmres_project': _triton_gmres.gmres_project,
             'gmres_update': _triton_gmres.gmres_update, 'gmres_normalize': _triton_gmres.gmres_normalize,
             'gmres_combine': _triton_gmres.gmres_combine,
@@ -135,10 +144,12 @@ def read_launches(names):
     return {name: counters[name].launches for name in names}
 
 
-def _events(run, reps):
+def _events(run, reps, setup=None):
     import torch
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()  # enqueued before the start event: not timed
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -149,23 +160,28 @@ def _events(run, reps):
     return statistics.median(times)
 
 
-def time_ms(fn, calls=10, reps=7):
+def time_ms(fn, calls=10, reps=7, setup=None):
     '''(device ms, call ms) of one call of ``fn``.  Device: a CUDA graph of
     ``calls`` calls replayed ``reps`` times between CUDA events, median per
     call; the host's launch overhead is not in it.  Call: CUDA events around
     single eager calls, median of ``reps`` after warm-up; the host's Python
-    and launch overhead is in it.'''
+    and launch overhead is in it.  ``setup`` (untimed) runs before each
+    timed run.'''
     import torch
     for _ in range(3):
+        if setup is not None:
+            setup()
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    if setup is not None:
+        setup()
     graph.replay()
     torch.cuda.synchronize()
-    return _events(graph.replay, reps) / calls, _events(fn, reps)
+    return _events(graph.replay, reps, setup) / calls, _events(fn, reps, setup)
 
 
 def time_eager_ms(fn, calls=10, reps=5):
@@ -248,16 +264,14 @@ def phase_device():
 def phase_build():
     import torch
     from nutils_tpu_torch import _kernels
-    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_cg, _triton_gmres
+    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_gmres, cg
     path, seconds, diag = _kernels.build(verbose=True)
     _kernels.library()
+    emit('build_cg', grid=cg.grid(0))
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
         a = torch.ones(4096, dtype=dtype, device='cuda')
         s = torch.ones((), dtype=dtype, device='cuda')
-        _triton_cg.cg_dot(a, a)
-        _triton_cg.cg_axpy_norm(a.clone(), a.clone(), a, a, s)
-        _triton_cg.cg_xpby(a.clone(), a, s)
         V = torch.ones((3, 4096), dtype=dtype, device='cuda')
         h = _triton_gmres.gmres_project(V, 1, a)
         _triton_gmres.gmres_update(V, 1, h, a.clone())
@@ -301,9 +315,8 @@ def phase_kernels(device='cuda'):
     import numpy
     import torch
     import torch.nn.functional as F
-    from nutils_tpu_torch import carry
-    from nutils_tpu_torch.ops import _triton_cg as tcg
-    from nutils_tpu_torch.ops import mg, stencil
+    from nutils_tpu_torch import _kernels, carry
+    from nutils_tpu_torch.ops import cg, mg, stencil
     dev = torch.device(device)
     rng = numpy.random.default_rng(0)
     results = {}
@@ -372,41 +385,72 @@ def phase_kernels(device='cuda'):
                 if label == 'slice' and dtype == torch.float32 and name in ('stencil_matvec', 'jacobi_smooth/mode1',
                                                                             'mg_restrict', 'mg_prolong_add'):
                     results[name.split('/')[0]] = fields
-    # K4 on CG vectors of the slice's length; reductions are compared on the
-    # scale of their terms (sum of |a_i b_i|), the scale of any summation's
-    # rounding error
+    # K4 on CG vectors of the slice's length and a state of the loop's: each
+    # entry against its plain version on the same state; the sums on the
+    # scale of their terms (the scale of any summation's rounding error).
+    # Timed runs start from the same state (an untimed reset before each),
+    # so cg_step never meets its refresh schedule and stays active.
     n = 1025 * 1025
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[1]
         isz = 4 if dtype == torch.float32 else 8
         x, r, p, ap, z = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev) for _ in range(5))
-        alpha = torch.tensor(0.37, dtype=dtype, device=dev)
-        x1, r1, x2, r2, p1, p2 = x.clone(), r.clone(), x.clone(), r.clone(), p.clone(), p.clone()
-        n1, n2 = tcg.cg_axpy_norm(x1, r1, p, ap, alpha), tcg.axpy_norm_plain(x2, r2, p, ap, alpha)
-        compared = {
-            'cg_dot': [(tcg.cg_dot(p, ap), tcg.dot_plain(p, ap), (p * ap).abs().sum())],
-            'cg_axpy_norm': [(x1, x2, None), (r1, r2, None), (n1, n2, None)],
-            'cg_xpby': [(tcg.cg_xpby(p1, z, alpha), tcg.xpby_plain(p2, z, alpha), None)],
-        }
+        head = cg.new_state(dev)
+        cg.reset(head, 0.0, 1 << 30)
+        for slot, v in ((cg.RZ, 0.7), (cg.PAP, 1.3), (cg.RZOLD, 0.4)):
+            head[slot] = float(torch.tensor(v, dtype=dtype))
+        st1, st2 = head.clone(), head.clone()
+        x1, r1, p1, x2, r2, p2 = x.clone(), r.clone(), p.clone(), x.clone(), r.clone(), p.clone()
+        cg.cg_dot(p, ap, st1, cg.PAP)
+        cg.dot_plain(p, ap, st2, cg.PAP)
+        dot = (st1[cg.PAP], st2[cg.PAP], (p * ap).abs().sum())
+        st1[cg.PAP], st2[cg.PAP] = head[cg.PAP], head[cg.PAP]
+        cg.cg_step(x1, r1, p, ap, st1)
+        cg.step_plain(x2, r2, p, ap, st2)
+        step = [(x1, x2, None), (r1, r2, None), (st1[cg.RR], st2[cg.RR], (r2 * r2).sum()),
+                (st1[cg.RZOLD], st2[cg.RZOLD], None)]
+        cg.cg_xpby(p1, z, st1)
+        cg.xpby_plain(p2, z, st2)
         torch.cuda.synchronize()
-        timed = {
-            'cg_dot': (lambda: tcg.cg_dot(p, ap), lambda: tcg.dot_plain(p, ap), 2 * n, 2 * n,
+        ints1, ints2 = st1.view(torch.int32), st2.view(torch.int32)
+        if not torch.equal(ints1[cg.K:cg.REASON + 1], ints2[cg.K:cg.REASON + 1]):
+            raise AssertionError(f'K4 ({dname}) took other decisions than its plain version')
+        compared = {'cg_dot': [dot], 'cg_step': step, 'cg_xpby': [(p1, p2, None)]}
+        beta = (head[cg.RZ] / head[cg.RZOLD]).to(dtype)
+
+        def restore(st):
+            return lambda: st.copy_(head)
+        timed = {  # kernel, plain, vectors moved, operations, library call
+            'cg_dot': (lambda: cg.cg_dot(p, ap, st1, cg.PAP), lambda: cg.dot_plain(p, ap, st2, cg.PAP), 2, 2,
                        lambda: torch.dot(p, ap)),
-            'cg_axpy_norm': (lambda: tcg.cg_axpy_norm(x1, r1, p, ap, alpha),
-                             lambda: tcg.axpy_norm_plain(x2, r2, p, ap, alpha), 6 * n, 6 * n, None),
-            'cg_xpby': (lambda: tcg.cg_xpby(p1, z, alpha), lambda: tcg.xpby_plain(p2, z, alpha), 3 * n, 2 * n,
-                        lambda: torch.addcmul(z, alpha, p1)),
+            'cg_step': (lambda: cg.cg_step(x1, r1, p, ap, st1), lambda: cg.step_plain(x2, r2, p, ap, st2), 6, 6,
+                        None),
+            'cg_xpby': (lambda: cg.cg_xpby(p1, z, st1), lambda: cg.xpby_plain(p2, z, st2), 3, 2,
+                        lambda: torch.addcmul(z, beta, p1)),
         }
         for name, triples in compared.items():
             errs = [_compare(got, want, scale) for got, want, scale in triples]
             err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
-            kernel, plain, nvals, flops, lib = timed[name]
-            (ms, call_ms), (plain_ms, plain_call_ms) = time_ms(kernel), time_ms(plain)
-            fields = row(err, ms, plain_ms, nvals * isz, flops,
-                         time_ms(lib)[0] if lib is not None and dtype == torch.float32 else None)
+            kernel, plain, nvec, flops, lib = timed[name]
+            (ms, call_ms), (plain_ms, plain_call_ms) = time_ms(kernel, setup=restore(st1)), \
+                time_ms(plain, setup=restore(st2))
+            fields = row(err, ms, plain_ms, nvec * n * isz, flops * n, time_ms(lib)[0] if lib is not None else None)
             check_row(name, 'slice', dname, relerr, dict(fields, n=n, call_ms=call_ms, plain_call_ms=plain_call_ms))
             if dtype == torch.float32:
                 results[name] = fields
+        # every K4 launch takes one grid (cg.BLOCKS_PER_SM blocks an SM, or
+        # as many as fit), and the sums' order depends on it: each entry at
+        # 1-8 blocks an SM
+        grids = {}
+        for per_sm in range(1, 9):
+            g = cg.grid(dev.index or 0, per_sm)
+            st = torch.zeros(cg.HEAD + g, dtype=torch.float64, device=dev)
+            calls = {'cg_dot': lambda: _kernels.call('ntt_cg_dot', p, [p, ap, st], scalars=(n, g, cg.PAP, 0)),
+                     'cg_step': lambda: _kernels.call('ntt_cg_step', x1, [x1, r1, p, ap, st], scalars=(n, g)),
+                     'cg_xpby': lambda: _kernels.call('ntt_cg_xpby', p1, [p1, z, st], scalars=(n, g))}
+            grids[per_sm] = dict(grid=g, **{name: time_ms(fn, setup=lambda: st[:cg.HEAD].copy_(head[:cg.HEAD]))[0]
+                                            for name, fn in calls.items()})
+        emit('kernel_cg_grid', dtype=dname, n=n, blocks_per_sm_used=cg.BLOCKS_PER_SM, ms=grids)
     return results
 
 
@@ -455,27 +499,161 @@ def phase_slice(nelems=1024, device='cuda'):
         launches = read_launches(LAPLACE_KERNELS)
         stats = dict(jac._solve_stats)
         peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        jac.solve(res, solver='cg', rtol=1e-10)
-        torch.cuda.synchronize()
-        t_solve_again = time.perf_counter() - t0
+        # a warm solve only replays: its launches are the replays times each
+        # graph's launches, and the refinement's float64 residual (K1) once a
+        # round
+        reset_launches()
+        times = []
+        expected = dict.fromkeys(LAPLACE_KERNELS, 0)
+        for _ in range(5):
+            times.append(_sync_time(lambda: jac.solve(res, solver='cg', rtol=1e-10))[0])
+            warm = dict(jac._solve_stats)
+            for name in LAPLACE_KERNELS:
+                expected[name] += sum(warm['replays'][g] * warm['graph_launches'][g].get(name, 0)
+                                      for g in warm['replays'])
+            expected['stencil_matvec'] += warm['rounds']
+        t_solve_again = statistics.median(times)
+        warm_launches = read_launches(LAPLACE_KERNELS)
     config.floatx.value = numpy.float64
     resnorm = float(numpy.linalg.norm(res - jac @ x))
     rel_residual = resnorm / float(numpy.linalg.norm(res))
     levels = [list(lev[1]) for lev in jac._mg().levels]
     emit('slice', ndofs=ndofs, t_system=t_system, t_jacres=t_jacres, t_pattern=t_pattern, t_setup=t_setup,
-         t_solve=t_solve, t_solve_again=t_solve_again, solve_stats=stats, rel_residual=rel_residual,
-         mg_levels=levels, peak_device_bytes=peak, launches=launches)
+         t_solve=t_solve, t_solve_again=t_solve_again, t_solve_warm_all=times, solve_stats=stats,
+         warm_solve_stats=warm, rel_residual=rel_residual, mg_levels=levels, peak_device_bytes=peak,
+         launches=launches, warm_launches_per_solve={k: v / 5 for k, v in warm_launches.items()})
     if x.shape != (ndofs,) or not numpy.isfinite(x).all():
         raise AssertionError('slice solution is not a finite vector of the dof count')
     if stats['op_form'] != 'stencil' or stats['precon'] != 'mg':
         raise AssertionError(f'slice solved through {stats["op_form"]}/{stats["precon"]}, not stencil/mg')
+    if stats['driver'] != 'graph' or warm['driver'] != 'graph' or warm['t_capture'] != 0:
+        raise AssertionError(f'slice solved through the {stats["driver"]} driver, not CUDA graphs (warm: '
+                             f'{warm["driver"]}, capture {warm["t_capture"]} s)')
+    if warm_launches != expected:
+        raise AssertionError(f'warm solves launched {warm_launches}, replays say {expected}')
     if not jac._accept(x, resnorm, 1e-10 * float(numpy.linalg.norm(res)), numpy.float64):
         raise AssertionError(f'slice solution fails the _accept contract: rel residual {rel_residual:.3e}')
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the main path: {missing}')
-    return launches
+    return launches, jac, res
+
+
+def phase_slice_profile(jac, res):
+    """torch.profiler over one warm solve of the slice with each driver (the
+    graphs through ``Matrix.solve``, the host loop through the same refined
+    solve): wall time, device-busy time and its share, kernel launches,
+    graph replays and host reads."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from nutils_tpu_torch.ops import sparse
+    kw = _slice_operands(jac, res)
+
+    def host_loop():
+        stats = {}
+        _x, _rn, iters, rounds = sparse.refined_solve_op(**kw, chunk=None, stats=stats)
+        return dict(stats, iters=iters, rounds=rounds)
+    runs = [('graph', lambda: (jac.solve(res, solver='cg', rtol=1e-10), dict(jac._solve_stats))[1]),
+            ('host', host_loop)]
+    for label, run in runs:
+        run()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            stats = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != 'Command Buffer Full']
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+        emit('slice_profile', driver=label, wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+             kernel_launches=sum(e.count for e in kernels), replays=stats.get('replays'),
+             host_reads=stats['host_reads'], chunks=stats.get('chunks'), refreshes=stats.get('refreshes'),
+             iters=stats.get('iters'), rounds=stats.get('rounds'),
+             top=[{'name': e.key[:80], 'device_ms': e.self_device_time_total / 1e3, 'count': e.count} for e in top])
+
+
+def _slice_operands(jac, res):
+    """The arguments ``Matrix._device_krylov`` gives the refined CG solve of
+    the slice (stencil operator, multigrid, rtol 1e-10)."""
+    import numpy
+    mv_kind, op = jac._device_op()
+    mg = jac._mg()
+    n = jac.shape[0]
+    return dict(method='cg', mv_kind=mv_kind, op=op, b=numpy.asarray(res, dtype=numpy.float64),
+                target=1e-10 * float(numpy.linalg.norm(res)), maxiter=max(1024, int(16 * numpy.sqrt(n))),
+                minv=(mg.ws, mg.dinvs, mg.coarse_inv), precon=('mg', mg.levels), op64=jac._op64_cache)
+
+
+def phase_slice_driver(jac, res):
+    """The graph driver against the host loop on the slice: bitwise x, the
+    same iterations and rounds; warm solves at chunk lengths 1-8 (the
+    choice of ``CG_CHUNK``); an iteration's device time after the loop's
+    stop, the multigrid kernels predicated on the loop's flag and not."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import cg, sparse
+    kw = _slice_operands(jac, res)
+    runs = {}
+    for label, chunk in (('host', None), ('graph', sparse.CG_CHUNK), ('graph again', sparse.CG_CHUNK),
+                         ('host again', None)):
+        stats = {}
+        t, out = _sync_time(lambda: sparse.refined_solve_op(**kw, chunk=chunk, stats=stats))
+        runs[label] = out, stats, t
+    (xh, rnh, ith, rh), (xg, rng_, itg, rg) = runs['host'][0], runs['graph'][0]
+    bitwise = bool(numpy.array_equal(xh, xg) and all(numpy.array_equal(runs[k][0][0], xh) for k in runs))
+    same = (ith, rh, rnh) == (itg, rg, rng_) and all(runs[k][0][1:] == runs['host'][0][1:] for k in runs)
+    emit('slice_driver', bitwise_x=bitwise, same_iters_rounds_resnorm=same, iters=ith, rounds=rh,
+         resnorm=rnh, chunk=sparse.CG_CHUNK, runs={k: dict(seconds=v[2], stats=v[1]) for k, v in runs.items()})
+    if not (bitwise and same):
+        raise AssertionError(f'the graph driver differs from the host loop: bitwise x {bitwise}, iterations '
+                             f'{ith}/{itg}, rounds {rh}/{rg}')
+    # the host loop with K4's plain versions (torch's reductions in their
+    # order) on the card: does the iteration count follow the sums' order?
+    saved = cg.cg_dot, cg.cg_step, cg.cg_xpby
+    cg.cg_dot, cg.cg_step, cg.cg_xpby = cg.dot_plain, cg.step_plain, cg.xpby_plain
+    try:
+        stats = {}
+        xp, rnp, itp, rp = sparse.refined_solve_op(**kw, chunk=None, stats=stats)
+    finally:
+        cg.cg_dot, cg.cg_step, cg.cg_xpby = saved
+    emit('slice_k4_plain', iters=itp, rounds=rp, resnorm=rnp, refreshes=stats.get('refreshes'),
+         refuted=stats.get('refuted'), rel_x=float(numpy.linalg.norm(xp - xh) / numpy.linalg.norm(xh)))
+    # warm solves at each chunk length: the first captures, the next three
+    # are timed (host clock, synchronised)
+    sweep = {}
+    for chunk in (1, 2, 3, 4, 8):
+        sparse.refined_solve_op(**kw, chunk=chunk)
+        times = []
+        for _ in range(3):
+            stats = {}
+            times.append(_sync_time(lambda: sparse.refined_solve_op(**kw, chunk=chunk, stats=stats))[0])
+        sweep[chunk] = dict(seconds=statistics.median(times), host_reads=stats['host_reads'],
+                            replays=stats.get('replays'))
+    host = [_sync_time(lambda: sparse.refined_solve_op(**kw, chunk=None))[0] for _ in range(3)]
+    emit('slice_chunks', warm_solve_s={c: v['seconds'] for c, v in sweep.items()}, host_loop_s=statistics.median(host),
+         detail=sweep)
+    # one iteration after the loop's stop (flag clear), ten a graph: with
+    # the multigrid kernels reading the flag, and without
+    frozen = {}
+    b32 = torch.as_tensor(res, dtype=torch.float32, device=kw['op'][0].device)
+    for predicate in (True, False):
+        loop = sparse._CGLoop(kw['precon'], kw['mv_kind'], kw['op'], kw['minv'], b32, predicate=predicate)
+        cg.reset(loop.st, 0.0, 1 << 30)
+        loop.start()
+        loop.iteration()
+        cg.active_flag(loop.st).fill_(0)
+        frozen['predicated' if predicate else 'not predicated'] = time_ms(loop.iteration)[0]
+        del loop
+    live = sparse._CGLoop(kw['precon'], kw['mv_kind'], kw['op'], kw['minv'], b32)
+    cg.reset(live.st, 0.0, 1 << 30)
+    live.start()
+    head = live.st.clone()
+    frozen['live'] = time_ms(live.iteration, setup=lambda: live.st.copy_(head))[0]
+    emit('slice_frozen_iteration', device_ms=frozen)
+    del live
 
 
 def phase_parity(devices=('cuda', 'cpu')):
@@ -971,7 +1149,10 @@ def main():
     phase_device()
     phase_build()
     measured = phase_kernels()
-    launches = phase_slice()
+    launches, jac, res = phase_slice()
+    phase_slice_driver(jac, res)
+    phase_slice_profile(jac, res)
+    del jac, res
     phase_parity()
     torch.cuda.empty_cache()
     ns_launches, system, jac, res, clean, k5_setup = phase_ns()

@@ -12,8 +12,9 @@ structured Laplace solve:
   L3 topology    structured topology, mesh, sample, function
   L4 matrix      stencil-form matrix, multigrid-preconditioned refined CG
   L5 solver      System: localized-AD assembly straight into stencil weights
-  ops/           stencil matvec, multigrid cycle, CG; their kernels in csrc/
-                 (CUDA) and ops/_triton_cg.py (Triton), built by _kernels.py
+  ops/           stencil matvec, multigrid cycle, CG and the other Krylov
+                 solvers; their kernels in csrc/ (CUDA, built by _kernels.py)
+                 and ops/_triton_*.py (Triton)
 '''
 
 __version__ = '0.1.0'

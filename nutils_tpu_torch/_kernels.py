@@ -1,17 +1,22 @@
 '''Build, load and launch of the hand-written CUDA kernels.
 
-K1 (``csrc/stencil.cu``), K2 and K3 (``csrc/mg.cu``), K5
-(``csrc/blockgrid.cu``), K7 (``csrc/schur.cu``), K8 (``csrc/csr_scatter.cu``)
-and K9 (``csrc/csr_spmv.cu``) compile with ``nvcc`` for
-``sm_90a``, one ``nvcc`` per source, all started together, and link into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-happens at first use, into ``build/nutils_tpu_torch/<hash of the sources and
-flags>/`` at the root of the checkout, so a change of any source rebuilds.
-Every C entry point launches on the stream it is given (PyTorch's current
-stream), allocates nothing, and returns ``cudaGetLastError()``;
-:func:`launch` and :func:`call` turn a nonzero code into an exception.  K4,
-K6 and K10 are Triton and compile through Triton's own cache
-(``ops/_triton_cg.py``, ``ops/_triton_gmres.py``, ``ops/_triton_bicgstab.py``).
+K1 (``csrc/stencil.cu``), K2 and K3 (``csrc/mg.cu``), K4 (``csrc/cg.cu``),
+K5 (``csrc/blockgrid.cu``), K7 (``csrc/schur.cu``), K8
+(``csrc/csr_scatter.cu``) and K9 (``csrc/csr_spmv.cu``) compile with
+``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together, and
+link into one shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use, into
+``build/nutils_tpu_torch/<hash of the sources and flags>/`` at the root of
+the checkout, so a change of any source rebuilds.  Every C entry point
+launches on the stream it is given (PyTorch's current stream), allocates
+nothing, and returns ``cudaGetLastError()``; :func:`launch` and :func:`call`
+turn a nonzero code into an exception.  K6 and K10 are Triton and compile
+through Triton's own cache (``ops/_triton_gmres.py``,
+``ops/_triton_bicgstab.py``).
+
+Each CUDA wrapper counts its launches (:func:`counted`); a :class:`Graph`
+captured from code that calls the wrappers adds, at each replay, what the
+capture would have launched.
 '''
 
 import ctypes
@@ -39,10 +44,13 @@ _I = ctypes.c_int
 _PI64 = ctypes.POINTER(ctypes.c_int64)
 _PI32 = ctypes.POINTER(ctypes.c_int)
 _SIG = {
-    'ntt_stencil_matvec': (_I, _P, _P, _P, _I, _PI64, _PI32, _PI32, _P),
-    'ntt_jacobi': (_I, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _PI64, _PI32, _PI32, _P),
-    'ntt_restrict': (_I, _P, _P, _I, _PI64, _PI64, _P),
-    'ntt_prolong_add': (_I, _P, _P, _I, _PI64, _PI64, _P),
+    'ntt_stencil_matvec': (_I, _P, _P, _P, _P, _I, _PI64, _PI32, _PI32, _P),
+    'ntt_jacobi': (_I, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _PI64, _PI32, _PI32, _P),
+    'ntt_restrict': (_I, _P, _P, _P, _I, _PI64, _PI64, _P),
+    'ntt_prolong_add': (_I, _P, _P, _P, _I, _PI64, _PI64, _P),
+    'ntt_cg_dot': (_I, _P, _P, _P, _I, _I, _I, _I, _P),
+    'ntt_cg_step': (_I, _P, _P, _P, _P, _P, _I, _I, _P),
+    'ntt_cg_xpby': (_I, _P, _P, _P, _I, _I, _P),
     'ntt_blockgrid_matvec': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     'ntt_schur_diag': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_double, _P),
     'ntt_csr_scatter': (_I, _P, _P, _P, _P, _I, _P),
@@ -116,7 +124,46 @@ def library():
         fn.restype = ctypes.c_int
     lib.ntt_error_string.argtypes = (ctypes.c_int,)
     lib.ntt_error_string.restype = ctypes.c_char_p
+    lib.ntt_cg_grid.argtypes = (ctypes.c_int,)
+    lib.ntt_cg_grid.restype = ctypes.c_int
     return lib
+
+
+COUNTED = []
+
+
+def counted(wrapper):
+    '''Register a kernel wrapper whose ``launches`` attribute counts its
+    launches (set to 0 here); returns the wrapper.'''
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
+
+
+class Graph:
+    '''A ``torch.cuda.CUDAGraph`` captured from ``fn()`` on the current
+    device.  The wrappers' counters do not count the capture; each
+    :meth:`replay` adds what it launched (``counts``: wrapper name ->
+    launches a replay).  A capture that fails raises.'''
+
+    def __init__(self, fn):
+        before = [w.launches for w in COUNTED]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                fn()
+        finally:
+            self._deltas = [(w, w.launches - b) for w, b in zip(COUNTED, before) if w.launches != b]
+            for w, b in zip(COUNTED, before):
+                w.launches = b
+        self.counts = {w.__name__: d for w, d in self._deltas}
+        self.replays = 0
+
+    def replay(self):
+        self.graph.replay()
+        for w, d in self._deltas:
+            w.launches += d
+        self.replays += 1
 
 
 def check_operands(name, ref, shape, dtype, **named):
@@ -135,6 +182,15 @@ def check_operands(name, ref, shape, dtype, **named):
             raise ValueError(f'{name}: {key} has shape {tuple(t.shape)}, expected {tuple(tshape)}')
         if not t.is_contiguous():
             raise ValueError(f'{name}: {key} is not contiguous')
+
+
+def check_flag(name, active, ref):
+    """Raise unless ``active`` is None or an int32 tensor beside ``ref``
+    whose first element is a loop's active flag (the kernel does nothing
+    while it is 0)."""
+    if active is not None and (active.device != ref.device or active.dtype != torch.int32
+                               or active.numel() < 1 or not active.is_contiguous()):
+        raise ValueError(f'{name}: active must be an int32 tensor on {ref.device}')
 
 
 @functools.lru_cache(maxsize=256)

@@ -42,6 +42,9 @@ inline Grid make_grid(int ndim, const int64_t* shape, const int* ks, const int* 
   return g;
 }
 
+// The CG loop's active flag (null: the caller is not a predicated loop).
+__device__ __forceinline__ bool stopped(const int* active) { return active && *active == 0; }
+
 inline unsigned int nblocks(int n) { return (unsigned int)((n + BLOCK - 1) / BLOCK); }
 
 __device__ __forceinline__ void coords_of(const Grid& g, int i, int (&c)[MAXD]) {

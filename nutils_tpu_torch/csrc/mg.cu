@@ -10,7 +10,10 @@
 // dof instead of materialising A x; its first sweep (x = 0) reads no
 // stencil at all.  K3 applies the tensor-product transfer of all coarsened
 // axes in one pass, one thread per output point, instead of one pass per
-// axis.
+// axis.  Inside the CG loop's chunk graphs each kernel reads the loop's
+// active flag first and does nothing once the loop has stopped (null:
+// always runs), so an iteration after the loop's exit costs empty launches,
+// not a V-cycle.
 #include "grid.cuh"
 
 namespace ntt {
@@ -21,7 +24,8 @@ namespace ntt {
 template <typename T>
 __global__ void jacobi_kernel(Grid g, const T* __restrict__ w, const T* __restrict__ dinv,
                               const T* __restrict__ r, const T* __restrict__ x,
-                              T* __restrict__ out, T omega, int mode) {
+                              T* __restrict__ out, T omega, int mode, const int* active) {
+  if (stopped(active)) return;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= g.n) return;
   if (mode == 0) {
@@ -36,7 +40,8 @@ __global__ void jacobi_kernel(Grid g, const T* __restrict__ w, const T* __restri
 // a = (-1, 0, 1), zero outside the fine grid (P^T of linear interpolation).
 template <typename T>
 __global__ void restrict_kernel(Grid fine, Grid coarse, const T* __restrict__ f,
-                                T* __restrict__ rc) {
+                                T* __restrict__ rc, const int* active) {
+  if (stopped(active)) return;
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= coarse.n) return;
   int c[MAXD];
@@ -72,7 +77,8 @@ __global__ void restrict_kernel(Grid fine, Grid coarse, const T* __restrict__ f,
 // index: the coarse value; odd: the mean of its two coarse neighbours).
 template <typename T>
 __global__ void prolong_add_kernel(Grid fine, Grid coarse, T* __restrict__ x,
-                                   const T* __restrict__ xc) {
+                                   const T* __restrict__ xc, const int* active) {
+  if (stopped(active)) return;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= fine.n) return;
   int c[MAXD];
@@ -112,23 +118,23 @@ __global__ void prolong_add_kernel(Grid fine, Grid coarse, T* __restrict__ x,
 extern "C" {
 
 int ntt_jacobi(int dtype, const void* w, const void* dinv, const void* r, const void* x, void* out,
-               double omega, int mode, int ndim, const int64_t* shape, const int* ks, const int* per,
-               void* stream) {
+               const int* active, double omega, int mode, int ndim, const int64_t* shape, const int* ks,
+               const int* per, void* stream) {
   ntt::Grid g = ntt::make_grid(ndim, shape, ks, per);
   if (g.n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     ntt::jacobi_kernel<float><<<ntt::nblocks(g.n), ntt::BLOCK, 0, s>>>(
         g, (const float*)w, (const float*)dinv, (const float*)r, (const float*)x, (float*)out,
-        (float)omega, mode);
+        (float)omega, mode, active);
   else
     ntt::jacobi_kernel<double><<<ntt::nblocks(g.n), ntt::BLOCK, 0, s>>>(
         g, (const double*)w, (const double*)dinv, (const double*)r, (const double*)x,
-        (double*)out, omega, mode);
+        (double*)out, omega, mode, active);
   return (int)cudaGetLastError();
 }
 
-int ntt_restrict(int dtype, const void* f, void* rc, int ndim, const int64_t* fshape,
+int ntt_restrict(int dtype, const void* f, void* rc, const int* active, int ndim, const int64_t* fshape,
                  const int64_t* cshape, void* stream) {
   ntt::Grid fine = ntt::make_grid(ndim, fshape, nullptr, nullptr);
   ntt::Grid coarse = ntt::make_grid(ndim, cshape, nullptr, nullptr);
@@ -136,14 +142,14 @@ int ntt_restrict(int dtype, const void* f, void* rc, int ndim, const int64_t* fs
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     ntt::restrict_kernel<float><<<ntt::nblocks(coarse.n), ntt::BLOCK, 0, s>>>(
-        fine, coarse, (const float*)f, (float*)rc);
+        fine, coarse, (const float*)f, (float*)rc, active);
   else
     ntt::restrict_kernel<double><<<ntt::nblocks(coarse.n), ntt::BLOCK, 0, s>>>(
-        fine, coarse, (const double*)f, (double*)rc);
+        fine, coarse, (const double*)f, (double*)rc, active);
   return (int)cudaGetLastError();
 }
 
-int ntt_prolong_add(int dtype, void* x, const void* xc, int ndim, const int64_t* fshape,
+int ntt_prolong_add(int dtype, void* x, const void* xc, const int* active, int ndim, const int64_t* fshape,
                     const int64_t* cshape, void* stream) {
   ntt::Grid fine = ntt::make_grid(ndim, fshape, nullptr, nullptr);
   ntt::Grid coarse = ntt::make_grid(ndim, cshape, nullptr, nullptr);
@@ -151,10 +157,10 @@ int ntt_prolong_add(int dtype, void* x, const void* xc, int ndim, const int64_t*
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     ntt::prolong_add_kernel<float><<<ntt::nblocks(fine.n), ntt::BLOCK, 0, s>>>(
-        fine, coarse, (float*)x, (const float*)xc);
+        fine, coarse, (float*)x, (const float*)xc, active);
   else
     ntt::prolong_add_kernel<double><<<ntt::nblocks(fine.n), ntt::BLOCK, 0, s>>>(
-        fine, coarse, (double*)x, (const double*)xc);
+        fine, coarse, (double*)x, (const double*)xc, active);
   return (int)cudaGetLastError();
 }
 

@@ -476,11 +476,13 @@ class Matrix:
         if op64 is None:
             op64 = self._op64_cache = widen(op)
         t0 = time.perf_counter()
+        driver = {}
         x, resnorm, iters, rounds = refined_solve_op(
             method, mv_kind, op, b64, target=target, maxiter=cap, restart=restart,
-            minv=minv, precon=kind, op64=op64)
+            minv=minv, precon=kind, op64=op64, stats=driver)
         # attribution record for benches/logs: which operator form, precon
-        # and iteration counts this solve used
+        # and iteration counts this solve used, and how its loop ran (for
+        # CG: graphs or host loop, the chunk, replays and host reads)
         self._solve_stats = {
             'method': method,
             'op_form': mv_kind[0],
@@ -488,6 +490,7 @@ class Matrix:
             'iters': int(iters), 'rounds': int(rounds),
             't_fused': time.perf_counter() - t0,
             'accepted_on_device': False,
+            **driver,
         }
         if not self._accept(x, resnorm, target, numpy.float64):
             if precon is None and getattr(self, '_field_offsets', None) is not None \

@@ -680,4 +680,4 @@ def blockgrid_matvec(v, x, plan):
     return y
 
 
-blockgrid_matvec.launches = 0
+_kernels.counted(blockgrid_matvec)

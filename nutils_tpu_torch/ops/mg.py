@@ -168,13 +168,14 @@ def jacobi_plain(w, dinv, r, x, ks, shape, periodic, omega, mode):
 
 # ------------------------------------------------------------ kernels K2, K3
 
-def jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega=OMEGA, mode=1):
+def jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega=OMEGA, mode=1, active=None):
     '''One weighted-Jacobi sweep of the V-cycle, fused with its stencil
     matvec (kernel K2, ``csrc/mg.cu``): mode 0 is the first sweep from
     x = 0 (``omega dinv r``, no stencil read; ``x`` is ignored), mode 1 the
     sweep ``x + omega dinv (r - A x)``, mode 2 the residual ``r - A x``.
     Replaces the matvec-then-update of ``nutils_tpu.ops.mg._vcycle_fn``.
-    Returns a new tensor.'''
+    Returns a new tensor, left unwritten while the int32 flag ``active``
+    (the CG loop's, ``ops/cg.py``) is 0.'''
     ks = tuple(int(k) for k in ks)
     shape = tuple(int(s) for s in shape)
     periodic = tuple(bool(p) for p in periodic)
@@ -184,57 +185,63 @@ def jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega=OMEGA, mode=1):
     x = r if mode == 0 else x
     _kernels.check_operands('jacobi_smooth', r, shape, r.dtype, w=(w, (W,) + shape),
                             dinv=(dinv, shape), xin=(x, shape))
+    _kernels.check_flag('jacobi_smooth', active, r)
     out = torch.empty_like(r)
-    _kernels.launch('ntt_jacobi', r, [w, dinv, r, x, out], shape, ks=ks, periodic=periodic,
+    _kernels.launch('ntt_jacobi', r, [w, dinv, r, x, out, active], shape, ks=ks, periodic=periodic,
                     scalars=(float(omega), int(mode)))
     jacobi_smooth.launches += 1
     return out
 
 
-jacobi_smooth.launches = 0
+_kernels.counted(jacobi_smooth)
 
 
-def mg_restrict(f, cshape):
+def mg_restrict(f, cshape, active=None):
     '''Full-weighting restriction [*shape] -> [*cshape] over the coarsened
     axes (kernel K3, ``csrc/mg.cu``; replaces ``_restrict``/``_restrict_1d``
-    of ``nutils_tpu.ops.mg``).'''
+    of ``nutils_tpu.ops.mg``); does nothing while ``active`` is 0.'''
     cshape = tuple(int(s) for s in cshape)
     if f.device.type == 'cpu':
         return restrict_plain(f, cshape)
     shape = tuple(f.shape)
     _kernels.check_operands('mg_restrict', f, shape, f.dtype)
+    _kernels.check_flag('mg_restrict', active, f)
     rc = torch.empty(cshape, dtype=f.dtype, device=f.device)
-    _kernels.launch('ntt_restrict', f, [f, rc], shape, cshape=cshape)
+    _kernels.launch('ntt_restrict', f, [f, rc, active], shape, cshape=cshape)
     mg_restrict.launches += 1
     return rc
 
 
-mg_restrict.launches = 0
+_kernels.counted(mg_restrict)
 
 
-def mg_prolong_add(x, xc):
+def mg_prolong_add(x, xc, active=None):
     '''x += P xc, linear interpolation over the coarsened axes, in place
     (kernel K3, ``csrc/mg.cu``; replaces ``x + _prolong(xc, shape)`` of
-    ``nutils_tpu.ops.mg``).  Returns ``x``.'''
+    ``nutils_tpu.ops.mg``); does nothing while ``active`` is 0.  Returns
+    ``x``.'''
     if x.device.type == 'cpu':
         x += prolong_plain(xc, tuple(x.shape))
         return x
     shape = tuple(x.shape)
     _kernels.check_operands('mg_prolong_add', x, shape, x.dtype, xc=(xc, tuple(xc.shape)))
-    _kernels.launch('ntt_prolong_add', x, [x, xc], shape, cshape=tuple(xc.shape))
+    _kernels.check_flag('mg_prolong_add', active, x)
+    _kernels.launch('ntt_prolong_add', x, [x, xc, active], shape, cshape=tuple(xc.shape))
     mg_prolong_add.launches += 1
     return x
 
 
-mg_prolong_add.launches = 0
+_kernels.counted(mg_prolong_add)
 
 
 # ------------------------------------------------------------ V-cycle
 
-def vcycle(levels, mg_ops, r_nd, nu=2):
+def vcycle(levels, mg_ops, r_nd, nu=2, active=None):
     '''V(nu, nu) cycle with weighted-Jacobi smoothing for the static
     ((ks, shape, periodic), ...) level tuple (the coarsest included) on the
-    operands ``(ws, dinvs, coarse_inv)``; ``r_nd`` has the finest shape.'''
+    operands ``(ws, dinvs, coarse_inv)``; ``r_nd`` has the finest shape.
+    K2 and K3 do nothing while the CG loop's flag ``active`` is 0 (the
+    coarsest level's product still runs).'''
     ws, dinvs, coarse_inv = mg_ops
     nlev = len(levels) - 1
 
@@ -244,13 +251,14 @@ def vcycle(levels, mg_ops, r_nd, nu=2):
             return (coarse_inv @ r.reshape(-1)).reshape(cshape)
         ks, shape, per = levels[level]
         w, dinv = ws[level], dinvs[level]
-        x = jacobi_smooth(w, dinv, r, None, ks, shape, per, mode=0)
+        x = jacobi_smooth(w, dinv, r, None, ks, shape, per, mode=0, active=active)
         for _ in range(nu - 1):
-            x = jacobi_smooth(w, dinv, r, x, ks, shape, per)
-        rc = mg_restrict(jacobi_smooth(w, dinv, r, x, ks, shape, per, mode=2), levels[level + 1][1])
-        x = mg_prolong_add(x, cycle(level + 1, rc))
+            x = jacobi_smooth(w, dinv, r, x, ks, shape, per, active=active)
+        rc = mg_restrict(jacobi_smooth(w, dinv, r, x, ks, shape, per, mode=2, active=active),
+                         levels[level + 1][1], active)
+        x = mg_prolong_add(x, cycle(level + 1, rc), active)
         for _ in range(nu):
-            x = jacobi_smooth(w, dinv, r, x, ks, shape, per)
+            x = jacobi_smooth(w, dinv, r, x, ks, shape, per, active=active)
         return x
     return cycle(0, r_nd)
 

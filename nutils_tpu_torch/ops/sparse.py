@@ -9,10 +9,15 @@ they are Python loops over device tensors.
 
 * CG: a true-residual refresh every 64 iterations and whenever the recursion
   claims convergence, a stall exit after four refreshes without 1%
-  progress, and a direction restart (beta = 0) after a refuted claim.
-  alpha and beta stay 0-d device tensors; each iteration reads one scalar
-  (the recursive residual norm) for the exit and refresh tests.  Vector
-  work: kernel K4 (``ops/_triton_cg.py``).
+  progress, and a direction restart (beta = 0) after a refuted claim.  The
+  vector work, the scalars and the per-iteration tests run on the device on
+  a small state (kernel K4, ``ops/cg.py``), which stops itself at a claim,
+  a scheduled refresh or the iteration cap; the host reads the state once
+  a chunk of iterations, runs the refresh and decides the stall and the
+  exit.  On the card the chunks replay from CUDA graphs (:data:`CG_CHUNK`
+  iterations each); the host loop (one iteration a read) is the plain
+  driver, the CPU's, and on the card the reference the graphs are held
+  against.
 * GMRES: CGS2 orthogonalization, Givens rotations, a triangular solve, true-
   residual restarts and a stall exit after five restarts without 0.1%
   progress.  The Arnoldi vector work is kernel K6
@@ -37,17 +42,19 @@ subkinds)``.  The CSR value scatter of assembly is kernel K8
 operator are ROADMAP A6 and A3.
 '''
 
+import collections
 import math
+import time
 
 import numpy
 import torch
 
 from .. import _kernels
 from . import blockgrid as _bg
+from . import cg as _cg
 from . import mg as _mg
 from . import stencil as _st
 from . import _triton_bicgstab as _bicg
-from ._triton_cg import cg_axpy_norm, cg_dot, cg_xpby
 from ._triton_gmres import gmres_combine, gmres_normalize, gmres_project, gmres_update
 
 
@@ -129,7 +136,7 @@ def schur_diag_inverse_device(w, csr_map, indices, indptr, n, weak_rel=1e-3):
     return minv
 
 
-schur_diag_inverse_device.launches = 0
+_kernels.counted(schur_diag_inverse_device)
 
 
 # ------------------------------------------------------------ CSR kernels
@@ -165,7 +172,7 @@ def csr_matvec(data, indices, indptr, x):
     return y
 
 
-csr_matvec.launches = 0
+_kernels.counted(csr_matvec)
 
 
 def scatter_plain(values, slot, nnz):
@@ -198,7 +205,7 @@ def csr_scatter(values, order, segptr, slot=None):
     return data
 
 
-csr_scatter.launches = 0
+_kernels.counted(csr_scatter)
 
 
 # ------------------------------------------------------------ precon apply
@@ -206,44 +213,48 @@ csr_scatter.launches = 0
 def _precon_apply(kind):
     '''Resolve a precon kind — ``'diag'``, ``('mg', levels)`` with the
     static per-level (ks, shape, periodic) tuple, or
-    ``('fieldsplit', offsets, subkinds)`` — to apply(operand, r).'''
+    ``('fieldsplit', offsets, subkinds)`` — to apply(operand, r, active=None);
+    the multigrid kernels do nothing while the CG loop's flag ``active`` is
+    0.'''
     if isinstance(kind, tuple) and kind[0] == 'mg':
         levels = kind[1]
         shape = levels[0][1]
 
-        def apply(operand, r):
-            return _mg.vcycle(levels, operand, r.reshape(shape)).reshape(-1)
+        def apply(operand, r, active=None):
+            return _mg.vcycle(levels, operand, r.reshape(shape), active=active).reshape(-1)
         return apply
     if isinstance(kind, tuple) and kind[0] == 'fieldsplit':
         offs, subkinds = kind[1], kind[2]
         subs = [_precon_apply(k) for k in subkinds]
 
-        def apply(operand, r):
-            return torch.cat([sub(op_i, r[lo:hi]) for sub, op_i, lo, hi
+        def apply(operand, r, active=None):
+            return torch.cat([sub(op_i, r[lo:hi], active) for sub, op_i, lo, hi
                               in zip(subs, operand, offs[:-1], offs[1:])])
         return apply
     if kind == 'diag':
-        return lambda minv, r: minv * r
+        return lambda minv, r, active=None: minv * r
     raise NotImplementedError(f'preconditioner {kind!r} is not ported yet (ROADMAP A4, A6)')
 
 
 def _make_matvec(mv_kind):
+    '''Resolve an operator kind to mv(op, x, active=None); the stencil
+    kernel does nothing while the CG loop's flag ``active`` is 0.'''
     if mv_kind[0] == 'stencil':
         _kind, ks, shape, periodic = mv_kind
 
-        def mv(op, x):
+        def mv(op, x, active=None):
             (w,) = op
-            return _st.stencil_matvec(w, x.reshape(shape), ks, shape, periodic).reshape(-1)
+            return _st.stencil_matvec(w, x.reshape(shape), ks, shape, periodic, active).reshape(-1)
         return mv
     if mv_kind[0] == 'blockgrid':
         plan = mv_kind[1]
 
-        def mv(op, x):
+        def mv(op, x, active=None):
             (v,) = op
             return _bg.blockgrid_matvec(v, x, plan)
         return mv
     if mv_kind[0] == 'csr':
-        def mv(op, x):
+        def mv(op, x, active=None):
             data, indices, indptr = op
             return csr_matvec(data, indices, indptr, x)
         return mv
@@ -252,52 +263,206 @@ def _make_matvec(mv_kind):
 
 # ------------------------------------------------------------ CG
 
-def _cg_driver(precon_kind, mv_kind):
-    apply_m = _precon_apply(precon_kind)
-    matvec_op = _make_matvec(mv_kind)
+# Iterations a chunk graph holds on the card (chosen on the card, PERF.md):
+# the host reads the loop's state once a chunk.
+CG_CHUNK = 2
 
-    def run(op, b, minv, atol, maxiter):
-        '''Returns (x, resnorm, iters); b is not modified.'''
+
+class _CGLoop:
+    '''The buffers of one CG solve (right-hand side ``b``, ``x``, ``r``,
+    ``p`` and the K4 state) and the loop's three pieces over them.  Each
+    piece only launches work, so each can be captured into a CUDA graph;
+    with ``predicate`` the stencil matvec and the V-cycle take the state's
+    active flag, so an iteration after the loop has stopped costs empty
+    launches.'''
+
+    def __init__(self, precon_kind, mv_kind, op, minv, b, predicate=True):
+        self.apply_m = _precon_apply(precon_kind)
+        self.matvec = _make_matvec(mv_kind)
+        self.op, self.minv = op, minv
+        self.b = b
+        self.x, self.r, self.p = (torch.empty_like(b) for _ in range(3))
+        self.st = _cg.new_state(b.device)
+        self.active = _cg.active_flag(self.st) if predicate else None
+
+    def start(self):
+        '''x = 0, r = b, p = z = M b, rz = r . z, and the entry test on
+        |b|.'''
+        self.x.zero_()
+        self.r.copy_(self.b)
+        z = self.apply_m(self.minv, self.r)
+        self.p.copy_(z)
+        _cg.cg_dot(self.r, z, self.st, _cg.RZ)
+        _cg.cg_dot(self.b, self.b, self.st, _cg.RR0, start=True)
+
+    def iteration(self):
+        '''One iteration of ``nutils_tpu.ops.sparse._cg_driver``'s body up to
+        the refresh; it stops the loop at a claim, a scheduled refresh or the
+        cap (then its tail does nothing).'''
+        ap = self.matvec(self.op, self.p, self.active)
+        _cg.cg_dot(self.p, ap, self.st, _cg.PAP)
+        _cg.cg_step(self.x, self.r, self.p, ap, self.st)
+        z = self.apply_m(self.minv, self.r, self.active)
+        _cg.cg_dot(self.r, z, self.st, _cg.RZ)
+        _cg.cg_xpby(self.p, z, self.st)
+
+    def iterations(self, c):
+        for _ in range(c):
+            self.iteration()
+
+    def refresh(self):
+        '''The stopped iteration's tail on the true residual: r = b - A x,
+        |r|^2, z = M r, rz_new and the direction (restarted after a claim);
+        the loop runs again.'''
+        _cg.active_flag(self.st).fill_(1)
+        torch.sub(self.b, self.matvec(self.op, self.x), out=self.r)
+        _cg.cg_dot(self.r, self.r, self.st, _cg.RR)
+        z = self.apply_m(self.minv, self.r)
+        _cg.cg_dot(self.r, z, self.st, _cg.RZ)
+        _cg.cg_xpby(self.p, z, self.st)
+
+
+def _cg_loop(loop, atol, maxiter, start, chunk, refresh, stats):
+    '''The host's part of a CG solve: after ``start()``, run ``chunk()``
+    (iterations that stop themselves) and read the state, run ``refresh()``
+    where the state asks for one and read it again, and decide the stall
+    and the exit with the JAX package's expressions.  Returns (rnorm, k).'''
+    _cg.reset(loop.st, atol, maxiter)
+    start()
+    stall = 0
+    lastres = None
+    while True:
+        chunk()
+        k, reason, rr, rr0 = _cg.read(loop.st)
+        stats['host_reads'] += 1
+        stats['chunks'] = stats.get('chunks', 0) + 1
+        if lastres is None:
+            rnorm = lastres = _cg.norm(rr0)
+        if reason == _cg.START:
+            return rnorm, k
+        if reason in (_cg.CLAIMED, _cg.SCHEDULED):
+            refresh()
+            rnorm = _cg.norm(_cg.read(loop.st)[2])
+            stats['host_reads'] += 1
+            stats['refreshes'] = stats.get('refreshes', 0) + 1
+            if reason == _cg.CLAIMED and not rnorm <= atol:
+                stats['refuted'] = stats.get('refuted', 0) + 1
+            # stagnating refreshes end the loop
+            stall = stall + 1 if rnorm > 0.99 * lastres else 0
+            lastres = rnorm
+        else:
+            rnorm = _cg.norm(rr)
+        if not (rnorm > atol and k < maxiter and stall < 4):
+            return rnorm, k
+
+
+class _CGGraphs:
+    '''A :class:`_CGLoop` whose start, chunk of ``chunk`` iterations and
+    refresh are captured as CUDA graphs (after one eager warm-up of every
+    piece on a side stream: first calls upload tables and load kernels).'''
+
+    def __init__(self, precon_kind, mv_kind, op, minv, b, chunk, atol, maxiter):
+        t0 = time.perf_counter()
+        self.loop = loop = _CGLoop(precon_kind, mv_kind, op, minv, torch.empty_like(b))
+        loop.b.copy_(b)
+        _cg.reset(loop.st, atol, maxiter)
+        side = torch.cuda.Stream(b.device)
+        side.wait_stream(torch.cuda.current_stream(b.device))
+        with torch.cuda.stream(side):
+            loop.start()
+            loop.iteration()
+            loop.refresh()
+        torch.cuda.current_stream(b.device).wait_stream(side)
+        torch.cuda.synchronize(b.device)
+        self.graphs = {'start': _kernels.Graph(loop.start), 'chunk': _kernels.Graph(lambda: loop.iterations(chunk)),
+                       'refresh': _kernels.Graph(loop.refresh)}
+        torch.cuda.synchronize(b.device)
+        self.t_capture = time.perf_counter() - t0
+
+
+# the graphs of recent CG solves, keyed by kinds, chunk and the operands'
+# identity (each entry holds its operands, so their storage is not reused)
+_CG_GRAPHS = collections.OrderedDict()
+_CG_GRAPHS_KEPT = 4
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in _tensors(o)]
+    return []
+
+
+def _cg_graphs(precon_kind, mv_kind, op, minv, b, chunk, atol, maxiter):
+    key = (precon_kind, mv_kind, chunk, b.dtype, b.device, b.shape[0],
+           tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in _tensors((op, minv))))
+    entry = _CG_GRAPHS.pop(key, None)
+    fresh = entry is None
+    if fresh:
+        entry = (_CGGraphs(precon_kind, mv_kind, op, minv, b, chunk, atol, maxiter), (op, minv))
+        while len(_CG_GRAPHS) >= _CG_GRAPHS_KEPT:
+            _CG_GRAPHS.popitem(last=False)
+    _CG_GRAPHS[key] = entry
+    return entry[0], fresh
+
+
+def _resolve_chunk(chunk, device):
+    '''``'auto'``: :data:`CG_CHUNK` on the card, the host loop (None) on the
+    CPU.'''
+    if chunk == 'auto':
+        return CG_CHUNK if device.type == 'cuda' else None
+    return chunk
+
+
+def _cg_driver(precon_kind, mv_kind, chunk='auto'):
+    '''Preconditioned CG with the semantics of
+    ``nutils_tpu.ops.sparse._cg_driver``, iteration for iteration.  ``chunk``
+    None is the host loop: one iteration, then one read of the state.  An
+    int ``chunk`` runs that many iterations between reads: replayed from
+    CUDA graphs (cached, :func:`_cg_graphs`) for CUDA tensors, eagerly (the
+    plain predicated steps) on the CPU.  Both return what the host loop
+    returns, bit for bit.'''
+
+    def run(op, b, minv, atol, maxiter, stats=None):
+        '''Returns (x, resnorm, iters); b is not modified.  On the graph
+        path ``x`` is the graphs' buffer, valid until their next solve.
+        ``stats`` (a dict) gathers the driver, the chunk, replays and host
+        reads.'''
+        stats = {} if stats is None else stats
         atol = float(numpy.asarray(atol, dtype=numpy.float32 if b.dtype == torch.float32 else numpy.float64))
         maxiter = int(maxiter)
-        zero = torch.zeros((), dtype=b.dtype, device=b.device)
-        x = torch.zeros_like(b)
-        r = b.clone()
-        z = apply_m(minv, r)
-        p = z.clone()
-        rz = cg_dot(r, z)
-        rnorm = lastres = float(torch.linalg.norm(b))
-        k = stall = 0
-        while rnorm > atol and k < maxiter and stall < 4:
-            Ap = matvec_op(op, p)
-            alpha = rz / cg_dot(p, Ap)
-            # x += alpha p; r -= alpha Ap in place: r is now the recursive
-            # residual, and its norm is the one scalar read per iteration
-            rnorm = math.sqrt(max(float(cg_axpy_norm(x, r, p, Ap, alpha)), 0.0))
-            # true-residual refresh on a 64-iteration schedule and whenever
-            # the recursion claims convergence, so the loop only ever exits
-            # on a true residual; stagnating refreshes end the loop
-            claimed = rnorm <= atol
-            if (k + 1) % 64 == 0 or claimed:
-                r = b - matvec_op(op, x)
-                rnorm = float(torch.linalg.norm(r))
-                stall = stall + 1 if rnorm > 0.99 * lastres else 0
-                lastres = rnorm
-            z = apply_m(minv, r)
-            rz_new = cg_dot(r, z)
-            # a claimed-but-refuted convergence restarts the direction
-            cg_xpby(p, z, zero if claimed else rz_new / rz)
-            rz = rz_new
-            k += 1
-        return x, rnorm, k
+        c = _resolve_chunk(chunk, b.device)
+        stats.setdefault('host_reads', 0)
+        if c is not None and b.device.type == 'cuda':
+            entry, fresh = _cg_graphs(precon_kind, mv_kind, op, minv, b, int(c), atol, maxiter)
+            graphs = entry.graphs
+            stats.update(driver='graph', c=int(c))
+            stats['t_capture'] = stats.get('t_capture', 0.0) + (entry.t_capture if fresh else 0.0)
+            before = {name: g.replays for name, g in graphs.items()}
+            loop = entry.loop
+            loop.b.copy_(b)
+            rnorm, k = _cg_loop(loop, atol, maxiter, graphs['start'].replay, graphs['chunk'].replay,
+                                graphs['refresh'].replay, stats)
+            replays = stats.setdefault('replays', {})
+            for name, g in graphs.items():
+                replays[name] = replays.get(name, 0) + g.replays - before[name]
+            stats['graph_launches'] = {name: g.counts for name, g in graphs.items()}
+            return loop.x, rnorm, k
+        loop = _CGLoop(precon_kind, mv_kind, op, minv, b)
+        stats.update(driver='host' if c is None else 'chunked', c=int(c or 1))
+        rnorm, k = _cg_loop(loop, atol, maxiter, loop.start, lambda: loop.iterations(int(c or 1)), loop.refresh,
+                            stats)
+        return loop.x, rnorm, k
 
     return run
 
 
-def cg_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag'):
+def cg_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag', chunk='auto', stats=None):
     '''Preconditioned CG over an operator-kind/operand pair; returns
     (x, resnorm, iters).'''
-    return _cg_driver(precon, mv_kind)(tuple(op), b, minv, atol, maxiter)
+    x, rnorm, k = _cg_driver(precon, mv_kind, chunk)(tuple(op), b, minv, atol, maxiter, stats)
+    return x.clone(), rnorm, k
 
 
 # ------------------------------------------------------------ GMRES(m)
@@ -447,14 +612,17 @@ def bicgstab_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag'):
 
 # ---------------------------------------- iterative refinement (device)
 
-def _refined_driver(method, precon_kind, mv_kind, restart):
+def _refined_driver(method, precon_kind, mv_kind, restart, chunk='auto'):
     '''The mixed-precision refined solve: the working-precision inner CG,
     GMRES or BiCGStab nested in a float64 outer refinement loop whose true residual is
     computed on the device with the operator weights widened to float64
-    (exact, since they were assembled in the lower precision).'''
+    (exact, since they were assembled in the lower precision).  The rounds
+    run on the host, one read of the residual norm a round; ``chunk`` is
+    the CG driver's (:func:`_cg_driver`).  GMRES and BiCGStab run host
+    loops.'''
     matvec_op = _make_matvec(mv_kind)
     if method == 'cg':
-        inner = _cg_driver(precon_kind, mv_kind)
+        inner = _cg_driver(precon_kind, mv_kind, chunk)
     elif method == 'gmres':
         inner = _gmres_driver(precon_kind, restart, mv_kind)
     elif method == 'bicgstab':
@@ -462,12 +630,21 @@ def _refined_driver(method, precon_kind, mv_kind, restart):
     else:
         raise ValueError(f'unknown refined method {method!r}')
 
-    def run(op32, op64, b64, minv, target, inner_floor, cap, maxrounds):
+    def run(op32, op64, b64, minv, target, inner_floor, cap, maxrounds, rn0=None, stats=None):
+        '''``rn0``: |b64| where the caller has it on the host, else read
+        here.  ``stats`` (a dict) gathers the CG driver's record with the
+        rounds' host reads, or that GMRES and BiCGStab run host loops.'''
+        stats = {} if stats is None else stats
+        reads = 0
         dt32 = op32[0].dtype
         np32 = numpy.float32 if dt32 == torch.float32 else numpy.float64
         x = torch.zeros_like(b64)
         r = b64
-        rn = float(torch.linalg.norm(b64))
+        if rn0 is None:
+            rn = float(torch.linalg.norm(b64))
+            reads += 1
+        else:
+            rn = rn0
         prevrn = math.inf
         rounds = total_it = 0
         # continue while above target, under the round budget, still
@@ -475,16 +652,24 @@ def _refined_driver(method, precon_kind, mv_kind, restart):
         while rn > target and rounds < maxrounds and (rounds == 0 or rn < 0.95 * prevrn) \
                 and math.isfinite(rn):
             inner_atol = float(np32(max(target / rn, inner_floor)))
-            d, _rnin, it = inner(op32, (r / rn).to(dt32), minv, inner_atol, cap)
+            if method == 'cg':
+                d, _rnin, it = inner(op32, (r / rn).to(dt32), minv, inner_atol, cap, stats)
+            else:
+                d, _rnin, it = inner(op32, (r / rn).to(dt32), minv, inner_atol, cap)
             x_new = x + rn * d.to(torch.float64)
             r_new = b64 - matvec_op(op64, x_new)
             rn_new = float(torch.linalg.norm(r_new))
+            reads += 1
             prevrn = rn
             # keep the better iterate even when the round failed to contract
             if rn_new < rn and math.isfinite(rn_new):
                 x, r, rn = x_new, r_new, rn_new
             rounds += 1
             total_it += it
+        if method == 'cg':
+            stats['host_reads'] = stats.get('host_reads', 0) + reads
+        else:
+            stats['driver'] = 'host'
         return x, rn, total_it, rounds
 
     return run
@@ -498,27 +683,35 @@ def widen(op):
 
 
 def refined_solve_op(method, mv_kind, op, b, *, target, maxiter, restart=100,
-                     minv, precon, op64=None, maxrounds=30):
+                     minv, precon, op64=None, maxrounds=30, chunk='auto', stats=None):
     '''Refined device solve; returns (x64 numpy, resnorm, iters, rounds).
-    ``op64`` defaults to widening ``op``; ``b`` is a host or device vector.'''
+    ``op64`` defaults to widening ``op``; ``b`` is a host or device vector.
+    ``chunk``: the CG driver's (:func:`_cg_driver`; ``'auto'`` replays
+    CUDA graphs on the card and runs the host loop on the CPU); ``stats``
+    (a dict) receives the driver's record.'''
     x, rn, it, rounds = refined_solve_device(method, mv_kind, op, b, target=target, maxiter=maxiter,
                                              restart=restart, minv=minv, precon=precon, op64=op64,
-                                             maxrounds=maxrounds)
+                                             maxrounds=maxrounds, chunk=chunk, stats=stats)
     return x.cpu().numpy(), rn, it, rounds
 
 
 def refined_solve_device(method, mv_kind, op, b, *, target, maxiter, restart=100,
-                         minv, precon, op64=None, maxrounds=30):
+                         minv, precon, op64=None, maxrounds=30, chunk='auto', stats=None):
     ''':func:`refined_solve_op` with the solution left on the device as a
     float64 tensor; returns (x64, resnorm, iters, rounds).'''
     if method == 'gmres':
         restart = max(2, min(int(restart), int(len(b))))
-    run = _refined_driver(method, precon, mv_kind, restart)
+    run = _refined_driver(method, precon, mv_kind, restart, chunk)
     if op64 is None:
         op64 = widen(op)
+    rn0 = None
+    if not isinstance(b, torch.Tensor):
+        # a host right-hand side: its norm needs no read of the device
+        b = numpy.asarray(b, dtype=numpy.float64)
+        rn0 = float(numpy.linalg.norm(b))
     b64 = torch.as_tensor(b, device=op[0].device).to(torch.float64)
     inner_floor = float(numpy.sqrt(numpy.finfo(numpy.float32 if op[0].dtype == torch.float32
                                                else numpy.float64).eps))
     x, rn, it, rounds = run(tuple(op), tuple(op64), b64, minv, float(target), inner_floor,
-                            int(maxiter), int(maxrounds))
+                            int(maxiter), int(maxrounds), rn0, stats)
     return x, float(rn), int(it), int(rounds)

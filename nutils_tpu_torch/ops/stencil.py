@@ -304,16 +304,17 @@ def matvec_plain(w, x, ks, shape, periodic=None):
     return acc
 
 
-def stencil_matvec(w, x, ks, shape, periodic=None):
+def stencil_matvec(w, x, ks, shape, periodic=None, active=None):
     '''y = A x for the grid stencil ``w`` [W, *shape] and ``x`` [*shape].
 
     Kernel K1 (``csrc/stencil.cu``), replacing the device work of
     ``nutils_tpu.ops.stencil._matvec_fn`` (the function the deleted Pallas
     stencil kernel computed).  It is memory-bound: (W + 2) values move per
     dof, and one thread per output dof reads its W slot-major weights
-    coalesced while L2 serves the neighbour reads of ``x``.  Tensors on the
-    CPU take :func:`matvec_plain`; a CUDA tensor launches the kernel or
-    raises.'''
+    coalesced while L2 serves the neighbour reads of ``x``.  ``active``
+    (int32, the CG loop's flag, ``ops/cg.py``) makes the kernel do nothing
+    while it is 0; ``y`` is then left unwritten.  Tensors on the CPU take
+    :func:`matvec_plain`; a CUDA tensor launches the kernel or raises.'''
     ks = tuple(int(k) for k in ks)
     shape = tuple(int(s) for s in shape)
     periodic = tuple(bool(p) for p in (periodic or (False,) * len(ks)))
@@ -321,13 +322,14 @@ def stencil_matvec(w, x, ks, shape, periodic=None):
         return matvec_plain(w, x, ks, shape, periodic)
     W = int(numpy.prod([2 * k + 1 for k in ks]))
     _kernels.check_operands('stencil_matvec', x, shape, x.dtype, w=(w, (W,) + shape))
+    _kernels.check_flag('stencil_matvec', active, x)
     y = torch.empty_like(x)
-    _kernels.launch('ntt_stencil_matvec', x, [w, x, y], shape, ks=ks, periodic=periodic)
+    _kernels.launch('ntt_stencil_matvec', x, [w, x, y, active], shape, ks=ks, periodic=periodic)
     stencil_matvec.launches += 1
     return y
 
 
-stencil_matvec.launches = 0
+_kernels.counted(stencil_matvec)
 
 
 def matvec(form, w_dev, x):

@@ -80,3 +80,112 @@ def test_carried_operator_solves_like_jax(problem):
     assert tp.rel(got, want) <= 1e-8
     args = carry.arguments_from_numpy({'u': got}, device='cpu', dtype=numpy.float32)
     assert args['u'].dtype == torch.float32 and args['u'].shape == got.shape
+
+
+# ------------------------------------------- the chunked driver (plain steps)
+
+def _operands(p, precon, dtype):
+    kind, _mj, mt = _minv(p, precon)
+    op = tuple(t.to(dtype) for t in p['tjac']._device_op()[1])
+    if precon == 'mg':
+        mt = tuple(tuple(t.to(dtype) for t in m) if isinstance(m, tuple) else m.to(dtype) for m in mt)
+    else:
+        mt = mt.to(dtype)
+    return kind, op, mt
+
+
+def _cg(p, precon, dtype, chunk, rtol, maxiter=2000):
+    kind, op, mt = _operands(p, precon, dtype)
+    b = torch.as_tensor(p['b'], dtype=dtype)
+    stats = {}
+    x, rn, k = sp_torch.cg_op(p['mv_kind'], op, b, atol=rtol * numpy.linalg.norm(p['b']), maxiter=maxiter,
+                              minv=mt, precon=kind, chunk=chunk, stats=stats)
+    return x, rn, k, stats
+
+
+def _same(a, b):
+    (xa, rna, ka, _sa), (xb, rnb, kb, _sb) = a, b
+    assert ka == kb and rna == rnb and torch.equal(xa, xb)
+
+
+@pytest.mark.parametrize('chunk', [1, 3, 8, 64])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('precon', ['mg', 'diag'])
+def test_chunked_cg_is_the_host_loop(problem, precon, dtype, chunk):
+    # c iterations between reads, the ones after the loop's stop doing
+    # nothing: bitwise the host loop's (x, rnorm, k)
+    rtol = 1e-9 if dtype == torch.float64 else 1e-5
+    host = _cg(problem, precon, dtype, None, rtol)
+    chunked = _cg(problem, precon, dtype, chunk, rtol)
+    _same(chunked, host)
+    assert host[3]['driver'] == 'host' and chunked[3]['driver'] == 'chunked'
+    for _x, _rn, k, stats in (host, chunked):
+        assert stats['host_reads'] == stats['chunks'] + stats.get('refreshes', 0)
+    assert host[3]['chunks'] == host[2] and chunked[3]['chunks'] <= -(-host[2] // chunk) + host[3]['refreshes']
+
+
+def test_chunked_cg_past_the_scheduled_refresh(problem):
+    # diagonal scaling to a tight tolerance runs past iteration 64: the
+    # scheduled refresh keeps the direction
+    host = _cg(problem, 'diag', torch.float64, None, 1e-11)
+    chunked = _cg(problem, 'diag', torch.float64, 5, 1e-11)
+    _same(chunked, host)
+    assert host[2] > 128 and host[3]['refreshes'] >= host[2] // 64
+
+
+def test_chunked_cg_refuted_claim_and_stall(problem):
+    # float32 below its attainable residual: the recursion claims, the true
+    # residual refutes (the direction restarts), and the refreshes stall
+    host = _cg(problem, 'mg', torch.float32, None, 1e-9)
+    chunked = _cg(problem, 'mg', torch.float32, 8, 1e-9)
+    _same(chunked, host)
+    x, rn, k, stats = host
+    assert stats['refuted'] >= 4 and k < 2000 and rn > 1e-9 * numpy.linalg.norm(problem['b'])
+
+
+@pytest.mark.parametrize('maxiter', [0, 1, 10, 13])
+def test_chunked_cg_maxiter_inside_a_chunk(problem, maxiter):
+    host = _cg(problem, 'diag', torch.float64, None, 1e-12, maxiter)
+    chunked = _cg(problem, 'diag', torch.float64, 8, 1e-12, maxiter)
+    _same(chunked, host)
+    assert host[2] == maxiter
+
+
+@pytest.mark.parametrize('chunk', [None, 8])
+@pytest.mark.parametrize('precon', ['mg', 'diag'])
+def test_chunked_cg_matches_jax(problem, precon, chunk):
+    p = problem
+    kind, mj, mt = _minv(p, precon)
+    atol = 1e-9 * numpy.linalg.norm(p['b'])
+    xj, rnj, kj = sp_jax.cg_op(p['mv_kind'], p['op'], jnp.asarray(p['b']), atol=atol, maxiter=2000,
+                               minv=mj, precon=kind)
+    top = p['tjac']._device_op()[1]
+    xt, rnt, kt = sp_torch.cg_op(p['mv_kind'], top, torch.as_tensor(p['b']), atol=atol, maxiter=2000,
+                                 minv=mt, precon=kind, chunk=chunk)
+    assert abs(int(kj) - kt) <= 1
+    assert tp.rel(xt.numpy(), numpy.asarray(xj)) <= 1e-9
+
+
+@pytest.mark.parametrize('chunk', [None, 8])
+def test_chunked_refined_solve_matches_jax(problem, chunk):
+    p = problem
+    kind, mj, mt = _minv(p, 'mg')
+    target = 1e-10 * numpy.linalg.norm(p['b'])
+    xj, rnj, itj, rj = sp_jax.refined_solve_op('cg', p['mv_kind'], p['op'], p['b'], target=target,
+                                               maxiter=1024, minv=mj, precon=kind)
+    top = tuple(t.float() for t in p['tjac']._device_op()[1])
+    mt32 = tuple(tuple(t.float() for t in m) if isinstance(m, tuple) else m.float() for m in mt)
+    stats = {}
+    xt, rnt, itt, rt = sp_torch.refined_solve_op('cg', p['mv_kind'], top, p['b'], target=target, maxiter=1024,
+                                                 minv=mt32, precon=kind, op64=p['tjac']._device_op()[1],
+                                                 chunk=chunk, stats=stats)
+    xh, rnh, ith, rh = sp_torch.refined_solve_op('cg', p['mv_kind'], top, p['b'], target=target, maxiter=1024,
+                                                 minv=mt32, precon=kind, op64=p['tjac']._device_op()[1],
+                                                 chunk=None)
+    # float32 inner solves: the chunked driver is the host loop bit for bit
+    assert (itt, rt, rnt) == (ith, rh, rnh) and numpy.array_equal(xt, xh)
+    assert rnt <= target
+    assert tp.rel(xt, xj) <= 1e-9
+    # one read a chunk, one a refresh and one a round
+    assert stats['host_reads'] == stats['chunks'] + stats['refreshes'] + rt
+    assert stats['chunks'] == itt if chunk is None else stats['chunks'] < itt

@@ -12,11 +12,10 @@ import numpy
 import pytest
 import torch
 
-from nutils_tpu_torch import matrix
+from nutils_tpu_torch import _kernels, matrix
 from nutils_tpu_torch.ops import _triton_bicgstab as tbi
-from nutils_tpu_torch.ops import _triton_cg as tcg
 from nutils_tpu_torch.ops import _triton_gmres as tgm
-from nutils_tpu_torch.ops import blockgrid, mg, sparse, stencil
+from nutils_tpu_torch.ops import blockgrid, cg, mg, sparse, stencil
 
 pytestmark = pytest.mark.gpu
 
@@ -76,20 +75,134 @@ def test_multigrid_kernels(cuda, shape, cshape, ks, per, dtype, tol):
     assert _rel(got, x + mg.prolong_plain(xc, shape)) <= tol
 
 
+def _cg_state(dev, dtype, rz, pap, rzold, atol=0.0, maxiter=1000, k=0, reason=cg.RUNNING, active=1):
+    """A K4 state with the given scalars (rounded to ``dtype``)."""
+    st = cg.new_state(dev)
+    cg.reset(st, atol, maxiter)
+    for slot, v in ((cg.RZ, rz), (cg.PAP, pap), (cg.RZOLD, rzold)):
+        st[slot] = float(torch.tensor(v, dtype=dtype))
+    ints = st.view(torch.int32)
+    ints[cg.K], ints[cg.REASON], ints[cg.ACTIVE] = k, reason, active
+    return st
+
+
+def _k4_cases():
+    """(name, kernel, plain, state arguments): every K4 entry, with each
+    decision it can take."""
+    def dot(fn, start=False):
+        return lambda v, st: fn(v['p'], v['ap'] if not start else v['p'], st, cg.RR0 if start else cg.PAP,
+                                start=start)
+
+    def step(fn):
+        return lambda v, st: fn(v['x'], v['r'], v['p'], v['ap'], st)
+
+    def xpby(fn):
+        return lambda v, st: fn(v['p'], v['z'], st)
+    return [
+        ('dot', dot(cg.cg_dot), dot(cg.dot_plain), {}),
+        ('dot start go', dot(cg.cg_dot, True), dot(cg.dot_plain, True), {}),
+        ('dot start stop', dot(cg.cg_dot, True), dot(cg.dot_plain, True), {'atol': 1e300}),
+        ('step', step(cg.cg_step), step(cg.step_plain), {}),
+        ('step scheduled', step(cg.cg_step), step(cg.step_plain), {'k': 63}),
+        ('step claimed', step(cg.cg_step), step(cg.step_plain), {'atol': 1e300}),
+        ('step capped', step(cg.cg_step), step(cg.step_plain), {'k': 4, 'maxiter': 5}),
+        ('xpby', xpby(cg.cg_xpby), xpby(cg.xpby_plain), {}),
+        ('xpby restart', xpby(cg.cg_xpby), xpby(cg.xpby_plain), {'reason': cg.CLAIMED}),
+    ]
+
+
+def _k4_vectors(dev, dtype, n, seed=2):
+    rng = numpy.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev) for k in ('x', 'r', 'p', 'ap', 'z')}
+
+
+def _k4_run(fn, vectors, dev, dtype, kwargs):
+    v = {k: t.clone() for k, t in vectors.items()}
+    st = _cg_state(dev, dtype, 0.7, 1.3, 0.4, **kwargs)
+    fn(v, st)
+    torch.cuda.synchronize()
+    return v, st
+
+
 @pytest.mark.parametrize('dtype,tol', TOLS)
-def test_cg_kernels(cuda, dtype, tol):
-    rng = numpy.random.default_rng(2)
-    x, r, p, ap, z = (torch.as_tensor(rng.standard_normal(100003), dtype=dtype, device=cuda) for _ in range(5))
-    alpha = torch.tensor(0.3, dtype=dtype, device=cuda)
-    got, want = tcg.cg_dot(p, ap), tcg.dot_plain(p, ap)
-    assert abs(float(got - want)) <= tol * float((p * ap).abs().sum())
-    x1, r1, x2, r2 = x.clone(), r.clone(), x.clone(), r.clone()
-    n1 = tcg.cg_axpy_norm(x1, r1, p, ap, alpha)
-    n2 = tcg.axpy_norm_plain(x2, r2, p, ap, alpha)
-    assert abs(float(n1 - n2)) <= tol * float(n2)
-    assert _rel(x1, x2) <= tol and _rel(r1, r2) <= tol
-    p1, p2 = p.clone(), p.clone()
-    assert _rel(tcg.cg_xpby(p1, z, alpha), tcg.xpby_plain(p2, z, alpha)) <= tol
+@pytest.mark.parametrize('n', [1, 1023, 1050625])
+def test_cg_kernels(cuda, n, dtype, tol):
+    # each K4 entry against its plain version on the same state: vectors to
+    # the tolerance of their largest value, sums on the scale of their
+    # terms, the loop's decisions (k, flag, reason) equal
+    vectors = _k4_vectors(cuda, dtype, n)
+    for name, kernel, plain, kwargs in _k4_cases():
+        (vk, sk), (vp, sp) = _k4_run(kernel, vectors, cuda, dtype, kwargs), _k4_run(plain, vectors, cuda, dtype, kwargs)
+        for key in vectors:
+            assert _rel(vk[key], vp[key]) <= tol, (name, key)
+        ik, ip = sk.view(torch.int32), sp.view(torch.int32)
+        assert torch.equal(ik[cg.K:cg.REASON + 1], ip[cg.K:cg.REASON + 1]) and int(ik[cg.TICKET]) == 0, name
+        terms = float((vectors['p'] * vectors['ap']).abs().sum() + (vectors['p'] * vectors['p']).sum()
+                      + (vp['r'] * vp['r']).sum())
+        for slot in (cg.RZ, cg.PAP, cg.RR, cg.RZOLD, cg.RR0):
+            assert abs(float(sk[slot] - sp[slot])) <= tol * terms, (name, slot)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n', [1, 1023, 1050625])
+def test_cg_kernels_are_deterministic_and_predicated(cuda, n, dtype):
+    # bitwise equal over two runs; nothing written while the flag is clear
+    vectors = _k4_vectors(cuda, dtype, n)
+    for name, kernel, _plain, kwargs in _k4_cases():
+        (v1, s1), (v2, s2) = _k4_run(kernel, vectors, cuda, dtype, kwargs), _k4_run(kernel, vectors, cuda, dtype, kwargs)
+        assert all(torch.equal(v1[k], v2[k]) for k in vectors) and torch.equal(s1, s2), name
+        v, st = _k4_run(kernel, vectors, cuda, dtype, dict(kwargs, active=0))
+        assert all(torch.equal(v[k], vectors[k]) for k in vectors), name
+        assert torch.equal(st, _cg_state(cuda, dtype, 0.7, 1.3, 0.4, **dict(kwargs, active=0))), name
+
+
+@pytest.mark.parametrize('precon', ['mg', 'diag'])
+def test_cg_graph_driver_is_the_host_loop(cuda, precon):
+    # the 65^2-dof slice in float32: the chunked driver replayed from CUDA
+    # graphs returns the eager host loop's (x, rnorm, k) bit for bit, and a
+    # refined solve its x, iterations and rounds; a warm solve grows the
+    # launch counters by its replays times each graph's launches
+    from nutils_tpu_torch import function, mesh
+    from nutils_tpu_torch.solver import System
+    from nutils_tpu_torch.utils import config
+    with config.device('cuda'):
+        config.floatx.value = numpy.float32
+        try:
+            topo, geom = mesh.unitsquare(64, 'square')
+            u = topo.field('u', btype='std', degree=1)
+            g = function.grad(u, geom)
+            f = function.sin(geom[0]) * function.cosh(geom[1])
+            energy = topo.integral(((g @ g) / 2 + (u * u) / 2 - f * u) * function.J(geom), degree=2)
+            jac, res = System(energy, trial='u').assemble_jacobian_residual({'u': numpy.zeros(65 * 65)})
+        finally:
+            config.floatx.value = numpy.float64
+    mv_kind, op = jac._device_op()
+    if precon == 'mg':
+        m = jac._mg()
+        kind, minv = ('mg', m.levels), (m.ws, m.dinvs, m.coarse_inv)
+    else:
+        kind, minv = 'diag', torch.as_tensor(1.0 / jac.diagonal(), dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(res, dtype=torch.float32, device=cuda)
+    atol = 1e-5 * float(numpy.linalg.norm(res))
+    host = sparse.cg_op(mv_kind, op, b, atol=atol, maxiter=2000, minv=minv, precon=kind, chunk=None)
+    for chunk in (1, 3, 8, 8):
+        stats = {}
+        before = {w.__name__: w.launches for w in _kernels.COUNTED}
+        graph = sparse.cg_op(mv_kind, op, b, atol=atol, maxiter=2000, minv=minv, precon=kind, chunk=chunk,
+                             stats=stats)
+        assert stats['driver'] == 'graph' and stats['c'] == chunk
+        assert graph[1:] == host[1:] and torch.equal(graph[0], host[0])
+        grown = {w.__name__: w.launches - before[w.__name__] for w in _kernels.COUNTED}
+        replayed = {}
+        for name, counts in stats['graph_launches'].items():
+            for wrapper, count in counts.items():
+                replayed[wrapper] = replayed.get(wrapper, 0) + count * stats['replays'][name]
+        if stats['t_capture'] == 0:  # a warm solve launches only its replays
+            assert all(grown[k] == replayed.get(k, 0) for k in grown), (grown, replayed)
+    kw = dict(target=1e-10 * float(numpy.linalg.norm(res)), maxiter=1024, minv=minv, precon=kind)
+    want = sparse.refined_solve_op('cg', mv_kind, op, res, chunk=None, **kw)
+    got = sparse.refined_solve_op('cg', mv_kind, op, res, chunk=8, **kw)
+    assert got[1:] == want[1:] and numpy.array_equal(got[0], want[0])
 
 
 def test_cuda_slice_goes_through_the_kernels(cuda):
@@ -99,7 +212,7 @@ def test_cuda_slice_goes_through_the_kernels(cuda):
     from nutils_tpu_torch.solver import System
     from nutils_tpu_torch.utils import config
     wrappers = [stencil.stencil_matvec, mg.jacobi_smooth, mg.mg_restrict, mg.mg_prolong_add,
-                tcg.cg_dot, tcg.cg_axpy_norm, tcg.cg_xpby]
+                cg.cg_dot, cg.cg_step, cg.cg_xpby]
     xs = []
     for device in ('cuda', 'cpu'):
         with config.device(device):
@@ -113,6 +226,7 @@ def test_cuda_slice_goes_through_the_kernels(cuda):
             xs.append(jac.solve(res, solver='cg', rtol=1e-10))
             if device == 'cuda':
                 assert all(wr.launches > b for wr, b in zip(wrappers, before))
+                assert jac._solve_stats['driver'] == 'graph'
     assert numpy.linalg.norm(xs[0] - xs[1]) <= 1e-8 * numpy.linalg.norm(xs[1])
 
 
