@@ -9,7 +9,7 @@ Phases, each printing JSON lines:
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; fails without a CUDA card.
-2. build    — builds the CUDA kernels K1-K5, K7, K8 and K9 from
+2. build    — builds the CUDA kernels K1-K5, K7-K9, K11 and K12 from
    ``nutils_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, in
    parallel) and compiles the Triton kernels of K6 and K10.
 3. kernel   — K1-K4 against their plain PyTorch versions on the card, at
@@ -18,10 +18,13 @@ Phases, each printing JSON lines:
    and, where one PyTorch call computes the same function, its time; K4's
    entries also at grids of 1-8 blocks a multiprocessor.
 4. slice    — the bench's Laplace slice at 1,050,625 dofs in float32:
-   System, assembly, multigrid set-up and the refined CG solve to rtol
-   1e-10, through the kernels, its loop replayed from CUDA graphs (launch
-   counts read around the run; a warm solve's counts are its replays times
-   each graph's launches, plus the refinement's residuals).
+   System (every assembly chunk on the factored route), assembly through
+   K11/K12, multigrid set-up and the refined CG solve to rtol 1e-10,
+   through the kernels, its loop replayed from CUDA graphs (launch counts
+   read around the run; a warm solve's counts are its replays times each
+   graph's launches, plus the refinement's residuals); then
+   ``assembly_kernels``: K11 and K12 against their plain versions at the
+   slice's shapes, and a profile of one warm assembly.
 5. slice_driver — on the same slice: the graph driver against the host
    loop (bitwise x, the same iterations and rounds), warm solves at chunk
    lengths 1-8, and an iteration's device time after the loop's stop,
@@ -31,7 +34,8 @@ Phases, each printing JSON lines:
 7. parity   — the same slice at 65^2 dofs in float64 on the card and on the
    CPU (plain versions): the solutions agree to 1e-8 relative.
 8. ns       — the bench's Taylor-Hood Navier-Stokes Newton step at
-   983,403 dofs in float32: System, block-grid planning, assembly, the
+   983,403 dofs in float32: System, block-grid planning, assembly (K11,
+   K12, every chunk factored; then ``assembly_kernels`` at its shapes), the
    device Schur diagonal, K5's compact plan and operand, refined GMRES to
    rtol 1e-3 and the fused step, through the kernels (launch counts read
    around the run); then K5-K7 against their plain versions at the step's
@@ -42,11 +46,13 @@ Phases, each printing JSON lines:
    CPU: the solutions agree to 1e-8 relative, in as many iterations.
 10. ns_tri  — the same Newton step on ``unitsquare(330, 'triangle')``
    (217,800 triangles, 983,403 dofs) in float32: System, CSR pattern,
-   assembly through the value scatter K8, the device Schur diagonal on CSR
+   assembly (K11, K12, every chunk factored; ``assembly_kernels`` at its
+   shapes) through the value scatter K8, the device Schur diagonal on CSR
    values (K7), refined GMRES and refined BiCGStab to rtol 1e-3 on the CSR
    operator (K9, K6, K10), through the kernels (launch counts read around
    the run; the residual's rows with no slice plan sum through K8 too, and
-   two assemblies are bitwise equal), and a profile of one warm assembly
+   two assemblies are bitwise equal; their bits' sha1 digests are printed,
+   to compare between calls), and a profile of one warm assembly
    and one warm solve of each method.
 11. ns_tri_kernels — K7 on CSR values and K8-K10 against their plain
    versions at the triangle step's shapes.
@@ -54,11 +60,16 @@ Phases, each printing JSON lines:
    card and on the CPU: both methods' solutions agree to 1e-8 relative, in
    as many iterations.
 
+Each path's assembly line also gives ``t_assemble_generic``: the same
+System with every chunk on the generic ``vmap(jvp)`` route, in the same
+call.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
 not 0.
 '''
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -92,13 +103,17 @@ KERNELS = {
     'bicg_s': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
     'bicg_xr': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
     'bicg_p': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
+    'elem_matrix': ('cuda', 'nutils_tpu_torch/csrc/assembly.cu', 'nutils_tpu/solver.py:1231'),
+    'elem_vector': ('cuda', 'nutils_tpu_torch/csrc/assembly.cu', 'nutils_tpu/solver.py:950'),
 }
+# the factored assembly's element contractions run on all three paths
+ASSEMBLY_KERNELS = ('elem_matrix', 'elem_vector')
 LAPLACE_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'mg_restrict', 'mg_prolong_add', 'cg_dot', 'cg_step',
-                   'cg_xpby')
+                   'cg_xpby') + ASSEMBLY_KERNELS
 NS_KERNELS = ('blockgrid_matvec', 'gmres_project', 'gmres_update', 'gmres_normalize', 'gmres_combine',
-              'schur_diag_inverse_device')
+              'schur_diag_inverse_device') + ASSEMBLY_KERNELS
 TRI_KERNELS = ('csr_scatter', 'csr_matvec', 'schur_diag_inverse_device', 'gmres_project', 'gmres_update',
-               'gmres_normalize', 'gmres_combine', 'bicg_dots', 'bicg_s', 'bicg_xr', 'bicg_p')
+               'gmres_normalize', 'gmres_combine', 'bicg_dots', 'bicg_s', 'bicg_xr', 'bicg_p') + ASSEMBLY_KERNELS
 # kernel vs plain: float32 sums in another order (and with fused multiply-
 # adds) differ by a few ulps, float64 ones by a few ulps of float64
 TOL = {'float32': 1e-6, 'float64': 1e-14}
@@ -121,8 +136,9 @@ def emit(phase, **fields):
 
 
 def wrappers():
-    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_gmres, blockgrid, cg, mg, sparse, stencil
-    return {'stencil_matvec': stencil.stencil_matvec, 'jacobi_smooth': mg.jacobi_smooth,
+    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_gmres, assembly, blockgrid, cg, mg, sparse, stencil
+    return {'elem_matrix': assembly.elem_matrix, 'elem_vector': assembly.elem_vector,
+            'stencil_matvec': stencil.stencil_matvec, 'jacobi_smooth': mg.jacobi_smooth,
             'mg_restrict': mg.mg_restrict, 'mg_prolong_add': mg.mg_prolong_add,
             'cg_dot': cg.cg_dot, 'cg_step': cg.cg_step, 'cg_xpby': cg.cg_xpby,
             'blockgrid_matvec': blockgrid.blockgrid_matvec, 'gmres_project': _triton_gmres.gmres_project,
@@ -464,6 +480,7 @@ def phase_slice(nelems=1024, device='cuda'):
         t0 = time.perf_counter()
         system = build_laplace(nelems, numpy.float32, reaction=True)
         t_system = time.perf_counter() - t0
+        check_routes('slice', system)
         ndofs = system.trial_shapes[0][0]
         args = {'u': numpy.zeros(ndofs)}
         fn = system._compiled('jacres')
@@ -475,7 +492,8 @@ def phase_slice(nelems=1024, device='cuda'):
             fn(clean)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        emit('slice_assembly', ndofs=ndofs, t_system=t_system, t_assemble_first=times[0], t_assemble=min(times[1:]))
+        emit('slice_assembly', ndofs=ndofs, t_system=t_system, t_assemble_first=times[0], t_assemble=min(times[1:]),
+             t_assemble_generic=generic_route_time(system, clean))
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -536,7 +554,7 @@ def phase_slice(nelems=1024, device='cuda'):
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the main path: {missing}')
-    return launches, jac, res
+    return launches, system, clean, jac, res
 
 
 def phase_slice_profile(jac, res):
@@ -694,6 +712,7 @@ def phase_ns(nelems=330, device='cuda'):
         t_system, (system, args) = _sync_time(lambda: build_ns(nelems, numpy.float32))
         ndofs = sum(int(numpy.prod(s)) for s in system.trial_shapes)
         emit('ns_system', ndofs=ndofs, t_system=t_system)
+        check_routes('ns', system)
         # host planning: the CSR pattern sort, block-grid detection and the
         # slice plans of every value segment
         t_pattern, (_meta, pattern, jplan) = _sync_time(lambda: system._jac_layout)
@@ -703,7 +722,7 @@ def phase_ns(nelems=330, device='cuda'):
         nweights = int(sum(jplan['sizes']))
         emit('ns_assembly', form=jplan['form'], nnz=int(pattern.nnz), nweights=nweights, total=int(jplan['total']),
              seg_kinds=[seg[0] for seg in jplan['segs']], t_pattern=t_pattern, t_assemble_first=times[0],
-             t_assemble=min(times[1:]))
+             t_assemble=min(times[1:]), t_assemble_generic=generic_route_time(system, clean))
         del times
         torch.cuda.empty_cache()
         reset_launches()
@@ -865,12 +884,14 @@ def phase_ns_kernels(jac, k5_setup):
 
 def phase_ns_profile(system, jac, res, clean, methods=('gmres',), phase='ns_profile'):
     """torch.profiler over one warm assembly and one warm solve of the step
-    with each of ``methods``: device busy time against wall time, and the
-    top device operations."""
+    with each of ``methods`` (the slice: the assembly alone): device busy
+    time against wall time, its share, kernel launches (the assembly's K11
+    and K12 among them), and the top device operations."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn = system._compiled('jacres')
+    fn(clean)  # warm
     runs = [('assemble', lambda: fn(clean))]
     runs += [(f'solve {method}', lambda method=method: jac.solve_leniently(res, solver=method, rtol=1e-3))
              for method in methods]
@@ -889,9 +910,101 @@ def phase_ns_profile(system, jac, res, clean, methods=('gmres',), phase='ns_prof
         full = [e for e in prof.key_averages() if e.key == 'Command Buffer Full']
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-        emit(phase, run=label, wall_s=wall, device_busy_s=busy, kernel_launches=sum(e.count for e in kernels),
-             command_buffer_full=sum(e.count for e in full),
+        emit(phase, run=label, wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+             kernel_launches=sum(e.count for e in kernels), command_buffer_full=sum(e.count for e in full),
+             contraction_launches={e.key[:40]: e.count for e in kernels if 'ntt_asm' in e.key},
              top=[{'name': e.key[:80], 'device_ms': e.self_device_time_total / 1e3, 'count': e.count} for e in top])
+
+
+def check_routes(path, system):
+    '''Every assembly chunk of the path's System takes the factored route.'''
+    routes = {f'{test}:{ci}': route for (test, ci), route in system._assembly_routes.items()}
+    emit('assembly_routes', path=path, routes=routes)
+    if set(routes.values()) != {'factored'}:
+        raise AssertionError(f'{path}: assembly chunks off the factored route: {routes}')
+
+
+def generic_route_time(system, clean):
+    '''Warm ``t_assemble`` of the same System with every chunk on the
+    generic ``vmap(jvp)`` route over the dof seeds (the assembly before the
+    factored route), in the same call: the better of two calls after one
+    warm-up.'''
+    fn = system._compiled('jacres')
+    with system._generic_route():
+        times = [_sync_time(lambda: fn(clean))[0] for _ in range(3)]
+    return min(times[1:])
+
+
+def assembly_operands(system, clean):
+    '''[(block label, Bt, K, Bs, g)]: the operands the factored assembly
+    hands K11 (Bt, K, Bs) and K12 (Bt, g) for every (test, trial)
+    localization pair of the System, at its arguments ``clean``.'''
+    args, tables = system._device_args(clean), system._tables()
+    terms = {}
+    out = []
+    for bi, ci, u, li, _reduce, _size in system._jac_layout[0]:
+        c = system._blocks[bi][ci]
+        f = c.factored
+        if id(f) not in terms:
+            t_point_terms, _terms = _sync_time(lambda: system._point_terms(c, args, tables, terms))
+            emit('assembly_point_terms', t_point_terms=t_point_terms, nseeds=f.nseeds,
+                 features={str(key): f.layout[key][0].stop - f.layout[key][0].start for key in f.layout})
+        g, K = system._point_terms(c, args, tables, terms)
+        leaves = terms['leaves']
+        key = system._trial_locs[u][li].leaf.key
+        tsl = f.layout[c.key][0]
+        out.append((system.tests[bi] + u, f.operator(c.key, args, leaves),
+                    K[f.layout[key][0]][..., tsl].permute(1, 2, 3, 0), f.operator(key, args, leaves), g[..., tsl]))
+    return out
+
+
+def _distinct_numel(*tensors):
+    '''Entries of ``tensors``, each distinct operand once: an energy form's
+    trial operator is its test operator (one tensor, read once).'''
+    seen = {(t.data_ptr(), t.shape, t.stride()): t.numel() for t in tensors}
+    return sum(seen.values())
+
+
+def phase_assembly_kernels(system, clean, path):
+    """K11 and K12 against their plain versions (one ``torch.einsum``) at
+    the shapes of every block of the path's assembly, in its precision; the library
+    call is the same contraction through one ``torch.einsum`` call.
+    Returns {name: row} of the largest block."""
+    import torch
+    from nutils_tpu_torch.ops import assembly
+    results = {}
+    done_tests = set()
+    for label, Bt, K, Bs, g in assembly_operands(system, clean):
+        E, Q, A, B = K.shape
+        I, J = Bt.shape[-1], Bs.shape[-1]
+        isz = K.element_size()
+        shared = Bt.shape[0] == 1 and Bs.shape[0] == 1
+        cases = [('elem_matrix', lambda: assembly.elem_matrix(Bt, K, Bs), lambda: assembly.elem_matrix_plain(Bt, K, Bs),
+                  lambda: torch.einsum('eqai,eqab,eqbj->eij', Bt, K, Bs),
+                  lambda: assembly.elem_matrix_plain(Bt.abs(), K.abs(), Bs.abs()),
+                  (_distinct_numel(Bt, K, Bs) + E * I * J) * isz, 2 * E * Q * A * J * (B + I))]
+        if label[0] not in done_tests:  # one residual a test localization
+            done_tests.add(label[0])
+            cases.append(('elem_vector', lambda: assembly.elem_vector(Bt, g), lambda: assembly.elem_vector_plain(Bt, g),
+                          lambda: torch.einsum('eqai,eqa->ei', Bt, g),
+                          lambda: assembly.elem_vector_plain(Bt.abs(), g.abs()),
+                          (Bt.numel() + g.numel() + E * I) * isz, 2 * E * Q * A * I))
+        for name, kernel, plain, library, magnitude, nbytes, flops in cases:
+            got, want, scale = kernel(), plain(), magnitude().max()
+            again = kernel()
+            torch.cuda.synchronize()
+            err, relerr = _compare(got, want, scale)
+            (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
+            fields = row(err, ms, plain_ms, nbytes, flops, time_ms(library)[0])
+            check_row(name, f'{path} {label}', str(K.dtype).split('.')[1], relerr,
+                      dict(fields, E=E, Q=Q, A=A, B=B, I=I, J=J, shared_operators=shared,
+                           bitwise_repeat=bool(torch.equal(got, again)), call_ms=call_ms))
+            if not torch.equal(got, again):
+                raise AssertionError(f'{name} ({path} {label}) differs between two launches')
+            if name not in results or flops > results[name][1]:
+                results[name] = fields, flops
+            del got, want, again
+    return {name: fields for name, (fields, _flops) in results.items()}
 
 
 def phase_ns_parity(devices=('cuda', 'cpu')):
@@ -928,6 +1041,7 @@ def phase_ns_tri(nelems=330, device='cuda'):
         t_system, (system, args) = _sync_time(lambda: build_ns(nelems, numpy.float32, 'triangle'))
         ndofs = sum(int(numpy.prod(s)) for s in system.trial_shapes)
         emit('ns_tri_system', ndofs=ndofs, nelems=2 * nelems * nelems, t_system=t_system)
+        check_routes('ns_tri', system)
         # host planning: the CSR pattern sort and the value scatter's plan
         t_pattern, (_meta, lazy, jplan) = _sync_time(lambda: system._jac_layout)
         t_pattern_sort, pattern = _sync_time(lazy.get)
@@ -938,7 +1052,7 @@ def phase_ns_tri(nelems=330, device='cuda'):
         times = [_sync_time(lambda: fn(clean))[0] for _ in range(3)]
         emit('ns_tri_assembly', form='csr', entries=int(len(pattern.slot)), nnz=int(pattern.nnz),
              max_row_nnz=int(numpy.diff(pattern.indptr).max()), t_pattern=t_pattern + t_pattern_sort,
-             t_assemble_first=times[0], t_assemble=min(times[1:]))
+             t_assemble_first=times[0], t_assemble=min(times[1:]), t_assemble_generic=generic_route_time(system, clean))
         del times
         torch.cuda.empty_cache()
         reset_launches()
@@ -962,8 +1076,11 @@ def phase_ns_tri(nelems=330, device='cuda'):
         (jac1, res1), (jac2, res2) = fn(clean), fn(clean)
         residual_k8 = read_launches(('csr_scatter',))['csr_scatter'] - before - 2  # one jacobian scatter each
         bitwise = bool(torch.equal(res1, res2) and torch.equal(jac1, jac2))
+        # the bits' digests: equal in two calls where the assembly is
+        # reproducible from run to run, not only within one
+        digests = {name: hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest() for name, t in (('w', jac1), ('r', res1))}
         del jac1, jac2, res1, res2
-    emit('ns_tri_determinism', k8_launches_per_residual=residual_k8 / 2, bitwise_equal=bitwise)
+    emit('ns_tri_determinism', k8_launches_per_residual=residual_k8 / 2, bitwise_equal=bitwise, sha1=digests)
     if residual_k8 <= 0 or not bitwise:
         raise AssertionError(f'triangle step: residual K8 launches {residual_k8}, bitwise equal {bitwise}')
     norm_res = float(numpy.linalg.norm(res))
@@ -1144,30 +1261,45 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is false; this check needs a CUDA card')
     sys.path.insert(0, str(ROOT))
+    import numpy
     import nutils_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from nutils_tpu_torch.utils import config
     t0 = time.perf_counter()
     phase_device()
     phase_build()
     measured = phase_kernels()
-    launches, jac, res = phase_slice()
+    launches, system, clean, jac, res = phase_slice()
     phase_slice_driver(jac, res)
     phase_slice_profile(jac, res)
-    del jac, res
+    with config.floatx(numpy.float32):  # the slice's own precision
+        phase_assembly_kernels(system, clean, 'slice')
+        phase_ns_profile(system, jac, res, clean, methods=(), phase='slice_assembly_profile')
+    del system, clean, jac, res
     phase_parity()
     torch.cuda.empty_cache()
     ns_launches, system, jac, res, clean, k5_setup = phase_ns()
     measured.update(phase_ns_kernels(jac, k5_setup))
+    measured.update(phase_assembly_kernels(system, clean, 'ns'))
     phase_ns_profile(system, jac, res, clean)
     del system, jac, res, clean
     torch.cuda.empty_cache()
     phase_ns_parity()
+    by_path = {'slice': {name: launches[name] for name in ASSEMBLY_KERNELS},
+               'ns': {name: ns_launches[name] for name in ASSEMBLY_KERNELS}}
     launches.update(ns_launches)
     tri_launches, system, jac, res, clean = phase_ns_tri()
     measured.update(phase_ns_tri_kernels(system, jac))
+    phase_assembly_kernels(system, clean, 'ns_tri')
     phase_ns_profile(system, jac, res, clean, methods=TRI_METHODS, phase='ns_tri_profile')
     del system, jac, res, clean
     torch.cuda.empty_cache()
     phase_ns_tri_parity()
+    # K11 and K12: launches summed over the three paths' runs, each path's
+    # beside them
+    by_path['ns_tri'] = {name: tri_launches[name] for name in ASSEMBLY_KERNELS}
+    for name in ASSEMBLY_KERNELS:
+        launches[name] = sum(counts[name] for counts in by_path.values())
+        measured[name] = dict(measured[name], launches_by_path={path: counts[name] for path, counts in by_path.items()})
     # the kernels new on the triangle path count its launches; K7's CSR
     # variant is the same wrapper, read on that path
     launches.update({name: tri_launches[name] for name in ('csr_scatter', 'csr_matvec', 'bicg_dots', 'bicg_s',

@@ -1330,7 +1330,9 @@ def _poly_degree(node, names):
     the same facts from its symbolic jacobian, solver.py:255-256).'''
     if isinstance(node, Argument):
         return 1 if node.name in names else 0
-    if not any(arg.name in names for arg in node.arguments):
+    if isinstance(node, Leaf):
+        return 1 if node.key in names else 0
+    if not any(arg.name in names for arg in node.arguments) and not any(l.key in names for l in node.leafdeps):
         return 0
     if isinstance(node, (Add, Concatenate, Choose)):
         return max(_poly_degree(c, names) for c in node.children)
@@ -1369,7 +1371,191 @@ def _poly_degree(node, names):
 
 
 def poly_degree(node, names):
+    '''Polynomial degree of ``node`` in the Arguments named in ``names`` and
+    the Leafs whose keys are in ``names``.'''
     return _poly_degree(node, frozenset(names))
+
+
+class _Coupled(Exception):
+    '''A node mixes the values of different points (see _point_axes).'''
+
+
+_POINTWISE = (Add, Multiply, Pointwise, Power, Cast, Choose, Less, Equal, LogicalNot, LogicalAnd)
+_LINEAR = (Add, Multiply, Sum, InsertAxis, Transpose)
+
+
+def _point_axes(root, sources, npt, allow_grad=False):
+    '''Where the ``npt`` leading (element and point) axes of the leaves
+    ``sources`` sit in each node of ``root`` that depends on them: {node:
+    tuple of axis positions, None for an axis summed away}.  Raises _Coupled
+    where a node mixes the values of different points: a ravel, gather or
+    matrix operation over a point axis, a node that is not pointwise in
+    them, or anything but a linear map (a sum, a broadcast, a sum or a
+    product with an independent factor) after a sum over a point axis.
+    With ``allow_grad`` a Grad of a dependent function is
+    pointwise (the evaluator's Grad assumes it); without, it is refused: a
+    leaf that stands for a function of the coordinates would differentiate
+    to zero.'''
+    keys = {leaf.key for leaf in sources}
+    pos = {}
+    for node in find(root, lambda n: any(l.key in keys for l in n.leafdeps)):
+        if isinstance(node, Leaf):
+            pos[node] = tuple(range(npt))
+            continue
+        kids = [pos[c] for c in node.children if c in pos]
+        p = kids[0]
+        summed = None in p
+        if summed and not (isinstance(node, _LINEAR) or isinstance(node, Pointwise) and node.op == 'negative'):
+            raise _Coupled(node)
+        if isinstance(node, InsertAxis):
+            p = tuple(x if x is None or x < node.axis else x + 1 for x in p)
+        elif isinstance(node, Transpose):
+            p = tuple(None if x is None else node.axes.index(x) for x in p)
+        elif isinstance(node, Sum):
+            p = tuple(None if x is None or x in node.axes else x - sum(a < x for a in node.axes) for x in p)
+        elif isinstance(node, _POINTWISE):
+            if any(k != p for k in kids) or summed and isinstance(node, Multiply) and len(kids) > 1:
+                raise _Coupled(node)
+        elif isinstance(node, (Monomials, Legendre)) or allow_grad and isinstance(node, Grad) \
+                and node.wrt not in pos:
+            pass
+        elif isinstance(node, (Inverse, Determinant)):
+            if any(x >= node.func.ndim - 2 for x in p):
+                raise _Coupled(node)
+        elif isinstance(node, Ravel):
+            if node.axis in p or node.axis + 1 in p:
+                raise _Coupled(node)
+            p = tuple(x - (x > node.axis) for x in p)
+        elif isinstance(node, Unravel):
+            if node.axis in p:
+                raise _Coupled(node)
+            p = tuple(x + (x > node.axis) for x in p)
+        elif isinstance(node, Take) and node.indices not in pos:
+            if node.axis in p:
+                raise _Coupled(node)
+            p = tuple(x + (node.indices.ndim - 1) * (x > node.axis) for x in p)
+        else:
+            raise _Coupled(node)
+        pos[node] = p
+    return pos
+
+
+def separable(root, sources, npt, allow_grad=False):
+    '''True if the scalar ``root`` is a sum over the points of terms that
+    each depend on one point of the leaves ``sources`` (see _point_axes).'''
+    try:
+        pos = _point_axes(root, sources, npt, allow_grad)
+    except _Coupled:
+        return False
+    return root not in pos or all(x is None for x in pos[root])
+
+
+_feature_counter = itertools.count()
+
+
+def fixed_parts(root):
+    '''The largest subtrees of ``root`` that depend on no argument and on no
+    leaf but those with a default binding (coordinate and constant tables):
+    a functional's geometry, weights and coefficient functions, the same at
+    every call.'''
+    out = []
+    seen = set()
+
+    def rec(node):
+        if node in seen:
+            return
+        seen.add(node)
+        if not node.arguments and all(l.value is not None for l in node.leafdeps):
+            if node.children:
+                out.append(node)
+            return
+        for c in node.children:
+            rec(c)
+    rec(root)
+    return out
+
+
+def feature_leaves(nodes):
+    '''{node: a new Leaf of its shape}, to bind point-level features.'''
+    return {n: Leaf(('feature', next(_feature_counter)), n.shape, float) for n in nodes}
+
+
+def feature_cut(expr, leaf, npt=2):
+    '''The point-level features of the localized dofs ``leaf`` in the scalar
+    functional ``expr``: a tuple of nodes of ``expr`` through which alone
+    ``expr`` depends on ``leaf``, each affine in it and pointwise in its
+    ``npt`` leading (element and point) axes, or None.
+
+    The leaf's axes after the first ``npt`` are its seed axes (a local dof
+    and component each).  The cut takes, on every path up from the leaf, the
+    lowest node that sums a seed axis away (the field's value at the
+    points: ``Sum(basis * leaf)``), and then steps up past every ``Grad``
+    whose function depends on the leaf, since a feature bound inside a Grad
+    would differentiate to zero: the outermost such Grad is a feature
+    itself (the field's gradient).  Features no path reaches are dropped.
+    None where no such cut exists: a node below the cut is not a broadcast,
+    a product with a leaf-free factor or a sum; the leaf reaches the
+    functional through a node that couples points (a sum over a point axis
+    below the integral); through a ``LeafGrad``, ``ArgGrad``, ``ArgJac`` or
+    ``CustomNode``; or through a cut node of degree above one.'''
+    if not 0 < npt < leaf.ndim:
+        return None
+    nodes = find(expr, lambda n: leaf in n.leafdeps)
+    if len(nodes) < 2 or any(isinstance(n, (LeafGrad, ArgGrad, ArgJac, CustomNode)) for n in nodes):
+        return None
+    parents = {}
+    for n in nodes:
+        for c in n.children:
+            if leaf in c.leafdeps:
+                parents.setdefault(c, []).append(n)
+    points = tuple(range(npt))
+    # up from the leaf to the first sums over a seed axis, tracking the leaf
+    # axis each axis holds (None: a broadcast)
+    cut = []
+    maps = {leaf: tuple(range(leaf.ndim))}
+    todo = [leaf]
+    while todo:
+        node = todo.pop()
+        amap = maps[node]
+        for p in parents.get(node, ()):
+            if isinstance(p, Multiply) and sum(leaf in c.leafdeps for c in p.children) == 1:
+                pmap = amap
+            elif isinstance(p, InsertAxis):
+                pmap = amap[:p.axis] + (None,) + amap[p.axis:]
+            elif isinstance(p, Transpose):
+                pmap = tuple(amap[i] for i in p.axes)
+            elif isinstance(p, Sum):
+                summed = {amap[i] for i in p.axes} - {None}
+                pmap = tuple(a for i, a in enumerate(amap) if i not in p.axes)
+                if not summed.isdisjoint(points) or summed and pmap[:npt] != points:
+                    return None
+                if summed:
+                    if p not in cut:
+                        cut.append(p)
+                    continue
+            else:
+                return None
+            if p in maps:
+                if maps[p] != pmap:
+                    return None
+                continue
+            maps[p] = pmap
+            todo.append(p)
+    grads = [n for n in nodes if isinstance(n, Grad) and leaf in n.func.leafdeps]
+    inner = {g for h in grads for g in find(h.func, lambda n: isinstance(n, Grad))}
+    cut += [g for g in grads if g not in inner]
+    feats = feature_leaves(cut)
+    rest = replace(expr, feats)
+    try:
+        pos = _point_axes(expr, [leaf], npt, allow_grad=True)
+    except _Coupled:
+        return None
+    if leaf in rest.leafdeps or any(x is not None for x in pos[expr]):
+        return None
+    cut = tuple(n for n in cut if feats[n] in rest.leafdeps)
+    if any(pos[n] != points or _poly_degree(n, frozenset([leaf.key])) > 1 for n in cut):
+        return None
+    return cut
 
 
 def replace(func, mapping):
@@ -1502,6 +1688,17 @@ def _decompose_product(node):
     return [_Factor(node, tuple(range(node.ndim)))]
 
 
+# _Evaluator._eval_sum: a sum of products whose product has at most this many
+# times the entries of its largest factor is evaluated as the product and a
+# reduction, a larger one as an einsum.  Measured by sum_ratio_sweep.py: the
+# point-level products of the three ported forms are 1-3 times their largest
+# factor, and as einsums (batched products of tiny matrices) they make the
+# assembly 4-6 times slower; the triangles' 18-fold products (a factor every
+# element shares) are faster as einsums, and as products raise the peak by a
+# third.
+SUM_PRODUCT_RATIO = 16
+
+
 class _Evaluator:
     '''Recursive eager DAG evaluation on torch tensors, with Grad frames.
 
@@ -1590,7 +1787,13 @@ class _Evaluator:
 
     def _eval_sum(self, node, frame, overridden):
         factors = _decompose_product(node.func)
-        if len(factors) == 1 and factors[0].core is node.func:
+        if len(factors) == 1 and factors[0].core is node.func \
+                or node.func.size <= SUM_PRODUCT_RATIO * max(f.core.size for f in factors):
+            # a contraction no larger than its operands (a dot product per
+            # point, a basis sum): an elementwise product and a reduction; as
+            # an einsum it would become a batched matrix product of tiny
+            # matrices over every point, which the card runs as many small
+            # matrix-vector launches
             return torch.sum(self._eval(node.func, frame, overridden), dim=node.axes)
         # einsum emission: letters per product axis
         letters = [chr(ord('a') + i) for i in range(node.func.ndim)]

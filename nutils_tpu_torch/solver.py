@@ -31,6 +31,7 @@ than ``config.assembly_chunk`` elements in a batch) and the solution methods
 (Newton etc.) are ROADMAP A2 and A5.
 '''
 
+import contextlib
 import functools
 
 import numpy
@@ -38,6 +39,7 @@ import torch
 
 from . import evaluable as ev
 from . import function, matrix
+from .ops import assembly
 from .utils import _log as log
 from .utils import config
 
@@ -692,14 +694,154 @@ def _scalarize(res_array, testname):
 
 class _Chunk:
     '''One additive contribution to a residual block: a grad-values function,
-    constant broadcastable flat row indices, and the trial localizations the
-    values can depend on.'''
+    constant broadcastable flat row indices, the trial localizations the
+    values can depend on, its test leaf's key, and its point-level form (a
+    _FactoredForm) where its assembly takes the factored route.'''
 
-    def __init__(self, rows, fn, leafdeps, shape):
+    def __init__(self, rows, fn, leafdeps, shape, key):
         self.rows = rows
         self.fn = fn
         self.leafdeps = leafdeps
         self.shape = shape
+        self.key = key
+        self.factored = None
+
+
+class _FactoredForm:
+    '''The functional of one or more chunks in its point-level features.
+
+    The functional ``expr`` reaches each of its localized dof leaves (the
+    tests' and the trials') only through features ``z``
+    (``evaluable.feature_cut``: the field's value and gradient at the
+    points, ``[E, Q, A]``), affine in the dofs, and is a sum over the points
+    of terms that each see one point.  So the gradient in a test's dofs and
+    the jacobian block of a (test, trial) pair are
+
+        r = Bt . g_t,    V = Bt . K_ts . Bs    (summed over points and features)
+
+    with ``B = dz/dc`` the feature operators (jvp of the features over the
+    leaf's unit seeds; constant in the dofs, kept on the device while they
+    depend on no argument), ``g = dF/dz`` and ``K = d2F/dz dz_s`` from one
+    ``vmap(jvp(grad))`` of the functional with the features bound as leaves,
+    over the trial features' few unit seeds, for every chunk of the
+    functional at once.  The contractions are kernels K11 and K12
+    (``ops/assembly.py``).  The values equal the generic route's
+    ``vmap(jvp(grad))`` over the dofs with the point axes summed; affine
+    features keep an energy form's Hessian whole.'''
+
+    def __init__(self, expr, tests, trials, cuts, npt, operators):
+        self.npt = npt
+        self.operators = operators  # shared by the System's forms
+        # the trials' features first: they are the Hessian's seeds
+        self.locs = {loc.leaf.key: loc for loc in (*trials, *tests)}
+        self.cuts = cuts
+        feats = ev.feature_leaves([n for key in self.locs for n in cuts[key]])
+        rest = ev.replace(expr, feats)
+        # what does not change from call to call is evaluated once a device
+        self.fixed = ev.feature_leaves(ev.fixed_parts(rest))
+        self.rest = ev.compile(ev.replace(rest, self.fixed))
+        self._fixed = None
+        self.comp = {key: ev.compile(list(cut)) for key, cut in cuts.items()}
+        self.layout = {}
+        off = 0
+        for key in self.locs:
+            entries = [(feats[n], n.shape, int(numpy.prod(n.shape[npt:], dtype=numpy.int64))) for n in cuts[key]]
+            width = sum(a for _f, _s, a in entries)
+            self.layout[key] = (slice(off, off + width), entries)
+            off += width
+        self.nseeds = sum(self.layout[loc.leaf.key][0].stop - self.layout[loc.leaf.key][0].start for loc in trials)
+        self.cacheable = {key: not any(n.arguments for n in cut) for key, cut in cuts.items()}
+
+    def features(self, key, args, leaves, x):
+        '''The features of leaf ``key`` bound to ``x``: ``[E, P, A]`` (P
+        the points of an element).'''
+        vals = self.comp[key].trace(args, {**leaves, key: x})
+        return torch.cat([v.reshape(v.shape[0], -1, a) for v, (_f, _s, a) in zip(vals, self.layout[key][1])], dim=-1)
+
+    def operator(self, key, args, leaves):
+        '''``B = dz/dc`` of leaf ``key``: ``[E or 1, P, A, S]``, extent 1
+        where every element has the same operator.  Kept while it depends on
+        no argument, once for all equal operators (a test and a trial of
+        one basis).'''
+        tag = (str(config.torch_device()), config.float_dtype())
+        hit = self.operators.get((key, self.cuts[key]))
+        if hit is not None and hit[0] == tag:
+            return hit[1]
+        loc = self.locs[key]
+        x0 = leaves[key].contiguous()
+        B = torch.func.vmap(lambda seed: torch.func.jvp(lambda x: self.features(key, args, leaves, x), (x0,),
+                                                        (seed.contiguous(),))[1])(loc.seeds())
+        B = B.permute(1, 2, 3, 0).contiguous()
+        if B.shape[0] > 1 and torch.equal(B, B[:1].expand_as(B)):
+            B = B[:1].clone()
+        if self.cacheable[key]:
+            B = next((other for t, other in self.operators.values()
+                      if t == tag and other.shape == B.shape and torch.equal(other, B)), B)
+            self.operators[key, self.cuts[key]] = tag, B
+        return B
+
+    def point_terms(self, args, leaves, hessian=True):
+        '''(g ``[E, P, A]``, K ``[S, E, P, A]`` or None): the functional's
+        gradient in all its features at the arguments, and its jvp over the
+        S unit seeds of the trial features.'''
+        tag = (str(config.torch_device()), config.float_dtype())
+        if self._fixed is None or self._fixed[0] != tag:
+            vals = ev.compile(list(self.fixed)).trace(args, leaves)
+            self._fixed = tag, {leaf.key: v for leaf, v in zip(self.fixed.values(), vals)}
+        z0 = torch.cat([self.features(key, args, leaves, leaves[key]) for key in self.locs], dim=-1)
+
+        def functional(z):
+            lv = {**leaves, **self._fixed[1]}
+            for sl, entries in self.layout.values():
+                off = sl.start
+                for leaf, shape, a in entries:
+                    lv[leaf.key] = z[..., off:off + a].reshape(shape)
+                    off += a
+            return self.rest.trace(args, lv)
+        grad = torch.func.grad(functional)
+        if not hessian:
+            return grad(z0), None
+        n, S = z0.shape[-1], self.nseeds
+        seeds = torch.eye(n, dtype=z0.dtype, device=z0.device)[:S].reshape((S,) + (1,) * (z0.ndim - 1) + (n,))
+        g, K = torch.func.vmap(lambda seed: torch.func.jvp(grad, (z0,), (seed.expand(z0.shape).contiguous(),)))(seeds)
+        return g[0], K
+
+    def residual(self, test, g, args, leaves):
+        '''The values ``[E, L_t]`` of test leaf ``test`` (kernel K12).'''
+        return assembly.elem_vector(self.operator(test, args, leaves), g[..., self.layout[test][0]])
+
+    def block(self, test, trial, K, args, leaves):
+        '''The element blocks ``[E, L_t, S]`` of test leaf ``test`` and
+        trial leaf ``trial`` (kernel K11).'''
+        Kts = K[self.layout[trial][0]][..., self.layout[test][0]].permute(1, 2, 3, 0)
+        return assembly.elem_matrix(self.operator(test, args, leaves), Kts, self.operator(trial, args, leaves))
+
+
+def _factor_form(expr, tests, trials, lockeys, operators):
+    '''The _FactoredForm of test localizations ``tests`` with trial
+    localizations ``trials`` in their functional ``expr``, or None where it
+    has no point-level factoring (``evaluable.feature_cut``; ``operators``
+    is the System's cache of feature operators); every localization must be
+    element-batched with its seed axes last, on the same element and point
+    axes, and each feature must depend on its own leaf alone among the
+    localized ones (``lockeys``).'''
+    npt = tests[0].leaf.ndim - len(tests[0].seed_axes)
+    locs = {loc.leaf.key: loc for loc in (*tests, *trials)}
+    for loc in locs.values():
+        if loc.dense or loc.seed_axes != tuple(range(npt, loc.leaf.ndim)) \
+                or loc.argidx.shape[0] != loc.leaf.shape[0] or loc.leaf.shape[:npt] != tests[0].leaf.shape[:npt]:
+            return None
+    cuts = {}
+    for key, loc in locs.items():
+        cut = ev.feature_cut(expr, loc.leaf, npt)
+        if cut is None or any({l.key for l in n.leafdeps} & lockeys != {key} for n in cut):
+            return None
+        cuts[key] = cut
+    feats = ev.feature_leaves([n for cut in cuts.values() for n in cut])
+    rest = ev.replace(expr, feats)
+    if any(loc.leaf in rest.leafdeps for loc in locs.values()) or not ev.separable(rest, list(feats.values()), npt):
+        return None
+    return _FactoredForm(expr, tests, trials, cuts, npt, operators)
 
 
 class System:
@@ -801,12 +943,14 @@ class System:
         term_lockeys = [frozenset(l.key for l in t.leafdeps if l.key in lockeys) for t in terms]
 
         self._blocks = []
+        trial_locs = {l.leaf.key: l for u in self.trials for l in self._trial_locs[u]}
+        made = []  # (test, chunk index, chunk, its functional, test loc)
         for ti, t in enumerate(tests):
             chunks = []
             for loc in locs[t]:
                 # trial leaves that share an additive term with this test leaf
                 deps = frozenset().union(*(tk for tk in term_lockeys if loc.leaf.key in tk)) if term_lockeys else frozenset()
-                trial_keys = deps & {l.leaf.key for u in self.trials for l in self._trial_locs[u]}
+                trial_keys = deps & set(trial_locs)
 
                 # evaluate only the terms this test localization appears in:
                 # the gradient is identical (other terms are constant in the
@@ -825,8 +969,30 @@ class System:
                         lv[_loc.leaf.key] = x
                         return _comp.trace(args, lv)
                     return torch.func.grad(scalar)(leaves[_loc.leaf.key])
-                chunks.append(_Chunk(loc.argidx, fn, trial_keys, loc.leaf.shape))
+                made.append((t, len(chunks), _Chunk(loc.argidx, fn, trial_keys, loc.leaf.shape, loc.leaf.key),
+                             expr_dep, loc))
+                chunks.append(made[-1][2])
             self._blocks.append(chunks)
+
+        # each chunk's assembly route, chosen from its form: 'factored' where
+        # its functional has point-level features (one _FactoredForm for all
+        # the chunks of one functional), else 'generic'
+        self._assembly_routes = {}
+        self._operators = {}
+        groups = {}
+        for item in made:
+            groups.setdefault(item[3], []).append(item)
+        for expr, items in groups.items():
+            keys = sorted(frozenset().union(*(item[2].leafdeps for item in items)))
+            form = _factor_form(expr, [item[4] for item in items], [trial_locs[k] for k in keys], lockeys,
+                                self._operators)
+            for item in items:
+                item[2].factored = form
+        for t, ci, c, _expr, loc in made:
+            self._assembly_routes[t, ci] = 'generic' if c.factored is None else 'factored'
+            if c.factored is None:
+                log.info(f'assembly of test {t!r} chunk {ci}: generic route (vmap(jvp) over {loc.nseeds} dof '
+                         'seeds); its form has no point-level features')
 
         self._cache = {}
         # the trials' registered dof layouts, read now: a later field of the
@@ -897,23 +1063,52 @@ class System:
                 out[name] = numpy.asarray(v, dtype=float)
         return out
 
+    @contextlib.contextmanager
+    def _generic_route(self):
+        '''While open, every assembly chunk takes the generic ``vmap(jvp)``
+        route over its dof seeds (the reference of the factored route);
+        the chunks' forms and ``_assembly_routes`` are restored on exit.'''
+        saved = [(c, c.factored) for chunks in self._blocks for c in chunks], self._assembly_routes
+        try:
+            for c, _form in saved[0]:
+                c.factored = None
+            self._assembly_routes = dict.fromkeys(saved[1], 'generic')
+            yield self
+        finally:
+            for c, form in saved[0]:
+                c.factored = form
+            self._assembly_routes = saved[1]
+
     # -------------------------------------------------------- traces
 
-    def _residual_trace(self, args, tables):
+    def _point_terms(self, c, args, tables, terms, hessian=True):
+        '''(g, K) of factored chunk ``c``'s form
+        (_FactoredForm.point_terms), kept in ``terms`` for the rest of one
+        assembly, with the bound leaves.'''
+        if 'leaves' not in terms:
+            terms['leaves'] = self._bound_leaves(args, {}, tables)
+        hit = terms.get(id(c.factored))
+        if hit is None or hessian and hit[1] is None:
+            hit = terms[id(c.factored)] = c.factored.point_terms(args, terms['leaves'], hessian)
+        return hit
+
+    def _residual_trace(self, args, tables, terms=None):
         fdt = config.torch_dtype(float)
         dev = config.torch_device()
+        terms = {} if terms is None else terms
         parts = []
         for chunks, sl in zip(self._blocks, self._test_slices):
             n = sl.stop - sl.start
             r = torch.zeros(n, dtype=fdt, device=dev)
             for c in chunks:
-                v = c.fn(args, {}, tables)
                 plan = getattr(c, '_row_plan', None)
                 if plan is None:
                     rows_np = numpy.asarray(c.rows)
                     # sum v over axes the row table broadcasts along, then
                     # plan the structured slice-scatter layout (whole-affine,
-                    # phase-grouped, or seam-banded for periodic meshes)
+                    # phase-grouped, or seam-banded for periodic meshes);
+                    # rows with no slice plan take the sorted segment sums
+                    # (deterministic on a card)
                     bcast = tuple(ax for ax in range(len(c.shape))
                                   if rows_np.shape[ax] == 1 and c.shape[ax] > 1)
                     sq = rows_np
@@ -921,15 +1116,15 @@ class System:
                         sq = numpy.squeeze(sq, ax)
                     vplan = _plan_value_table(sq.reshape(sq.shape[0], -1), None, n) \
                         if sq.ndim >= 2 and sq.shape[0] > 1 else None
-                    # rows with no slice plan: the sorted segment sums of
-                    # every entry (deterministic on a card)
-                    plan = c._row_plan = (bcast, vplan) if vplan is not None and vplan[0] != 'scatter' \
-                        else (None, _RowSums(numpy.broadcast_to(c.rows, c.shape)))
+                    plan = c._row_plan = (bcast, vplan or ('scatter', _RowSums(sq)))
                 bcast, vplan = plan
-                if isinstance(vplan, _RowSums):
-                    vplan.add_into(r, v.reshape(-1))
+                if c.factored is not None:
+                    g, _K = self._point_terms(c, args, tables, terms, hessian=False)
+                    v = c.factored.residual(c.key, g, args, terms['leaves'])
                 else:
-                    _apply_value_plan(r, vplan[0], vplan[1], v.sum(dim=bcast) if bcast else v)
+                    v = c.fn(args, {}, tables)
+                    v = v.sum(dim=bcast) if bcast else v
+                _apply_value_plan(r, vplan[0], vplan[1], v)
             parts.append(r)
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
@@ -1140,12 +1335,17 @@ class System:
                     csr_map=tgt_slot, field_offsets=tuple(offsets),
                     field_grids=tuple(grids))
 
-    def _jacobian_trace(self, args, tables):
+    def _jacobian_trace(self, args, tables, terms=None):
         chunk_meta, pattern, jplan = self._jac_layout
+        terms = {} if terms is None else terms
         vals = []
         for bi, ci, u, li, reduce_axes, _size in chunk_meta:
             c = self._blocks[bi][ci]
             loc = self._trial_locs[u][li]
+            if c.factored is not None:
+                _g, K = self._point_terms(c, args, tables, terms)
+                vals.append(c.factored.block(c.key, loc.leaf.key, K, args, terms['leaves']))
+                continue
             x0 = loc.leaf_value(args).contiguous()
 
             def tangent(seed, _c=c, _loc=loc):
@@ -1173,6 +1373,10 @@ class System:
             _apply_value_plan(w, skind, payload, V)
         return w
 
+    def _jacres_trace(self, args, tables):
+        terms = {}  # the factored chunks' point terms, once for both traces
+        return self._jacobian_trace(args, tables, terms), self._residual_trace(args, tables, terms)
+
     # -------------------------------------------------------- public assembly
 
     def _compiled(self, which):
@@ -1182,9 +1386,7 @@ class System:
         fn = self._cache.get(which)
         if fn is None:
             self._check_batch_size()
-            trace = {'residual': self._residual_trace,
-                     'jacres': lambda args, tables: (self._jacobian_trace(args, tables),
-                                                     self._residual_trace(args, tables))}[which]
+            trace = {'residual': self._residual_trace, 'jacres': self._jacres_trace}[which]
             fn = self._cache[which] = lambda clean: trace(self._device_args(clean), self._tables())
         return fn
 

@@ -1,4 +1,4 @@
-'''The hand kernels of nutils_tpu_torch (K1-K10) against their plain PyTorch
+'''The hand kernels of nutils_tpu_torch (K1-K12) against their plain PyTorch
 versions, on a CUDA card.  This file imports no jax, so it runs where the
 card is:
 
@@ -15,7 +15,7 @@ import torch
 from nutils_tpu_torch import _kernels, matrix
 from nutils_tpu_torch.ops import _triton_bicgstab as tbi
 from nutils_tpu_torch.ops import _triton_gmres as tgm
-from nutils_tpu_torch.ops import blockgrid, cg, mg, sparse, stencil
+from nutils_tpu_torch.ops import assembly, blockgrid, cg, mg, sparse, stencil
 
 pytestmark = pytest.mark.gpu
 
@@ -464,3 +464,66 @@ def test_cuda_triangle_residual_is_deterministic(cuda):
     (r1, r2), (want, _) = out
     assert torch.equal(r1, r2)
     assert float((r1.cpu() - want).abs().max()) <= 1e-14 * float(want.abs().max())
+
+
+# (Q, A, I, B, J, shared operators) of the factored assembly's element
+# contractions on the three paths: Navier-Stokes velocity-velocity,
+# velocity-pressure and pressure-velocity blocks, the triangle step's
+# (operators the same for every element) and the Laplace slice's
+CONTRACTIONS = {'ns_uu': (16, 6, 18, 6, 18, False), 'ns_up': (16, 6, 18, 1, 4, False),
+                'ns_pu': (16, 1, 4, 6, 18, False), 'tri_uu': (12, 6, 12, 6, 12, True),
+                'tri_pu': (12, 1, 3, 6, 12, True), 'laplace': (4, 3, 4, 3, 4, False)}
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('case', list(CONTRACTIONS))
+def test_assembly_contractions(cuda, case, dtype, tol):
+    # K11 and K12 against their plain versions (one einsum each), on the
+    # scale of the terms' magnitudes; K strided as the route hands it over
+    # (the Hessian's seed axis first); two launches bitwise equal
+    Q, A, I, B, J, shared = CONTRACTIONS[case]
+    E = 1001
+    rng = numpy.random.default_rng(5)
+    Et = 1 if shared else E
+    Bt, Bs = (torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=cuda)
+              for s in ((Et, Q, A, I), (Et, Q, B, J)))
+    K = torch.as_tensor(rng.standard_normal((B, E, Q, A)), dtype=dtype, device=cuda).permute(1, 2, 3, 0)
+    g = torch.as_tensor(rng.standard_normal((E, Q, A + 2)), dtype=dtype, device=cuda)[..., 1:A + 1]
+    launches = assembly.elem_matrix.launches, assembly.elem_vector.launches
+    V, V2 = assembly.elem_matrix(Bt, K, Bs), assembly.elem_matrix(Bt, K, Bs)
+    r, r2 = assembly.elem_vector(Bt, g), assembly.elem_vector(Bt, g)
+    assert (assembly.elem_matrix.launches, assembly.elem_vector.launches) == (launches[0] + 2, launches[1] + 2)
+    torch.cuda.synchronize()
+    assert V.shape == (E, I, J) and r.shape == (E, I)
+    assert torch.equal(V, V2) and torch.equal(r, r2)
+    scale = assembly.elem_matrix_plain(Bt.abs(), K.abs(), Bs.abs()).max()
+    assert float((V - assembly.elem_matrix_plain(Bt, K, Bs)).abs().max() / scale) <= tol
+    scale = assembly.elem_vector_plain(Bt.abs(), g.abs()).max()
+    assert float((r - assembly.elem_vector_plain(Bt, g)).abs().max() / scale) <= tol
+
+
+@pytest.mark.parametrize('case', ['laplace', 'ns', 'ns_tri'])
+def test_cuda_assembly_goes_through_the_contractions(cuda, case):
+    # each path at a small size in float64: every chunk takes the factored
+    # route, K11 and K12 launch on the card, and the jacobian and residual
+    # are the CPU's (plain versions) to 1e-12
+    import _torch_parity as tp
+    from nutils_tpu_torch.utils import config
+    out = []
+    for device in ('cuda', 'cpu'):
+        with config.device(device):
+            if case == 'laplace':
+                system = tp.build_laplace('nutils_tpu_torch', 16, numpy.float64, reaction=True)
+                args = {'u': numpy.random.default_rng(0).standard_normal(17 * 17)}
+            else:
+                system, args = tp.build_ns('nutils_tpu_torch', 6, numpy.float64, 'triangle' if case == 'ns_tri'
+                                           else 'square')
+            launches = assembly.elem_matrix.launches, assembly.elem_vector.launches
+            w, r = system._compiled('jacres')(system._clean(args))
+            out.append((w.cpu(), r.cpu()))
+            assert set(system._assembly_routes.values()) == {'factored'}
+            if device == 'cuda':
+                assert assembly.elem_matrix.launches > launches[0] and assembly.elem_vector.launches > launches[1]
+    (wa, ra), (wb, rb) = out
+    assert float((wa - wb).abs().max()) <= 1e-12 * float(wb.abs().max())
+    assert float((ra - rb).abs().max()) <= 1e-12 * float(rb.abs().max())
