@@ -59,6 +59,25 @@ Phases, each printing JSON lines:
 12. ns_tri_parity — the triangle step at 6x6 elements in float64 on the
    card and on the CPU: both methods' solutions agree to 1e-8 relative, in
    as many iterations.
+13. laplace_example — examples/laplace.py's solve path at 2048^2 elements
+   (4,198,401 dofs) in float64 through the port's entry points:
+   ``solve_constraints`` (4,097 dofs constrained), then
+   ``System.solve(constrain=cons)``, first part by part (the assembly in
+   two element chunks through K11/K12, the masked operator and its stencil
+   form, the multigrid set-up, GMRES through K1-K3 and K6; launch counts
+   read around it) and then as the user calls it; the example's L2 error,
+   below 2.5e-8.
+14. laplace_example_chunks — that assembly in two chunks and in one: the
+   first assembly's peak memory each, and the sha1 of w and r, which must
+   be equal; then K11 and K12 in float64 on one chunk, writing into its
+   rows of the batch's buffer, against their plain versions.
+15. laplace_example_parity — the example at 256^2 elements, in chunks of
+   4,096 elements, on the card and on the CPU: cons and u agree to 1e-9 of
+   their largest value.
+16. ns_newton — ``System.solve(method=Newton(), tol=...)`` on the
+   Navier-Stokes step's System to 1e-5 of its first residual norm in at
+   most 8 iterations: each iteration's norm, time, inner tolerance and
+   solve record; every inner solve must be accepted on the device.
 
 Each path's assembly line also gives ``t_assemble_generic``: the same
 System with every chunk on the generic ``vmap(jvp)`` route, in the same
@@ -114,6 +133,10 @@ NS_KERNELS = ('blockgrid_matvec', 'gmres_project', 'gmres_update', 'gmres_normal
               'schur_diag_inverse_device') + ASSEMBLY_KERNELS
 TRI_KERNELS = ('csr_scatter', 'csr_matvec', 'schur_diag_inverse_device', 'gmres_project', 'gmres_update',
                'gmres_normalize', 'gmres_combine', 'bicg_dots', 'bicg_s', 'bicg_xr', 'bicg_p') + ASSEMBLY_KERNELS
+# the Laplace example's solve: assembly in element chunks, GMRES with the
+# multigrid V-cycle on the masked stencil operator
+EXAMPLE_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'mg_restrict', 'mg_prolong_add', 'gmres_project',
+                   'gmres_update', 'gmres_normalize', 'gmres_combine') + ASSEMBLY_KERNELS
 # kernel vs plain: float32 sums in another order (and with fused multiply-
 # adds) differ by a few ulps, float64 ones by a few ulps of float64
 TOL = {'float32': 1e-6, 'float64': 1e-14}
@@ -121,13 +144,16 @@ TOL = {'float32': 1e-6, 'float64': 1e-14}
 # cores (the kernels here use none)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# the same data sheet's float64 rate outside the tensor cores
+F64_FLOPS = 34e12
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=F32_FLOPS):
     '''(bound ms, what bounds it): the least time for the work, the larger
     of its bytes over the memory rate (each input read once, each output
-    written once) and its operations over the float32 peak.'''
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    written once) and its operations over the peak rate of their type
+    (float32 unless ``peak`` says otherwise).'''
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -313,8 +339,8 @@ def _compare(got, want, scale=None):
     return err, err / max(ref, 1e-300)
 
 
-def row(err, ms, plain_ms, nbytes, flops, library_ms=None):
-    bound_ms, bound_by = bound(nbytes, flops)
+def row(err, ms, plain_ms, nbytes, flops, library_ms=None, peak=F32_FLOPS):
+    bound_ms, bound_by = bound(nbytes, flops, peak)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
@@ -939,18 +965,18 @@ def assembly_operands(system, clean):
     '''[(block label, Bt, K, Bs, g)]: the operands the factored assembly
     hands K11 (Bt, K, Bs) and K12 (Bt, g) for every (test, trial)
     localization pair of the System, at its arguments ``clean``.'''
-    args, tables = system._device_args(clean), system._tables()
+    args = system._device_args(clean)
+    leaves = system._bound_leaves(args, {}, system._tables())
     terms = {}
     out = []
     for bi, ci, u, li, _reduce, _size in system._jac_layout[0]:
         c = system._blocks[bi][ci]
         f = c.factored
         if id(f) not in terms:
-            t_point_terms, _terms = _sync_time(lambda: system._point_terms(c, args, tables, terms))
+            t_point_terms, _terms = _sync_time(lambda: system._point_terms(c, args, leaves, terms))
             emit('assembly_point_terms', t_point_terms=t_point_terms, nseeds=f.nseeds,
                  features={str(key): f.layout[key][0].stop - f.layout[key][0].start for key in f.layout})
-        g, K = system._point_terms(c, args, tables, terms)
-        leaves = terms['leaves']
+        g, K = system._point_terms(c, args, leaves, terms)
         key = system._trial_locs[u][li].leaf.key
         tsl = f.layout[c.key][0]
         out.append((system.tests[bi] + u, f.operator(c.key, args, leaves),
@@ -1256,6 +1282,272 @@ def phase_ns_tri_parity(devices=('cuda', 'cpu')):
                                  f'{sa["iters"]} and {sb["iters"]}')
 
 
+def laplace_l2_error(domain, ns, args):
+    """The L2 error of examples/laplace.py's ``main`` (degree 1)."""
+    return domain.integral('(u - sin(x_0) cosh(x_1))^2 dV' @ ns, degree=2).eval(args) ** .5
+
+
+def _peak():
+    import torch
+    return torch.cuda.max_memory_allocated()
+
+
+def phase_laplace_example(nelems=2048):
+    """examples/laplace.py's solve path at ``nelems``^2 elements in float64
+    through the port's entry points: ``solve_constraints`` on the boundary
+    functional, then ``System.solve(constrain=cons)`` (Direct: the element-
+    chunked assembly, the masked stencil operator, multigrid GMRES), timed
+    part by part first and then as the user calls it, and the example's L2
+    error.  Returns (launch counts of the solve, the System, its clean
+    arguments, w and r of a warm assembly)."""
+    import _torch_parity as tp
+    import numpy
+    import torch
+    from nutils_tpu_torch.solver import System
+    from nutils_tpu_torch.utils import config
+    config.floatx.value = numpy.float64  # the package's default, which the example uses
+    with config.device('cuda'):
+        t_forms, (domain, ns, res, sqr) = _sync_time(lambda: tp.laplace_example_forms('nutils_tpu_torch', nelems))
+        t_system, (scons, system) = _sync_time(lambda: (System(sqr, trial='u'), System(res, trial='u', test='v')))
+        ndofs = system.trial_shapes[0][0]
+        nelem = nelems * nelems
+        emit('laplace_example_system', nelems=nelem, ndofs=ndofs, t_forms=t_forms, t_system=t_system,
+             assembly_chunk=config.assembly_chunk.value)
+        check_routes('laplace_example', system)
+        # solve_constraints: a masked solve on the boundary functional's
+        # jacobian, which the System keeps (a constant matrix)
+        reset_launches()
+        t_cons, cons = _sync_time(lambda: scons.solve_constraints(droptol=1e-15))
+        cons_launches = {name: count for name, count in read_launches(wrappers()).items() if count}
+        constrained = int(numpy.isfinite(cons['u']).sum())
+        emit('laplace_example_cons', t_cons=t_cons, constrained=constrained,
+             solve_stats=scons._cache['jacmat']._solve_stats, launches=cons_launches)
+        if constrained != 2 * (nelems + 1) - 1:
+            raise AssertionError(f'solve_constraints constrained {constrained} dofs, expected {2 * (nelems + 1) - 1}')
+        # System.solve(constrain=cons) part by part: Direct's assembly, the
+        # masked operator and its form, the multigrid set-up, the solve
+        arguments, x = system.deconstruct({}, cons)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t_assemble_first, (jac, r) = _sync_time(lambda: system.assemble_jacobian_residual(arguments, x))
+        peak_first = _peak()
+        plan = system._chunk_plan()
+        clean = system._clean(system.construct(arguments, x))
+        fn = system._compiled('jacres')
+        warm = [_sync_time(lambda: fn(clean)) for _ in range(2)]
+        t_assemble, (w0, r0) = min(t for t, _out in warm), warm[-1][1]
+        del warm
+        emit('laplace_example_assembly', chunks=plan and plan['nc'], chunk_elements=plan and plan['ce'],
+             t_assemble_first=t_assemble_first, t_assemble=t_assemble, peak_first_bytes=peak_first)
+        if plan is None or plan['nc'] != 2:
+            raise AssertionError(f'the example at {nelem} elements assembled in {plan and plan["nc"]} chunks, not 2')
+        parent, isfree = jac._parent, jac._mask
+        t_mask, masked = _sync_time(lambda: parent._masked(isfree))
+        t_op_form, op = _sync_time(masked._device_op)
+        t_setup, mg = _sync_time(masked._mg)
+        t_solve, dx = _sync_time(lambda: jac.solve(r, symmetric=system.is_symmetric))
+        stats = dict(jac._solve_stats)
+        launches = read_launches(EXAMPLE_KERNELS)
+        t_solve_warm, dx_warm = _sync_time(lambda: jac.solve(r, symmetric=system.is_symmetric))
+        t_check, jdx = _sync_time(lambda: jac @ dx)
+        rel_residual = float(numpy.linalg.norm(r - jdx) / numpy.linalg.norm(r))
+        emit('laplace_example_solve_parts', t_mask=t_mask, op_form=op[0][0], t_op_form=t_op_form, t_setup=t_setup,
+             mg_levels=None if mg is None else [list(lev[1]) for lev in mg.levels], t_solve=t_solve,
+             t_solve_warm=t_solve_warm, solve_stats=stats, warm_solve_stats=dict(jac._solve_stats),
+             t_host_residual=t_check, rel_residual=rel_residual, launches=launches)
+        # the same as the user calls it: the System keeps the constant
+        # jacobian, and the jacobian its masked operator
+        t_solve_entry, args = _sync_time(lambda: system.solve(constrain=cons))
+        t_l2, err = _sync_time(lambda: laplace_l2_error(domain, ns, args))
+        peak = _peak()
+    u = args['u']
+    emit('laplace_example', nelems=nelem, ndofs=ndofs, t_system=t_system, t_cons=t_cons, constrained=constrained,
+         chunks=plan['nc'], t_assemble_first=t_assemble_first, t_assemble=t_assemble, t_mask=t_mask,
+         t_op_form=t_op_form, t_setup=t_setup, t_solve=t_solve, t_solve_warm=t_solve_warm,
+         t_solve_entry=t_solve_entry, l2_error=err,
+         t_l2_error=t_l2, rel_residual=rel_residual, solve_stats=stats, peak_device_bytes=peak,
+         peak_first_assembly_bytes=peak_first)
+    if u.shape != (ndofs,) or not numpy.isfinite(u).all():
+        raise AssertionError('Laplace example: the solution is not a finite vector of the dof count')
+    want = {'method': 'gmres', 'op_form': 'stencil', 'precon': 'mg', 'accepted_on_device': True}
+    if any(stats.get(k) != v for k, v in want.items()):
+        raise AssertionError(f'Laplace example solved through {stats}, expected {want}')
+    # four times the O(h^2) estimate from the example's own regression at 4
+    # elements (1.63e-3): 2.5e-8 at 2048
+    if not err < 4 * 1.63e-3 * (4 / nelems) ** 2:
+        raise AssertionError(f'Laplace example: L2 error {err:.3e} is not below {4 * 1.63e-3 * (4 / nelems) ** 2:.2e}')
+    if not (numpy.array_equal(u[isfree], x - dx) and numpy.array_equal(dx, dx_warm)):
+        raise AssertionError('Laplace example: System.solve and its parts give other solutions')
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f'kernels not launched on the Laplace example path: {missing}')
+    return launches, system, clean, w0, r0
+
+
+def phase_laplace_example_chunks(system, clean, w_chunked, r_chunked):
+    """The example's assembly in two chunks (the default) and in one
+    (``config.assembly_chunk`` 2^23), each first after its caches were
+    dropped: its peak memory, time, and the bits of w and r, which must be
+    equal (and equal to ``phase_laplace_example``'s warm assembly)."""
+    import _torch_parity as tp
+    import torch
+    from nutils_tpu_torch.utils import config
+    fn = system._compiled('jacres')
+    out = {}
+    with config.device('cuda'):
+        for label, chunk in (('chunked', config.assembly_chunk.value), ('unchunked', 2**23)):
+            with config.assembly_chunk(chunk):
+                tp.forget_assembly(system)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t_first, (w, r) = _sync_time(lambda: fn(clean))
+                peak = _peak()
+                t_warm = min(_sync_time(lambda: fn(clean))[0] for _ in range(2))
+                plan = system._chunk_plan()
+                out[label] = dict(chunks=plan['nc'] if plan else 1, t_first=t_first, t_assemble=t_warm,
+                                  peak_first_bytes=peak,
+                                  sha1={name: hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()
+                                        for name, t in (('w', w), ('r', r))},
+                                  equal_to_example=bool(torch.equal(w, w_chunked) and torch.equal(r, r_chunked)))
+                del w, r
+    tp.forget_assembly(system)
+    emit('laplace_example_chunks', **out)
+    if out['chunked']['sha1'] != out['unchunked']['sha1'] or not out['chunked']['equal_to_example'] \
+            or (out['chunked']['chunks'], out['unchunked']['chunks']) != (2, 1):
+        raise AssertionError(f'the chunked and unchunked assemblies differ: {out}')
+
+
+def phase_chunk_kernels(system, clean):
+    """K11 and K12 in float64 at the shapes of one element chunk of the
+    example (its second), each writing into that chunk's rows of a buffer
+    of the whole batch, against their plain versions (writing into another
+    such buffer) and one ``torch.einsum``; returns their rows."""
+    import torch
+    from nutils_tpu_torch import solver
+    from nutils_tpu_torch.ops import assembly
+    from nutils_tpu_torch.utils import config
+    with config.device('cuda'):
+        plan = system._chunk_plan()
+        E, ce = plan['E'], plan['ce']
+        rows = slice(ce, 2 * ce)
+        args = system._device_args(clean)
+        leaves = system._bound_leaves(args, {}, system._tables())
+        lv = solver._chunk_leaves(leaves, plan['keys'], rows)
+        (bi, ci, u, li, _reduce, _size), = system._jac_layout[0]
+        c = system._blocks[bi][ci]
+        form = system._form(c, rows)
+        g, K = form.point_terms(args, lv, True, rows)
+    trial = system._trial_locs[u][li].leaf.key
+    Bt, Bs = form.operator(c.key, args, leaves, rows), form.operator(trial, args, leaves, rows)
+    Kts = K[form.layout[trial][0]][..., form.layout[c.key][0]].permute(1, 2, 3, 0)
+    gt = g[..., form.layout[c.key][0]]
+    _ce, Q, A, B = Kts.shape
+    I, J = Bt.shape[-1], Bs.shape[-1]
+    isz = Kts.element_size()
+    bufs = {name: torch.zeros(shape, dtype=Kts.dtype, device=Kts.device)
+            for name, shape in (('V', (E, I, J)), ('Vp', (E, I, J)), ('r', (E, I)), ('rp', (E, I)))}
+    cases = [('elem_matrix', 'V', lambda: assembly.elem_matrix(Bt, Kts, Bs, out=bufs['V'][rows]),
+              lambda: assembly.elem_matrix_plain(Bt, Kts, Bs, out=bufs['Vp'][rows]),
+              lambda: torch.einsum('eqai,eqab,eqbj->eij', Bt, Kts, Bs),
+              lambda: assembly.elem_matrix_plain(Bt.abs(), Kts.abs(), Bs.abs()),
+              (_distinct_numel(Bt, Kts, Bs) + ce * I * J) * isz, 2 * ce * Q * A * J * (B + I)),
+             ('elem_vector', 'r', lambda: assembly.elem_vector(Bt, gt, out=bufs['r'][rows]),
+              lambda: assembly.elem_vector_plain(Bt, gt, out=bufs['rp'][rows]),
+              lambda: torch.einsum('eqai,eqa->ei', Bt, gt),
+              lambda: assembly.elem_vector_plain(Bt.abs(), gt.abs()),
+              (Bt.numel() + gt.numel() + ce * I) * isz, 2 * ce * Q * A * I)]
+    results = {}
+    for name, bufname, kernel, plain, library, magnitude, nbytes, flops in cases:
+        got, want, scale = kernel(), plain(), magnitude().max()
+        torch.cuda.synchronize()
+        buf = bufs[bufname]
+        in_place = got.data_ptr() == buf[rows].data_ptr()
+        untouched = bool((buf[:ce] == 0).all() and (buf[2 * ce:] == 0).all())
+        err, relerr = _compare(got, want, scale)
+        (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
+        fields = row(err, ms, plain_ms, nbytes, flops, time_ms(library)[0], peak=F64_FLOPS)
+        check_row(name, f'laplace_example chunk {rows.start}:{rows.stop} of {E}', 'float64', relerr,
+                  dict(fields, E=ce, Q=Q, A=A, B=B, I=I, J=J, in_place=in_place, other_rows_untouched=untouched,
+                       call_ms=call_ms))
+        if not (in_place and untouched):
+            raise AssertionError(f'{name} did not write in place into its chunk\'s rows alone')
+        results[name] = fields
+        del got, want
+    return results
+
+
+def phase_laplace_example_parity(nelems=256, devices=('cuda', 'cpu')):
+    """The example at ``nelems``^2 elements (above ``device_solve_min``, so
+    the solves run on the device) with ``config.assembly_chunk`` 4,096, so
+    that it is assembled in chunks too, on the card and through the port's
+    CPU path, in float64: ``cons`` and ``u`` agree to 1e-9 of their largest
+    value."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch.utils import config
+    out = {}
+    with config.floatx(numpy.float64), config.assembly_chunk(4096):
+        for device in devices:
+            with config.device(device):
+                t, result = _sync_time(lambda: tp.laplace_example('nutils_tpu_torch', nelems))
+                out[device] = result + (t,)
+    (ca, ua, ea, ta), (cb, ub, eb, tb) = (out[d] for d in devices)
+    dc = float(numpy.nanmax(numpy.abs(ca - cb)) / numpy.nanmax(numpy.abs(cb)))
+    du = float(numpy.abs(ua - ub).max() / numpy.abs(ub).max())
+    same = bool(numpy.array_equal(numpy.isnan(ca), numpy.isnan(cb)))
+    emit('laplace_example_parity', nelems=nelems * nelems, ndofs=len(ub), rel_cons=dc, rel_u=du, tol=1e-9,
+         same_constrained_dofs=same, l2_error=[ea, eb], seconds=[ta, tb], devices=list(devices))
+    if not (dc <= 1e-9 and du <= 1e-9 and same):
+        raise AssertionError(f'card and CPU examples differ: cons {dc:.3e}, u {du:.3e}, same dofs {same}')
+
+
+def phase_ns_newton(nelems=330):
+    """``System.solve(method=Newton(), tol=...)`` on the Navier-Stokes
+    step's System (float32 assembly) from its random state, to 1e-5 of the
+    first residual norm in at most 8 iterations: each iteration's residual
+    norm, time, inner tolerance and solve record.  Every inner solve must be
+    accepted on the device: under ``auto`` one that misses its tolerance is
+    demoted to a host direct solve, and its record says so."""
+    import numpy
+    from nutils_tpu_torch import matrix
+    from nutils_tpu_torch.solver import Newton
+    from nutils_tpu_torch.utils import config
+    with config.device('cuda'):
+        system, args = build_ns(nelems, numpy.float32)
+        t_r0, r0 = _sync_time(lambda: system.assemble_residual(args))
+        tol = 1e-5 * float(numpy.linalg.norm(r0))
+        iterations = []
+        assemble, solve_leniently = system.assemble_jacobian_residual, matrix.Matrix.solve_leniently
+
+        def timed_assembly(*a, **k):
+            t, (jac, res) = _sync_time(lambda: assemble(*a, **k))
+            iterations.append(dict(t_assemble=t, resnorm=float(numpy.linalg.norm(res)), at=time.perf_counter()))
+            return jac, res
+
+        def timed_solve(jac, res, **kw):
+            t, dx = _sync_time(lambda: solve_leniently(jac, res, **kw))
+            iterations[-1].update(t_solve=t, inner_rtol=kw.get('rtol'), solve_stats=dict(jac._solve_stats))
+            return dx
+        system.assemble_jacobian_residual = timed_assembly
+        matrix.Matrix.solve_leniently = timed_solve
+        try:
+            t_newton, out = _sync_time(lambda: system.solve(arguments=args, method=Newton(), tol=tol, maxiter=8))
+        finally:
+            matrix.Matrix.solve_leniently = solve_leniently
+            del system.assemble_jacobian_residual
+    for prev, it in zip(iterations, iterations[1:]):
+        it['t_iteration'] = it['at'] - prev['at']
+    for it in iterations:
+        del it['at']
+    emit('ns_newton', ndofs=sum(int(numpy.prod(s)) for s in system.trial_shapes), tol=tol, t_first_residual=t_r0,
+         t_newton=t_newton, newton_iterations=len(iterations) - 1, iterations=iterations)
+    if not iterations[-1]['resnorm'] <= tol or not all(numpy.isfinite(v).all() for v in out.values()):
+        raise AssertionError(f'Newton did not reach {tol:.3e}: {[it["resnorm"] for it in iterations]}')
+    host = [it['solve_stats'] for it in iterations[:-1] if not it['solve_stats']['accepted_on_device']]
+    if host:
+        raise AssertionError(f'Newton\'s inner solves left the device: {host}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1263,6 +1555,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import numpy
     import nutils_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    sys.path.insert(0, str(ROOT / 'tests'))  # _torch_parity: the tests' problem builders (no JAX)
     from nutils_tpu_torch.utils import config
     t0 = time.perf_counter()
     phase_device()
@@ -1277,6 +1570,7 @@ def main():
     del system, clean, jac, res
     phase_parity()
     torch.cuda.empty_cache()
+    by_path = {'slice': {name: launches[name] for name in ASSEMBLY_KERNELS}}
     ns_launches, system, jac, res, clean, k5_setup = phase_ns()
     measured.update(phase_ns_kernels(jac, k5_setup))
     measured.update(phase_assembly_kernels(system, clean, 'ns'))
@@ -1284,8 +1578,7 @@ def main():
     del system, jac, res, clean
     torch.cuda.empty_cache()
     phase_ns_parity()
-    by_path = {'slice': {name: launches[name] for name in ASSEMBLY_KERNELS},
-               'ns': {name: ns_launches[name] for name in ASSEMBLY_KERNELS}}
+    by_path['ns'] = {name: ns_launches[name] for name in ASSEMBLY_KERNELS}
     launches.update(ns_launches)
     tri_launches, system, jac, res, clean = phase_ns_tri()
     measured.update(phase_ns_tri_kernels(system, jac))
@@ -1294,17 +1587,28 @@ def main():
     del system, jac, res, clean
     torch.cuda.empty_cache()
     phase_ns_tri_parity()
-    # K11 and K12: launches summed over the three paths' runs, each path's
-    # beside them
     by_path['ns_tri'] = {name: tri_launches[name] for name in ASSEMBLY_KERNELS}
-    for name in ASSEMBLY_KERNELS:
-        launches[name] = sum(counts[name] for counts in by_path.values())
-        measured[name] = dict(measured[name], launches_by_path={path: counts[name] for path, counts in by_path.items()})
     # the kernels new on the triangle path count its launches; K7's CSR
     # variant is the same wrapper, read on that path
     launches.update({name: tri_launches[name] for name in ('csr_scatter', 'csr_matvec', 'bicg_dots', 'bicg_s',
                                                            'bicg_xr', 'bicg_p')})
     launches['schur_diag_inverse_device[csr]'] = tri_launches['schur_diag_inverse_device']
+    example_launches, system, clean, w0, r0 = phase_laplace_example()
+    phase_laplace_example_chunks(system, clean, w0, r0)
+    chunk_rows = phase_chunk_kernels(system, clean)
+    del system, clean, w0, r0
+    torch.cuda.empty_cache()
+    phase_laplace_example_parity()
+    phase_ns_newton()
+    torch.cuda.empty_cache()
+    by_path['laplace_example'] = {name: example_launches[name] for name in ASSEMBLY_KERNELS}
+    # K11 and K12: launches summed over the paths' runs, each path's beside
+    # them; their float64 measurements on one of the example's element
+    # chunks, written in place, beside those of the largest block
+    for name in ASSEMBLY_KERNELS:
+        launches[name] = sum(counts[name] for counts in by_path.values())
+        measured[name] = dict(measured[name], launches_by_path={path: counts[name] for path, counts in by_path.items()},
+                              float64_chunk=chunk_rows[name])
     emit('done', seconds=time.perf_counter() - t0)
     print(json.dumps({'kernels': [
         {'name': name, 'route': route, 'source': source, 'replaces': replaces, 'launches': launches[name],

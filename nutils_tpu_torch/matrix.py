@@ -24,8 +24,12 @@ CSR operand itself (kernel K9).  Solve backends:
   ``_accept`` contract as the JAX package's host polish loop, which is not
   ported.
 
-The host scipy solvers, constrained (masked-operator) solves and block
-Jacobi are ROADMAP A3 and A6.
+Constrained solves (``solve(constrain=)``, ``submatrix``) follow the JAX
+package: the device Krylov methods solve the masked operator
+``M A M + (I - M)``, built on the host with scipy once per mask and routed
+to its stencil, block-grid or CSR form like any other matrix; the other
+methods solve the free submatrix.  The host scipy solvers, the matrix
+algebra and block Jacobi are ROADMAP A3 and A6.
 '''
 
 import time
@@ -157,6 +161,18 @@ class Matrix:
         import scipy.sparse
         return scipy.sparse.csr_matrix((_host(self.data), self.indices, self.indptr), shape=self.shape)
 
+    def export(self, form):
+        '''The matrix on the host as ``'csr'`` (data, indices, indptr),
+        ``'dense'`` or ``'coo'`` (data, (rows, cols)).'''
+        if form == 'csr':
+            return _host(self.data), self.indices, self.indptr
+        if form == 'dense':
+            return self._scipy().toarray()
+        if form == 'coo':
+            m = self._scipy().tocoo()
+            return numpy.asarray(m.data), (m.row, m.col)
+        raise ValueError(form)
+
     def __matmul__(self, vec):
         return self._scipy() @ numpy.asarray(vec)
 
@@ -164,22 +180,87 @@ class Matrix:
         return self._scipy().diagonal()
 
     def submatrix(self, rows, cols):
-        '''All-true masks return the matrix itself; restricted views need the
-        masked-operator solve (ROADMAP A3).'''
+        '''Restrict to boolean-masked rows and columns (reference:
+        ``nutils_tpu/matrix.py:212``).  All-true masks return the matrix
+        itself; the symmetric square case returns a lazy view whose ``solve``
+        is a masked solve on the whole operator, which keeps its stencil or
+        block-grid form and its preconditioner.'''
         rows = numpy.asarray(rows)
         cols = numpy.asarray(cols)
-        if rows.dtype == bool and cols.dtype == bool and rows.all() and cols.all():
-            return self
-        raise NotImplementedError('submatrices and constrained solves are not ported yet (ROADMAP A3)')
+        if rows.dtype == bool and cols.dtype == bool:
+            if rows.all() and cols.all():
+                return self
+            if self.shape[0] == self.shape[1] and numpy.array_equal(rows, cols):
+                return _SubMatrix(self, rows)
+        m = self._scipy()[rows][:, cols].tocsr()
+        return Matrix(m.indptr, m.indices, m.data, m.shape)
 
     def solve(self, rhs=None, *, constrain=None, lhs0=None, solver=None, atol=0., rtol=0., symmetric=False,
               precon=None, **kwargs):
-        '''Solve A x = b.  Constraints (the masked-operator solve) are
-        ROADMAP A3.'''
-        if constrain is not None:
-            raise NotImplementedError('constrained solves are not ported yet (ROADMAP A3)')
+        '''Solve A x = b, optionally under constraints (reference:
+        ``nutils_tpu/matrix.py:319``).
+
+        ``constrain``: a boolean mask (True: x fixed to 0) or a float vector
+        whose NaN entries are free and whose finite entries prescribe x.  The
+        device Krylov methods solve ``M A M y = M (b - A xfix)`` with the
+        identity on the fixed rows: the masked operator, built on the host
+        once per mask and cached on the matrix, keeps the stencil or
+        block-grid form (and the multigrid preconditioner) of the
+        original, and is solved by :meth:`_solve_free` as an unconstrained
+        matrix is: under ``auto`` a device method that misses its tolerance
+        is demoted to a host direct solve, and the solve record
+        (``_solve_stats``) says so.  Other methods solve the free submatrix
+        directly.'''
         rhs = numpy.zeros(self.shape[0]) if rhs is None else numpy.asarray(rhs, dtype=float)
-        return self._solve_free(rhs, solver, atol, rtol, symmetric, precon, **kwargs)
+        if constrain is None:
+            return self._solve_free(rhs, solver, atol, rtol, symmetric, precon, **kwargs)
+        constrain = numpy.asarray(constrain)
+        if constrain.dtype == bool:
+            isfree = ~constrain
+            xfix = numpy.zeros(self.shape[1])
+        else:
+            isfree = numpy.isnan(constrain)
+            xfix = numpy.where(isfree, 0.0, constrain)
+        eff = solver if solver is not None else config.matrix.value
+        if eff == 'auto':
+            eff = ('cg' if symmetric else 'gmres') if self.shape[0] >= config.device_solve_min.value else 'direct'
+        if eff in ('cg', 'gmres', 'bicgstab') and self.shape[0] == self.shape[1]:
+            Mm = self._masked(isfree)
+            b = numpy.where(isfree, rhs - (self @ xfix), 0.0)
+            y = Mm._solve_free(b, solver, atol, rtol, symmetric, precon, **kwargs)
+            self._solve_stats = Mm._solve_stats
+            return numpy.where(isfree, y, xfix)
+        sub = self.submatrix(isfree, isfree)
+        b = rhs[isfree] - (self @ xfix)[isfree]
+        xf = sub._solve_free(b, 'direct' if eff in ('cg', 'gmres', 'bicgstab') else solver,
+                             atol, rtol, symmetric, precon, **kwargs)
+        self._solve_stats = getattr(sub, '_solve_stats', None)
+        x = xfix.copy()
+        x[isfree] = xf
+        return x
+
+    def _masked(self, isfree):
+        '''The masked operator ``M A M + (I - M)`` of free mask ``isfree``
+        as a fresh :class:`Matrix` with this matrix's field hints, built on
+        the host with scipy and cached per mask, so repeated solves (Newton
+        steps on one jacobian, a submatrix view) reuse its operator form and
+        preconditioner.'''
+        key = isfree.tobytes()
+        cached = getattr(self, '_masked_solve_cache', None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        import scipy.sparse
+        mf = isfree.astype(float)
+        Dm = scipy.sparse.diags(mf)
+        A = self._scipy()
+        Am = (Dm @ A @ Dm + scipy.sparse.diags(1.0 - mf)).tocsr()
+        Am.sum_duplicates()
+        Mm = Matrix(Am.indptr, Am.indices, Am.data.astype(A.dtype), Am.shape)
+        for name in ('_field_offsets', '_field_grids'):
+            if getattr(self, name, None) is not None:
+                setattr(Mm, name, getattr(self, name))
+        self._masked_solve_cache = (key, Mm)
+        return Mm
 
     def solve_leniently(self, *args, **kwargs):
         try:
@@ -235,9 +316,11 @@ class Matrix:
     def _solve_direct(self, rhs):
         import scipy.sparse.linalg
         try:
-            return scipy.sparse.linalg.spsolve(self._scipy().tocsc(), rhs)
+            x = scipy.sparse.linalg.spsolve(self._scipy().tocsc(), rhs)
         except RuntimeError as e:
             raise MatrixError(str(e)) from e
+        self._solve_stats = {'method': 'direct', 'accepted_on_device': False}
+        return x
 
     def _pattern_of(self):
         '''Where the device tables and plans cache: the assembly's pattern,
@@ -524,6 +607,38 @@ class Matrix:
         iterative refinement (see _device_krylov).'''
         return self._device_krylov('bicgstab', rhs, atol=atol, rtol=rtol, maxiter=maxiter,
                                    precon=precon, preconargs=preconargs)
+
+
+class _SubMatrix(Matrix):
+    '''Lazy view of the rows and columns ``mask`` of a square matrix:
+    ``solve`` is a masked solve on the parent, which keeps its stencil form
+    and multigrid preconditioner; the CSR arrays materialize only when some
+    other operation needs them.'''
+
+    def __init__(self, parent, mask):
+        self._parent = parent
+        self._mask = numpy.asarray(mask, dtype=bool)
+        nf = int(self._mask.sum())
+        self.shape = (nf, nf)
+
+    def __getattr__(self, name):
+        if name in ('indptr', 'indices', 'data'):
+            m = self._parent._scipy()[self._mask][:, self._mask].tocsr()
+            self.indptr = m.indptr
+            self.indices = m.indices
+            self.data = m.data
+            return getattr(self, name)
+        raise AttributeError(name)
+
+    def solve(self, rhs=None, *, constrain=None, **kwargs):
+        if constrain is None:
+            full = numpy.zeros(self._parent.shape[0])
+            if rhs is not None:
+                full[self._mask] = numpy.asarray(rhs, dtype=float)
+            x = self._parent.solve(full, constrain=~self._mask, **kwargs)
+            self._solve_stats = getattr(self._parent, '_solve_stats', None)
+            return x[self._mask]
+        return super().solve(rhs, constrain=constrain, **kwargs)
 
 
 class _StencilMatrix(Matrix):

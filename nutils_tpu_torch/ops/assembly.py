@@ -19,7 +19,9 @@ operator whose element extent is 1 is the same for every element (stride
 
 Each kernel has a plain version, one ``torch.einsum`` over the same
 operands.  Tensors on the CPU take it; a CUDA tensor launches the kernel
-(``csrc/assembly.cu``) or raises.
+(``csrc/assembly.cu``) or raises.  Both write into ``out`` where it is
+given: an element chunk's rows of a batch's value buffer, which the kernel
+fills in place.
 '''
 
 import ctypes
@@ -29,14 +31,16 @@ import torch
 from .. import _kernels
 
 
-def elem_matrix_plain(Bt, K, Bs):
+def elem_matrix_plain(Bt, K, Bs, out=None):
     '''Plain torch version of :func:`elem_matrix`.'''
-    return torch.einsum('eqai,eqab,eqbj->eij', Bt, K, Bs)
+    V = torch.einsum('eqai,eqab,eqbj->eij', Bt, K, Bs)
+    return V if out is None else out.copy_(V)
 
 
-def elem_vector_plain(Bt, g):
+def elem_vector_plain(Bt, g, out=None):
     '''Plain torch version of :func:`elem_vector`.'''
-    return torch.einsum('eqai,eqa->ei', Bt, g)
+    r = torch.einsum('eqai,eqa->ei', Bt, g)
+    return r if out is None else out.copy_(r)
 
 
 def _strides(t, E):
@@ -66,36 +70,48 @@ def _check(name, ref, **named):
         raise ValueError(f'{name}: an extent of 2^31 or more: the kernel takes 32-bit extents')
 
 
-def elem_matrix(Bt, K, Bs):
+def _output(name, ref, shape, out):
+    '''``out``, checked to be a contiguous CUDA tensor of ``ref``'s dtype
+    on its device with ``shape``, or a new one.'''
+    if out is None:
+        return torch.empty(shape, dtype=ref.dtype, device=ref.device)
+    if out.device != ref.device or out.dtype != ref.dtype or tuple(out.shape) != tuple(shape) \
+            or not out.is_contiguous():
+        raise ValueError(f'{name}: out is {out.dtype} {tuple(out.shape)} on {out.device} (contiguous: '
+                         f'{out.is_contiguous()}), expected a contiguous {ref.dtype} {tuple(shape)} on {ref.device}')
+    return out
+
+
+def elem_matrix(Bt, K, Bs, out=None):
     '''Element blocks ``V[e, i, j] = sum_qab Bt[e,q,a,i] K[e,q,a,b]
-    Bs[e,q,b,j]``, kernel K11: ``[E, I, J]``, contiguous.  ``K`` is
-    ``[E, Q, A, B]``, ``Bt`` ``[E or 1, Q, A, I]``, ``Bs`` ``[E or 1, Q, B,
-    J]``, any strides.  One thread block stages an element's slices in
-    shared memory and each thread sums its outputs over ``q, a, b`` in a
-    fixed order: no atomics, bitwise reproducible.'''
+    Bs[e,q,b,j]``, kernel K11: ``[E, I, J]``, contiguous, in ``out`` where
+    given.  ``K`` is ``[E, Q, A, B]``, ``Bt`` ``[E or 1, Q, A, I]``, ``Bs``
+    ``[E or 1, Q, B, J]``, any strides.  One thread block stages an
+    element's slices in shared memory and each thread sums its outputs over
+    ``q, a, b`` in a fixed order: no atomics, bitwise reproducible.'''
     if K.device.type == 'cpu':
-        return elem_matrix_plain(Bt, K, Bs)
+        return elem_matrix_plain(Bt, K, Bs, out)
     E, Q, A, B = K.shape
     I, J = Bt.shape[-1], Bs.shape[-1]
     _check('elem_matrix', K, Bt=(Bt, (None, Q, A, I)), Bs=(Bs, (None, Q, B, J)))
-    out = torch.empty((E, I, J), dtype=K.dtype, device=K.device)
+    out = _output('elem_matrix', K, (E, I, J), out)
     strides = (ctypes.c_int64 * 12)(*_strides(Bt, E), *_strides(K, E), *_strides(Bs, E))
     _kernels.call('ntt_elem_matrix', K, [Bt, K, Bs, out], scalars=(E, Q, A, B, I, J, strides))
     elem_matrix.launches += 1
     return out
 
 
-def elem_vector(Bt, g):
+def elem_vector(Bt, g, out=None):
     '''Element vectors ``r[e, i] = sum_qa Bt[e,q,a,i] g[e,q,a]``, kernel
-    K12: ``[E, I]``, contiguous.  ``g`` is ``[E, Q, A]``, ``Bt`` ``[E or 1,
-    Q, A, I]``, any strides.  One thread an output, summing over ``q, a`` in
-    a fixed order.'''
+    K12: ``[E, I]``, contiguous, in ``out`` where given.  ``g`` is ``[E, Q,
+    A]``, ``Bt`` ``[E or 1, Q, A, I]``, any strides.  One thread an output,
+    summing over ``q, a`` in a fixed order.'''
     if g.device.type == 'cpu':
-        return elem_vector_plain(Bt, g)
+        return elem_vector_plain(Bt, g, out)
     E, Q, A = g.shape
     I = Bt.shape[-1]
     _check('elem_vector', g, Bt=(Bt, (None, Q, A, I)))
-    out = torch.empty((E, I), dtype=g.dtype, device=g.device)
+    out = _output('elem_vector', g, (E, I), out)
     strides = (ctypes.c_int64 * 7)(*_strides(Bt, E), *_strides(g, E))
     _kernels.call('ntt_elem_vector', g, [Bt, g, out], scalars=(E, Q, A, I, strides))
     elem_vector.launches += 1

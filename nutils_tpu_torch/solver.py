@@ -26,12 +26,16 @@ permutation for the TPU's tiling is not ported.  A jacobian with neither
 form (an unstructured mesh) assembles into CSR values on the device through
 the pattern's value scatter (kernel K8, ``SparsePattern.scatter``).
 ``fused_step_op`` is the assemble + Schur diagonal + refined GMRES step of
-block-grid systems as a plain composition.  Element-chunked assembly (more
-than ``config.assembly_chunk`` elements in a batch) and the solution methods
-(Newton etc.) are ROADMAP A2 and A5.
+block-grid systems as a plain composition.  A batch of more than
+``config.assembly_chunk`` elements is assembled a chunk of elements at a time
+(``System._chunk_plan``).  ``System.solve`` (with :class:`Direct` or
+:class:`Newton`) and ``System.solve_constraints`` are the reference's; the
+other solution methods (``step``, ``ReuseNewton``, ``Minimize`` ...) and the
+value assembly are ROADMAP A5.
 '''
 
 import contextlib
+import copy
 import functools
 
 import numpy
@@ -437,13 +441,15 @@ class _Loc:
             idx = self._idx = torch.as_tensor(self.argidx, dtype=torch.int64, device=flat.device)
         return flat[idx].expand(self.leaf.shape)
 
-    def seeds(self):
-        '''[S, *leaf.shape] tangent basis: identity over the seed axes,
-        broadcast over element/point axes.'''
+    def seeds(self, shape=None):
+        '''[S, *shape] tangent basis: identity over the seed axes,
+        broadcast over element/point axes; ``shape`` is the leaf's (an
+        element chunk's has fewer elements).'''
         S = self.nseeds
-        shape = [S] + [self.leaf.shape[ax] if ax in self.seed_axes else 1 for ax in range(len(self.leaf.shape))]
-        eye = torch.eye(S, dtype=config.torch_dtype(float), device=config.torch_device()).reshape(shape)
-        return eye.expand((S,) + self.leaf.shape)
+        shape = tuple(self.leaf.shape if shape is None else shape)
+        eshape = [S] + [shape[ax] if ax in self.seed_axes else 1 for ax in range(len(shape))]
+        eye = torch.eye(S, dtype=config.torch_dtype(float), device=config.torch_device()).reshape(eshape)
+        return eye.expand((S,) + shape)
 
     def cols(self):
         '''[E, S] (or [1, S] for dense) flat argument index per (element, seed).'''
@@ -692,18 +698,87 @@ def _scalarize(res_array, testname):
     return out if out is not None else function.asarray(0.0)
 
 
+def _chunk_rewriter(E, ce, tables):
+    '''``node -> node`` on element chunks of ``ce`` of the ``E`` elements
+    (reference: ``nutils_tpu/solver.py:718`` ``_chunk_rewrite``): a leaf
+    batched over the E elements becomes the leaf of the same key with ``ce``
+    rows, a broadcast of length E one of length ce.  A constant of E rows
+    (the JAX package binds such tables as leaves from 1,024 rows up; below,
+    its rewrite fails and its plan turns chunking off) becomes a new leaf
+    too, its value added to ``tables``.  Memoized across calls.'''
+    memo = {}
+
+    def rec(node):
+        hit = memo.get(node)
+        if hit is not None:
+            return hit
+        if isinstance(node, ev.Leaf):
+            out = ev.Leaf(node.key, (ce,) + node.shape[1:], node.dtype, node.value) if node.shape[:1] == (E,) \
+                else node
+        elif isinstance(node, ev.Constant) and node.shape[:1] == (E,):
+            key = ('chunk-table', len(tables))
+            tables[key] = node
+            out = ev.Leaf(key, (ce,) + node.shape[1:], node.dtype, node.value)
+        elif not node.children:
+            out = node
+        else:
+            newc = tuple(rec(c) for c in node.children)
+            if isinstance(node, ev.InsertAxis) and node.length == E:
+                out = ev.insertaxis(newc[0], node.axis, ce)
+            elif all(a is b for a, b in zip(newc, node.children)):
+                out = node
+            else:
+                out = ev._rebuild(node, newc)
+        memo[node] = out
+        return out
+    return rec
+
+
+def _device_tables(nodes, cache):
+    '''The values of the leaves or constants ``nodes`` (a dict by key) that
+    have one, as tensors on the configured device: made once per (device,
+    floatx) and kept in ``cache``.'''
+    key = (str(config.torch_device()), config.float_dtype())
+    cached = cache.get('tables')
+    if cached is None or cached[0] != key:
+        dev = config.torch_device()
+        tabs = {}
+        for lkey, node in nodes.items():
+            if node.value is not None:
+                v = node.value
+                if isinstance(v, numpy.ndarray):
+                    v = torch.as_tensor(numpy.array(v, dtype=ev._concrete_dtype(node.dtype), order='C'), device=dev)
+                tabs[lkey] = v
+        cached = cache['tables'] = (key, tabs)
+    return cached[1]
+
+
+def _chunk_leaves(leaves, keys, rows):
+    '''``leaves`` on the element chunk ``rows``: those of ``keys`` (batched
+    over the elements) sliced.'''
+    return {key: v[rows] if key in keys else v for key, v in leaves.items()}
+
+
+def _leaf_grad(comp, key, args, leaves):
+    '''The gradient of the scalar ``comp`` in leaf ``key`` at ``leaves``.'''
+    return torch.func.grad(lambda x: comp.trace(args, {**leaves, key: x}))(leaves[key])
+
+
 class _Chunk:
-    '''One additive contribution to a residual block: a grad-values function,
+    '''One additive contribution to a residual block: its functional
+    ``comp`` (the terms its test leaf appears in, compiled from ``expr``;
+    its values are the gradient in the test leaf, :func:`_leaf_grad`),
     constant broadcastable flat row indices, the trial localizations the
     values can depend on, its test leaf's key, and its point-level form (a
     _FactoredForm) where its assembly takes the factored route.'''
 
-    def __init__(self, rows, fn, leafdeps, shape, key):
+    def __init__(self, rows, leafdeps, shape, key, expr, comp):
         self.rows = rows
-        self.fn = fn
         self.leafdeps = leafdeps
         self.shape = shape
         self.key = key
+        self.expr = expr
+        self.comp = comp
         self.factored = None
 
 
@@ -739,10 +814,12 @@ class _FactoredForm:
         rest = ev.replace(expr, feats)
         # what does not change from call to call is evaluated once a device
         self.fixed = ev.feature_leaves(ev.fixed_parts(rest))
-        self.rest = ev.compile(ev.replace(rest, self.fixed))
-        self._fixed = None
+        self._rest = ev.replace(rest, self.fixed)
+        self.rest = ev.compile(self._rest)
         self.comp = {key: ev.compile(list(cut)) for key, cut in cuts.items()}
         self.layout = {}
+        self._fixed = None
+        self._chunks = None
         off = 0
         for key in self.locs:
             entries = [(feats[n], n.shape, int(numpy.prod(n.shape[npt:], dtype=numpy.int64))) for n in cuts[key]]
@@ -752,26 +829,59 @@ class _FactoredForm:
         self.nseeds = sum(self.layout[loc.leaf.key][0].stop - self.layout[loc.leaf.key][0].start for loc in trials)
         self.cacheable = {key: not any(n.arguments for n in cut) for key, cut in cuts.items()}
 
+    def chunked(self, rw, E, ce, keys):
+        '''This form on element chunks of ``ce`` of the ``E`` elements
+        (``rw``, a :func:`_chunk_rewriter`; ``keys``, the leaves batched over
+        the E elements): its features, call-invariant parts and rest
+        rewritten to a chunk's shapes.  Its operators are the whole batch's,
+        made a chunk at a time (:meth:`operator` slices them).'''
+        form = copy.copy(self)
+        form._chunks, form._fixed = (E, ce, keys), None
+        form.comp = {key: ev.compile([rw(n) for n in cut]) for key, cut in self.cuts.items()}
+        form.fixed = {rw(n): rw(leaf) for n, leaf in self.fixed.items()}
+        form.rest = ev.compile(rw(self._rest))
+        form.layout = {key: (sl, [(rw(leaf), rw(leaf).shape, a) for leaf, _shape, a in entries])
+                       for key, (sl, entries) in self.layout.items()}
+        return form
+
     def features(self, key, args, leaves, x):
         '''The features of leaf ``key`` bound to ``x``: ``[E, P, A]`` (P
         the points of an element).'''
         vals = self.comp[key].trace(args, {**leaves, key: x})
         return torch.cat([v.reshape(v.shape[0], -1, a) for v, (_f, _s, a) in zip(vals, self.layout[key][1])], dim=-1)
 
-    def operator(self, key, args, leaves):
+    def operator(self, key, args, leaves, rows=None):
         '''``B = dz/dc`` of leaf ``key``: ``[E or 1, P, A, S]``, extent 1
-        where every element has the same operator.  Kept while it depends on
-        no argument, once for all equal operators (a test and a trial of
-        one basis).'''
+        where every element has the same operator; of the elements ``rows``
+        (a slice) only, where given.  Made for the whole batch, from the
+        whole batch's ``leaves``; kept while it depends on no argument, once
+        for all equal operators (a test and a trial of one basis).'''
+        B = self._operator(key, args, leaves)
+        return B if rows is None or B.shape[0] == 1 else B[rows]
+
+    def _operator(self, key, args, leaves):
         tag = (str(config.torch_device()), config.float_dtype())
         hit = self.operators.get((key, self.cuts[key]))
         if hit is not None and hit[0] == tag:
             return hit[1]
         loc = self.locs[key]
-        x0 = leaves[key].contiguous()
-        B = torch.func.vmap(lambda seed: torch.func.jvp(lambda x: self.features(key, args, leaves, x), (x0,),
-                                                        (seed.contiguous(),))[1])(loc.seeds())
-        B = B.permute(1, 2, 3, 0).contiguous()
+
+        def jvps(lv):
+            x0 = lv[key].contiguous()
+            B = torch.func.vmap(lambda seed: torch.func.jvp(lambda x: self.features(key, args, lv, x), (x0,),
+                                                            (seed.contiguous(),))[1])(loc.seeds(x0.shape))
+            return B.permute(1, 2, 3, 0)
+        if self._chunks is None:
+            B = jvps(leaves).contiguous()
+        else:  # a chunk at a time into the whole batch's operator
+            E, ce, keys = self._chunks
+            B = None
+            for lo in range(0, E, ce):
+                Bc = jvps(_chunk_leaves(leaves, keys, slice(lo, lo + ce)))
+                if B is None:
+                    B = Bc.new_empty((E,) + Bc.shape[1:])
+                B[lo:lo + ce] = Bc
+                del Bc
         if B.shape[0] > 1 and torch.equal(B, B[:1].expand_as(B)):
             B = B[:1].clone()
         if self.cacheable[key]:
@@ -780,18 +890,24 @@ class _FactoredForm:
             self.operators[key, self.cuts[key]] = tag, B
         return B
 
-    def point_terms(self, args, leaves, hessian=True):
+    def point_terms(self, args, leaves, hessian=True, rows=None):
         '''(g ``[E, P, A]``, K ``[S, E, P, A]`` or None): the functional's
         gradient in all its features at the arguments, and its jvp over the
-        S unit seeds of the trial features.'''
+        S unit seeds of the trial features.  ``rows`` names the element
+        chunk that ``leaves`` hold (a slice, on a :meth:`chunked` form; None
+        for the whole batch): the call-invariant parts are kept for each.'''
         tag = (str(config.torch_device()), config.float_dtype())
         if self._fixed is None or self._fixed[0] != tag:
+            self._fixed = tag, {}
+        start = None if rows is None else rows.start
+        fixed = self._fixed[1].get(start)
+        if fixed is None:
             vals = ev.compile(list(self.fixed)).trace(args, leaves)
-            self._fixed = tag, {leaf.key: v for leaf, v in zip(self.fixed.values(), vals)}
+            fixed = self._fixed[1][start] = {leaf.key: v for leaf, v in zip(self.fixed.values(), vals)}
         z0 = torch.cat([self.features(key, args, leaves, leaves[key]) for key in self.locs], dim=-1)
 
         def functional(z):
-            lv = {**leaves, **self._fixed[1]}
+            lv = {**leaves, **fixed}
             for sl, entries in self.layout.values():
                 off = sl.start
                 for leaf, shape, a in entries:
@@ -806,15 +922,19 @@ class _FactoredForm:
         g, K = torch.func.vmap(lambda seed: torch.func.jvp(grad, (z0,), (seed.expand(z0.shape).contiguous(),)))(seeds)
         return g[0], K
 
-    def residual(self, test, g, args, leaves):
-        '''The values ``[E, L_t]`` of test leaf ``test`` (kernel K12).'''
-        return assembly.elem_vector(self.operator(test, args, leaves), g[..., self.layout[test][0]])
+    def residual(self, test, g, args, leaves, rows=None, out=None):
+        '''The values ``[E, L_t]`` of test leaf ``test`` (kernel K12),
+        of the elements ``rows`` where given (``g`` is theirs, ``leaves``
+        the whole batch's), written into ``out`` where given.'''
+        return assembly.elem_vector(self.operator(test, args, leaves, rows), g[..., self.layout[test][0]], out=out)
 
-    def block(self, test, trial, K, args, leaves):
+    def block(self, test, trial, K, args, leaves, rows=None, out=None):
         '''The element blocks ``[E, L_t, S]`` of test leaf ``test`` and
-        trial leaf ``trial`` (kernel K11).'''
+        trial leaf ``trial`` (kernel K11), of the elements ``rows`` where
+        given, written into ``out`` where given.'''
         Kts = K[self.layout[trial][0]][..., self.layout[test][0]].permute(1, 2, 3, 0)
-        return assembly.elem_matrix(self.operator(test, args, leaves), Kts, self.operator(trial, args, leaves))
+        return assembly.elem_matrix(self.operator(test, args, leaves, rows), Kts,
+                                    self.operator(trial, args, leaves, rows), out=out)
 
 
 def _factor_form(expr, tests, trials, lockeys, operators):
@@ -851,8 +971,9 @@ class System:
     the trial space) or a residual with explicit trial/test argument names:
 
     The port carries assembly (``assemble_jacobian_residual`` and friends)
-    in stencil, block-grid and CSR form; the Newton-class methods of
-    ``System.solve`` are ROADMAP A5.
+    in stencil, block-grid and CSR form, ``solve`` with :class:`Direct` and
+    :class:`Newton`, and ``solve_constraints``; the other methods and the
+    value assembly are ROADMAP A5.
     '''
 
     def __init__(self, residual, /, trial, test=None):
@@ -959,18 +1080,8 @@ class System:
                 expr_dep = dep_terms[0] if dep_terms else E_loc
                 for tm in dep_terms[1:]:
                     expr_dep = ev.add(expr_dep, tm)
-                comp_dep = ev.compile(expr_dep)
-
-                def fn(args, overrides, tables, _loc=loc, _comp=comp_dep):
-                    leaves = self._bound_leaves(args, overrides, tables)
-
-                    def scalar(x):
-                        lv = dict(leaves)
-                        lv[_loc.leaf.key] = x
-                        return _comp.trace(args, lv)
-                    return torch.func.grad(scalar)(leaves[_loc.leaf.key])
-                made.append((t, len(chunks), _Chunk(loc.argidx, fn, trial_keys, loc.leaf.shape, loc.leaf.key),
-                             expr_dep, loc))
+                made.append((t, len(chunks), _Chunk(loc.argidx, trial_keys, loc.leaf.shape, loc.leaf.key, expr_dep,
+                                                    ev.compile(expr_dep)), expr_dep, loc))
                 chunks.append(made[-1][2])
             self._blocks.append(chunks)
 
@@ -1014,37 +1125,13 @@ class System:
         '''Default bindings (sample coordinate / promoted constant tables) of
         the compiled functional as tensors on the configured device, made
         once per (device, floatx) and reused.'''
-        key = (str(config.torch_device()), config.float_dtype())
-        cached = self._cache.get('tables')
-        if cached is None or cached[0] != key:
-            dev = config.torch_device()
-            tabs = {}
-            for lkey, node in self._comp.leafnodes.items():
-                if node.value is not None:
-                    v = node.value
-                    if isinstance(v, numpy.ndarray):
-                        v = torch.as_tensor(numpy.array(v, dtype=ev._concrete_dtype(node.dtype), order='C'),
-                                            device=dev)
-                    tabs[lkey] = v
-            cached = self._cache['tables'] = (key, tabs)
-        return cached[1]
+        return _device_tables(self._comp.leafnodes, self._cache)
 
     def _device_args(self, clean):
         '''Cleaned numpy arguments -> float tensors on the configured device.'''
         dev = config.torch_device()
         fdt = config.float_dtype()
         return {name: torch.as_tensor(numpy.asarray(v, dtype=fdt), device=dev) for name, v in clean.items()}
-
-    def _check_batch_size(self):
-        '''The port assembles every element batch at once: batches above
-        config.assembly_chunk need the element-chunked assembly of the JAX
-        package, which is not ported yet.'''
-        sizes = [n.shape[0] for n in ev.find(self._expr, lambda n: isinstance(n, ev.Leaf))
-                 if n.value is not None and len(n.shape)]
-        if sizes and max(sizes) > config.assembly_chunk.value:
-            raise NotImplementedError(f'{max(sizes)} elements in one batch exceed config.assembly_chunk='
-                                      f'{config.assembly_chunk.value}: element-chunked assembly is not '
-                                      'ported yet (ROADMAP A2)')
 
     def _clean(self, arguments):
         out = {}
@@ -1081,52 +1168,77 @@ class System:
 
     # -------------------------------------------------------- traces
 
-    def _point_terms(self, c, args, tables, terms, hessian=True):
-        '''(g, K) of factored chunk ``c``'s form
-        (_FactoredForm.point_terms), kept in ``terms`` for the rest of one
-        assembly, with the bound leaves.'''
-        if 'leaves' not in terms:
-            terms['leaves'] = self._bound_leaves(args, {}, tables)
+    def _form(self, c, rows):
+        '''Factored chunk ``c``'s form, on the element chunks of the chunk
+        plan where ``rows`` is given.'''
+        return c.factored if rows is None else self._chunk_plan()['forms'][id(c.factored)]
+
+    def _point_terms(self, c, args, leaves, terms, rows=None, hessian=True):
+        '''(g, K) of factored chunk ``c``'s form on the element chunk
+        ``rows`` whose leaves ``leaves`` holds (_FactoredForm.point_terms),
+        kept in ``terms`` for the rest of that chunk's assembly.'''
         hit = terms.get(id(c.factored))
         if hit is None or hessian and hit[1] is None:
-            hit = terms[id(c.factored)] = c.factored.point_terms(args, terms['leaves'], hessian)
+            hit = terms[id(c.factored)] = self._form(c, rows).point_terms(args, leaves, hessian, rows)
         return hit
 
-    def _residual_trace(self, args, tables, terms=None):
-        fdt = config.torch_dtype(float)
-        dev = config.torch_device()
-        terms = {} if terms is None else terms
-        parts = []
-        for chunks, sl in zip(self._blocks, self._test_slices):
-            n = sl.stop - sl.start
-            r = torch.zeros(n, dtype=fdt, device=dev)
-            for c in chunks:
-                plan = getattr(c, '_row_plan', None)
-                if plan is None:
-                    rows_np = numpy.asarray(c.rows)
-                    # sum v over axes the row table broadcasts along, then
-                    # plan the structured slice-scatter layout (whole-affine,
-                    # phase-grouped, or seam-banded for periodic meshes);
-                    # rows with no slice plan take the sorted segment sums
-                    # (deterministic on a card)
-                    bcast = tuple(ax for ax in range(len(c.shape))
-                                  if rows_np.shape[ax] == 1 and c.shape[ax] > 1)
-                    sq = rows_np
-                    for ax in reversed(bcast):
-                        sq = numpy.squeeze(sq, ax)
-                    vplan = _plan_value_table(sq.reshape(sq.shape[0], -1), None, n) \
-                        if sq.ndim >= 2 and sq.shape[0] > 1 else None
-                    plan = c._row_plan = (bcast, vplan or ('scatter', _RowSums(sq)))
-                bcast, vplan = plan
-                if c.factored is not None:
-                    g, _K = self._point_terms(c, args, tables, terms, hessian=False)
-                    v = c.factored.residual(c.key, g, args, terms['leaves'])
-                else:
-                    v = c.fn(args, {}, tables)
-                    v = v.sum(dim=bcast) if bcast else v
-                _apply_value_plan(r, vplan[0], vplan[1], v)
-            parts.append(r)
-        return torch.cat(parts) if len(parts) > 1 else parts[0]
+    def _block_values(self, mi, args, leaves, lv, terms, rows=None, out=None):
+        '''The values of jacobian entry ``mi`` of ``_jac_layout``: a
+        ``[E, L_t, S]`` table (the point axes summed), of the elements
+        ``rows`` where given.  ``leaves`` binds the whole batch, ``lv`` the
+        chunk's; ``out`` (the chunk's rows of the batch's value buffer, flat
+        per element) receives them.'''
+        bi, ci, u, li, reduce_axes, _size = self._jac_layout[0][mi]
+        c = self._blocks[bi][ci]
+        loc = self._trial_locs[u][li]
+        if c.factored is not None:
+            _g, K = self._point_terms(c, args, lv, terms, rows)
+            return self._form(c, rows).block(c.key, loc.leaf.key, K, args, leaves, rows,
+                                             None if out is None else out.view(out.shape[0], -1, loc.nseeds))
+        x0 = lv[loc.leaf.key].contiguous()
+        comp = c.comp if rows is None else self._chunk_plan()['comps'][c.key]
+
+        def tangent(seed):
+            return torch.func.jvp(lambda x: _leaf_grad(comp, c.key, args, {**lv, loc.leaf.key: x}), (x0,),
+                                  (seed.contiguous(),))[1]
+        # all seed tangents in one vmapped pass: the primal (and the grad
+        # pass) does not depend on the batched seed, so it is evaluated
+        # once, unbatched
+        V = torch.movedim(torch.func.vmap(tangent)(loc.seeds(x0.shape)), 0, -1)   # [*cshape, S]
+        if reduce_axes:
+            V = V.sum(dim=reduce_axes)
+        return V if out is None else out.copy_(V.reshape(out.shape))
+
+    def _row_plan(self, c, n):
+        '''(axes the chunk's values are summed over, value plan) of the
+        rows of residual chunk ``c`` in its block of ``n`` rows, planned at
+        first use: the axes the row table broadcasts along are summed, then
+        the structured slice-scatter layout (whole-affine, phase-grouped,
+        or seam-banded for periodic meshes) is planned; rows with no slice
+        plan take the sorted segment sums (deterministic on a card).'''
+        plan = getattr(c, '_row_plan', None)
+        if plan is None:
+            rows_np = numpy.asarray(c.rows)
+            bcast = tuple(ax for ax in range(len(c.shape)) if rows_np.shape[ax] == 1 and c.shape[ax] > 1)
+            sq = rows_np
+            for ax in reversed(bcast):
+                sq = numpy.squeeze(sq, ax)
+            vplan = _plan_value_table(sq.reshape(sq.shape[0], -1), None, n) \
+                if sq.ndim >= 2 and sq.shape[0] > 1 else None
+            plan = c._row_plan = (bcast, vplan or ('scatter', _RowSums(sq)))
+        return plan
+
+    def _residual_values(self, bi, ci, args, leaves, lv, terms, rows=None, out=None):
+        '''The values of residual chunk ``ci`` of test ``bi`` (the axes its
+        row table broadcasts along summed), as :meth:`_block_values`.'''
+        c = self._blocks[bi][ci]
+        bcast, _vplan = self._row_plan(c, self._test_slices[bi].stop - self._test_slices[bi].start)
+        if c.factored is not None:
+            g, _K = self._point_terms(c, args, lv, terms, rows, hessian=False)
+            return self._form(c, rows).residual(c.key, g, args, leaves, rows, out)
+        v = _leaf_grad(c.comp if rows is None else self._chunk_plan()['comps'][c.key], c.key, args, lv)
+        v = v.sum(dim=bcast) if bcast else v
+        return v if out is None else out.copy_(v.reshape(out.shape))
 
     @functools.cached_property
     def _jac_layout(self):
@@ -1335,59 +1447,173 @@ class System:
                     csr_map=tgt_slot, field_offsets=tuple(offsets),
                     field_grids=tuple(grids))
 
-    def _jacobian_trace(self, args, tables, terms=None):
-        chunk_meta, pattern, jplan = self._jac_layout
-        terms = {} if terms is None else terms
-        vals = []
-        for bi, ci, u, li, reduce_axes, _size in chunk_meta:
-            c = self._blocks[bi][ci]
-            loc = self._trial_locs[u][li]
+    def _chunk_plan(self):
+        '''The element chunks of the assembly (reference:
+        ``nutils_tpu/solver.py:1337`` ``_build_scan_plan``), or None where
+        every element batch has at most ``config.assembly_chunk`` elements.
+
+        The largest batch, of E elements, is cut into chunks of ``ce``
+        elements, ``ce`` the largest divisor of E not above the setting (a
+        divisor that makes more than eight times the fewest chunks raises);
+        every leaf batched over those E elements (tables and localized dof
+        leaves) is sliced per chunk.  ``jac`` and ``res`` map the jacobian
+        entries and residual chunks whose test localization lies on that
+        batch to their values per element: these are assembled a chunk at a
+        time into one value buffer each, the rest once, whole.  Planned
+        once for each value of the setting and each choice of routes.'''
+        key = int(config.assembly_chunk.value), tuple(c.factored is None for cs in self._blocks for c in cs)
+        cached = self._cache.get('chunkplan')
+        if cached is None or cached[0] != key:
+            self._cache.pop('chunkplan', None)
+            cached = self._cache['chunkplan'] = key, self._build_chunk_plan(key[0])
+        return cached[1]
+
+    def _build_chunk_plan(self, chunk):
+        leaf_nodes = ev.find(self._expr, lambda n: isinstance(n, ev.Leaf))
+        sizes = [n.shape[0] for n in leaf_nodes if n.value is not None and len(n.shape)]
+        if chunk <= 0 or not sizes or max(sizes) <= chunk:
+            return None
+        E = max(sizes)
+        ce = next(d for d in range(chunk, 0, -1) if E % d == 0)
+        if E // ce > 8 * -(-E // chunk):
+            # the chunks run one after another from the host: a divisor far
+            # below the setting (E prime, or twice a prime) would make E // ce
+            # rounds of point terms and launches
+            raise ValueError(f'chunked assembly: {E} elements have no divisor near assembly_chunk = {chunk} '
+                             f'(the largest, {ce}, makes {E // ce} chunks); set config.assembly_chunk to a '
+                             f'divisor of {E}, or to {E} to assemble in one piece')
+        lockeys = {loc.leaf.key for ll in self._locs.values() for loc in ll}
+        keys = set()
+        for n in leaf_nodes:
+            if len(n.shape) and n.shape[0] == E:
+                if n.value is None and n.key not in lockeys:
+                    raise ValueError(f'unrecognized element-batched leaf {n.key!r}')
+                keys.add(n.key)
+
+        def batched(c, summed):
+            '''Values per element of chunk ``c`` (its axes ``summed``
+            summed), or None off the chunked batch.'''
+            if c.key not in keys:
+                return None
+            if 0 in summed or numpy.asarray(c.rows).shape[0] != E:
+                raise ValueError(f'chunked assembly: the values of localization {c.key!r} are not element-major')
+            return int(numpy.prod([n for ax, n in enumerate(c.shape) if ax and ax not in summed], dtype=numpy.int64))
+        jac = {}
+        for mi, (bi, ci, u, li, reduce_axes, _size) in enumerate(self._jac_layout[0]):
+            per = batched(self._blocks[bi][ci], reduce_axes)
+            if per is not None:
+                jac[mi] = per * self._trial_locs[u][li].nseeds
+        res = {}
+        for bi, chunks in enumerate(self._blocks):
+            n = self._test_slices[bi].stop - self._test_slices[bi].start
+            for ci, c in enumerate(chunks):
+                per = batched(c, self._row_plan(c, n)[0])
+                if per is not None:
+                    res[bi, ci] = per
+        if not jac and not res:
+            return None
+        # the chunks' functionals, rewritten to a chunk's shapes
+        consts = {}
+        rw = _chunk_rewriter(E, ce, consts)
+        keys = set(keys)  # and the constants' tables that rw finds
+        forms, comps = {}, {}
+        for c in {self._blocks[m[0]][m[1]] for m in (self._jac_layout[0][mi] for mi in jac)} \
+                | {self._blocks[bi][ci] for bi, ci in res}:
             if c.factored is not None:
-                _g, K = self._point_terms(c, args, tables, terms)
-                vals.append(c.factored.block(c.key, loc.leaf.key, K, args, terms['leaves']))
-                continue
-            x0 = loc.leaf_value(args).contiguous()
+                if id(c.factored) not in forms:
+                    forms[id(c.factored)] = c.factored.chunked(rw, E, ce, keys)
+            else:
+                comps[c.key] = ev.compile(rw(c.expr))
+        keys |= set(consts)
+        return dict(E=E, ce=ce, nc=E // ce, keys=keys, jac=jac, res=res, forms=forms, comps=comps, consts=consts)
 
-            def tangent(seed, _c=c, _loc=loc):
-                return torch.func.jvp(lambda x: _c.fn(args, {_loc.leaf.key: x}, tables), (x0,),
-                                      (seed.contiguous(),))[1]
-            # all seed tangents in one vmapped pass: the primal (and the
-            # grad pass) does not depend on the batched seed, so it is
-            # evaluated once, unbatched
-            V = torch.func.vmap(tangent)(loc.seeds())   # [S, *cshape]
-            V = torch.movedim(V, 0, -1)                # [*cshape, S]
-            if reduce_axes:
-                V = V.sum(dim=reduce_axes)
-            vals.append(V)
-        if jplan is None:
-            # CSR form: the entries in pattern order, summed into their CSR
-            # slots (kernel K8)
-            return pattern.scatter(torch.cat([V.reshape(-1) for V in vals]) if len(vals) > 1
-                                   else vals[0].reshape(-1))
-        # direct stencil- or block-grid-form assembly: values land in the
-        # flat weight buffer through static slice adds (grid-affine
-        # segments) or small constant-table adds, into a zeroed buffer after
-        # the transforms
-        w = torch.zeros(jplan['total'], dtype=config.torch_dtype(float), device=config.torch_device())
-        for (skind, payload), V in zip(jplan['segs'], vals):
-            _apply_value_plan(w, skind, payload, V)
-        return w
+    def _assemble(self, args, tables, want_jac=True, want_res=True):
+        '''(jacobian, residual), each None where not wanted: the jacobian's
+        values in its stencil, block-grid or CSR form, the residual as one
+        vector.
 
-    def _jacres_trace(self, args, tables):
-        terms = {}  # the factored chunks' point terms, once for both traces
-        return self._jacobian_trace(args, tables, terms), self._residual_trace(args, tables, terms)
+        Without element chunks every entry is assembled from the whole
+        batch.  With them (:meth:`_chunk_plan`), the entries of the chunked
+        batch are assembled one chunk at a time, each into its rows of the
+        entry's one value buffer (the factored route's contractions write
+        there in place), so that only one chunk's point-level tensors are
+        live at a time; the value plans then apply once to the whole
+        buffers, in the same order of sums as without chunks.'''
+        plan = self._chunk_plan()
+        if plan is not None and plan['consts']:
+            tables = {**tables, **_device_tables(plan['consts'], plan)}
+        leaves = self._bound_leaves(args, {}, tables)
+        jentries = range(len(self._jac_layout[0])) if want_jac else ()
+        rentries = [(bi, ci) for bi, chunks in enumerate(self._blocks) for ci in range(len(chunks))] \
+            if want_res else ()
+        jvals, rvals = {}, {}
+        if plan is not None:
+            E, ce = plan['E'], plan['ce']
+            fdt, dev = config.torch_dtype(float), config.torch_device()
+            jbig = {mi: torch.empty((E, plan['jac'][mi]), dtype=fdt, device=dev)
+                    for mi in jentries if mi in plan['jac']}
+            rbig = {k: torch.empty((E, plan['res'][k]), dtype=fdt, device=dev) for k in rentries if k in plan['res']}
+            for lo in range(0, E, ce):
+                rows = slice(lo, lo + ce)
+                lv = _chunk_leaves(leaves, plan['keys'], rows)
+                terms = {}  # the chunk's point terms, once for both
+                for mi, buf in jbig.items():
+                    self._block_values(mi, args, leaves, lv, terms, rows, out=buf[rows])
+                for (bi, ci), buf in rbig.items():
+                    self._residual_values(bi, ci, args, leaves, lv, terms, rows, out=buf[rows])
+                del lv, terms
+            jvals.update(jbig)
+            rvals.update(rbig)
+        terms = {}  # the factored chunks' point terms, once for both
+        for mi in jentries:
+            if mi not in jvals:
+                jvals[mi] = self._block_values(mi, args, leaves, leaves, terms)
+        for bi, ci in rentries:
+            if (bi, ci) not in rvals:
+                rvals[bi, ci] = self._residual_values(bi, ci, args, leaves, leaves, terms)
+        del terms
+        jac = res = None
+        if want_jac:
+            _chunk_meta, pattern, jplan = self._jac_layout
+            vals = [jvals[mi] for mi in jentries]
+            if jplan is None:
+                # CSR form: the entries in pattern order, summed into their
+                # CSR slots (kernel K8)
+                jac = pattern.scatter(torch.cat([V.reshape(-1) for V in vals]) if len(vals) > 1
+                                      else vals[0].reshape(-1))
+            else:
+                # direct stencil- or block-grid-form assembly: values land
+                # in the flat weight buffer through static slice adds
+                # (grid-affine segments) or small constant-table adds, into a
+                # zeroed buffer after the transforms
+                jac = torch.zeros(jplan['total'], dtype=config.torch_dtype(float), device=config.torch_device())
+                for (skind, payload), V in zip(jplan['segs'], vals):
+                    _apply_value_plan(jac, skind, payload, V)
+        if want_res:
+            parts = []
+            for bi, (chunks, sl) in enumerate(zip(self._blocks, self._test_slices)):
+                r = torch.zeros(sl.stop - sl.start, dtype=config.torch_dtype(float), device=config.torch_device())
+                for ci, c in enumerate(chunks):
+                    _bcast, vplan = self._row_plan(c, sl.stop - sl.start)
+                    _apply_value_plan(r, vplan[0], vplan[1], rvals[bi, ci])
+                parts.append(r)
+            res = torch.cat(parts) if len(parts) > 1 else parts[0]
+        return jac, res
 
     # -------------------------------------------------------- public assembly
 
     def _compiled(self, which):
         '''Assembly function ``clean numpy arguments -> tensors`` for
-        ``which`` in residual/jacres (no compilation: the name follows the
-        JAX package).'''
+        ``which`` in residual/jacobian/jacres (no compilation: the name
+        follows the JAX package).'''
         fn = self._cache.get(which)
         if fn is None:
-            self._check_batch_size()
-            trace = {'residual': self._residual_trace, 'jacres': self._jacres_trace}[which]
-            fn = self._cache[which] = lambda clean: trace(self._device_args(clean), self._tables())
+            want = {'residual': (False, True), 'jacobian': (True, False), 'jacres': (True, True)}[which]
+
+            def fn(clean):
+                jac, res = self._assemble(self._device_args(clean), self._tables(), *want)
+                return res if jac is None else jac if res is None else (jac, res)
+            self._cache[which] = fn
         return fn
 
     def _wrap_matrix(self, pattern, jplan, data):
@@ -1445,6 +1671,37 @@ class System:
         return step
 
     @log.withcontext
+    def assemble_residual(self, arguments, x=None):
+        arguments, free = self.construct(arguments, x, return_free=True)
+        r = matrix._host(self._compiled('residual')(self._clean(arguments)))
+        return r[free]
+
+    @log.withcontext
+    def assemble_jacobian(self, arguments, x=None):
+        arguments, free = self.construct(arguments, x, return_free=True)
+        jac = self._jac_matrix(self._clean(arguments))
+        return jac.submatrix(free, free)
+
+    def _jac_matrix(self, clean):
+        if self.is_constant_matrix and 'jacmat' in self._cache:
+            return self._cache['jacmat']
+        _, pattern, jplan = self._jac_layout
+        jac = self._wrap_matrix(pattern, jplan, self._compiled('jacobian')(clean))
+        if self.is_constant_matrix:
+            self._cache['jacmat'] = jac
+        return jac
+
+    def assemble(self, arguments, x=None):
+        '''(jacobian, residual, value): the value needs the functional's own
+        assembly, ROADMAP A5.'''
+        raise NotImplementedError('System.assemble needs the value assembly (_value_trace), which is not ported '
+                                  'yet (ROADMAP A5)')
+
+    def assemble_value(self, arguments, x=None):
+        '''The functional's value: ROADMAP A5.'''
+        raise NotImplementedError('System.assemble_value (_value_trace) is not ported yet (ROADMAP A5)')
+
+    @log.withcontext
     def assemble_jacobian_residual(self, arguments, x=None):
         arguments, free = self.construct(arguments, x, return_free=True)
         clean = self._clean(arguments)
@@ -1474,3 +1731,172 @@ class System:
             arguments = dict(arguments) | {
                 t: v[sl].reshape(shape) for t, shape, sl in zip(self.trials, self.trial_shapes, self._trial_slices)}
         return (arguments, free) if return_free else arguments
+
+    def deconstruct(self, arguments, constrain):
+        '''Split the trial arguments into NaN-marked templates and the
+        vector of free dofs (reference: ``nutils_tpu/solver.py:1904``).'''
+        arguments = dict(arguments)
+        xparts = []
+        for t, shape in zip(self.trials, self.trial_shapes):
+            a = arguments.get(t)
+            c = constrain.get(t)
+            if a is not None:
+                a = _pack_complex(a)
+            if c is not None and numpy.asarray(c).dtype.kind == 'c':
+                c = _pack_complex(c)
+            if a is None:
+                if c is None:
+                    a = numpy.full(shape, numpy.nan)
+                elif numpy.asarray(c).dtype == bool:
+                    a = numpy.full(shape, numpy.nan)
+                    a[numpy.asarray(c)] = 0.
+                else:
+                    a = numpy.asarray(c, dtype=float)
+                x = numpy.zeros(int(numpy.isnan(a).sum()))
+            else:
+                a = numpy.asarray(a, dtype=float)
+                if c is None:
+                    x = a.ravel().copy()
+                    a = numpy.full(shape, numpy.nan)
+                elif numpy.asarray(c).dtype == bool:
+                    c = numpy.asarray(c)
+                    x = a[~c]
+                    a = a.copy()
+                    a[~c] = numpy.nan
+                else:
+                    c = numpy.asarray(c, dtype=float)
+                    x = a[numpy.isnan(c)]
+                    a = c
+                assert numpy.isfinite(x).all(), 'non-finite initial guess'
+            arguments[t] = a
+            xparts.append(numpy.asarray(x, dtype=float).ravel())
+        return arguments, numpy.concatenate(xparts) if xparts else numpy.zeros(0)
+
+    def _user_args(self, arguments):
+        '''Unpack complex trial arguments from the real backing layout.'''
+        out = dict(arguments)
+        for t in self.trials:
+            if self.argdtypes.get(t) is complex and t in out:
+                a = numpy.asarray(out[t])
+                if a.dtype.kind != 'c':
+                    out[t] = a[..., 0] + 1j * a[..., 1]
+        return out
+
+    # -------------------------------------------------------- solving
+
+    @log.withcontext
+    def solve(self, *, arguments=None, constrain=None, tol=0., miniter=0, maxiter=None, method=None):
+        '''Solve the system for its trial arguments (reference:
+        ``nutils_tpu/solver.py:1970``): :class:`Direct` for a linear system
+        and :class:`Newton` otherwise, unless ``method`` is given.  The JAX
+        package memoizes the solve on disk; the port has no ``cache`` module
+        yet (ROADMAP A1/A2), so every call solves.'''
+        arguments = dict(arguments or {})
+        constrain = dict(constrain or {})
+        if method is None:
+            method = (Direct if self.is_linear else Newton)()
+        return self._solve_impl(arguments=arguments, constrain=constrain, tol=tol, miniter=miniter,
+                                maxiter=maxiter, method=method)
+
+    def _solve_impl(self, *, arguments, constrain, tol, miniter, maxiter, method):
+        log.info(f'{"optimizing" if self.is_symmetric else "solving"} for {",".join(self.trials)} using {method}')
+        m = method(self, arguments=arguments, constrain=constrain)
+        if isinstance(m, tuple):
+            arguments, resnorm = m
+            log.info(f'residual norm: {resnorm:.1e}')
+            if not numpy.isfinite(resnorm):
+                raise SolverError('residual is not finite')
+            if resnorm > tol > 0:
+                raise SolverError(f'failed to reach tolerance {tol:.0e} (residual {resnorm:.1e})')
+            return self._user_args(arguments)
+        if tol <= 0:
+            raise ValueError('nonlinear solve requires a positive tolerance')
+        arguments, resnorm = next(m)
+        log.info(f'iter 0: residual norm {resnorm:.1e}')
+        if not numpy.isfinite(resnorm):
+            raise SolverError('residual is not finite')
+        iiter = 0
+        while iiter < miniter or resnorm > tol:
+            if maxiter is not None and iiter >= maxiter:
+                raise SolverError(f'failed to converge in {maxiter} iterations')
+            iiter += 1
+            arguments, resnorm = next(m)
+            log.info(f'iter {iiter}: residual norm {resnorm:.1e}')
+            if not numpy.isfinite(resnorm):
+                raise SolverError('residual diverged')
+        return self._user_args(arguments)
+
+    @log.withcontext
+    def solve_constraints(self, *, droptol, arguments=None, constrain=None, linargs=None):
+        '''Solve a possibly singular linear system, returning NaN for the
+        dofs that do not take part (reference: ``nutils_tpu/solver.py:2060``).'''
+        arguments = dict(arguments or {})
+        constrain = dict(constrain or {})
+        if not self.is_linear:
+            raise SolverError('system is not linear')
+        arguments, x = self.deconstruct(arguments, constrain)
+        jac, res = self.assemble_jacobian_residual(arguments, x)
+        data, colidx, _ = jac.export('csr')
+        mycons = numpy.ones(res.shape, dtype=bool)
+        mycons[colidx[numpy.abs(data) > droptol]] = False
+        dx = -jac.solve(res, constrain=mycons, symmetric=self.is_symmetric, **(linargs or {}))
+        log.info(f'constrained {int(mycons.sum())} of {len(mycons)} dofs; residual norm '
+                 f'{numpy.linalg.norm((jac @ dx + res)[~mycons]):.1e}')
+        x = x + dx
+        x[mycons] = numpy.nan
+        arguments = self._user_args(self.construct(arguments, x))
+        return dict(constrain) | {t: arguments[t] for t in self.trials}
+
+
+# ------------------------------------------------------------ methods
+
+class Direct:
+    '''One linear solve (reference: ``nutils_tpu/solver.py:2083``).'''
+
+    def __init__(self, **linargs):
+        self.linargs = linargs
+
+    def __str__(self):
+        return 'direct'
+
+    def __call__(self, system, *, arguments, constrain):
+        if not system.is_linear:
+            raise SolverError('problem is not linear')
+        arguments, x = system.deconstruct(arguments, constrain)
+        jac, res = system.assemble_jacobian_residual(arguments, x)
+        dx = jac.solve(res, symmetric=system.is_symmetric, **self.linargs)
+        x = x - dx
+        return system.construct(arguments, x), float(numpy.linalg.norm(res - jac @ dx))
+
+
+class Newton:
+    '''Newton's method (reference: ``nutils_tpu/solver.py:2101``): a
+    generator of (arguments, residual norm), one jacobian solve a step.
+
+    Unless the caller pins ``rtol``, the inner tolerance is Eisenstat-
+    Walker's: ``eta_k = 0.9 (|r_k| / |r_(k-1)|)^2``, clamped to [1e-10,
+    1e-3], so the early steps keep the lenient 1e-3 and the last update near
+    quadratic convergence is solved tightly.'''
+
+    def __init__(self, **linargs):
+        self.linargs = dict(linargs)
+        self._adaptive = 'rtol' not in self.linargs
+        self.linargs.setdefault('rtol', 1e-3)
+
+    def __str__(self):
+        return 'newton'
+
+    def __call__(self, system, *, arguments, constrain):
+        arguments, x = system.deconstruct(arguments, constrain)
+        prev = None
+        while True:
+            jac, res = system.assemble_jacobian_residual(arguments, x)
+            resnorm = float(numpy.linalg.norm(res))
+            yield system.construct(arguments, x), resnorm
+            linargs = dict(self.linargs)
+            if self._adaptive and prev:
+                eta = 0.9 * (resnorm / prev) ** 2
+                linargs['rtol'] = float(min(1e-3, max(eta, 1e-10)))
+            prev = resnorm
+            dx = jac.solve_leniently(res, symmetric=system.is_symmetric, **linargs)
+            x = x - dx

@@ -52,8 +52,10 @@ device = _Setting('device', 'cuda')
 # Under matrix='auto', systems with at least this many free dofs solve with
 # the device Krylov backend; smaller systems use the host direct solver.
 device_solve_min = _Setting('device_solve_min', 25000, int)
-# Upper bound on elements per assembly batch.  Larger element batches need
-# the element-chunked assembly, which the port does not have yet (ROADMAP A2).
+# Upper bound on elements per assembly chunk: a larger element batch is
+# assembled in chunks of the largest divisor of its size not above this
+# (System._chunk_plan), so that one chunk's point-level tensors are live at
+# a time.
 assembly_chunk = _Setting('assembly_chunk', 2**21, int)
 # Colon-separated internal sanitizer flags: 'evalf' checks the shape and
 # dtype kind of every evaluated node; 'all' enables everything.

@@ -15,19 +15,79 @@ def modules(pkg):
                  for name in ('function', 'mesh', 'solver', 'utils.config'))
 
 
-def build_laplace(pkg, nelems, dtype=numpy.float64, reaction=False):
+def build_laplace(pkg, nelems, dtype=numpy.float64, reaction=False, etype='square', degree=1):
     '''The bench's Laplace slice (``bench.build_laplace``): a reaction-
-    diffusion energy on the unit square, degree-1 std basis, gauss degree 2.
-    Leaves ``config.floatx`` at ``dtype``.'''
+    diffusion energy on the unit square (of ``etype`` elements), std basis
+    of ``degree`` (1), gauss degree 2.  Leaves ``config.floatx`` at
+    ``dtype``.'''
     function, mesh, solver, config = modules(pkg)
     config.floatx.value = dtype
-    topo, geom = mesh.unitsquare(nelems, 'square')
-    u = topo.field('u', btype='std', degree=1)
+    topo, geom = mesh.unitsquare(nelems, etype)
+    u = topo.field('u', btype='std', degree=degree)
     g = function.grad(u, geom)
     J = function.J(geom)
     f = function.sin(geom[0]) * function.cosh(geom[1])
     energy = topo.integral(((g @ g) / 2 + (u * u) / 2 * reaction - f * u) * J, degree=2)
     return solver.System(energy, trial='u')
+
+
+def build_two_field(pkg, nelems):
+    '''A symmetric positive definite energy in a P2 vector field ``u`` and
+    a P1 scalar field ``p`` on the unit square, coupled weakly: its
+    jacobian has block-grid form.'''
+    function, mesh, solver, _config = modules(pkg)
+    topo, geom = mesh.unitsquare(nelems, 'square')
+    ns = _taylor_hood_namespace(pkg, topo, geom)
+    energy = topo.integral('(∇_j(u_i) ∇_j(u_i) + u_i u_i + ∇_j(p) ∇_j(p) + p p) / 2 + 0.1 p u_0 dV' @ ns,
+                           degree=4)
+    return solver.System(energy, trial='u,p')
+
+
+def laplace_example_forms(pkg, nelems=4, etype='square', btype='std', degree=1):
+    '''``examples/laplace.py``'s domain, namespace, weak form ``res`` and
+    constraints' functional ``sqr`` through package ``pkg``.'''
+    _function, mesh, _solver, _config = modules(pkg)
+    Namespace = importlib.import_module(f'{pkg}.expression').Namespace
+    domain, geom = mesh.unitsquare(nelems, etype)
+    ns = Namespace()
+    ns.x = geom
+    ns.define_for('x', gradient='∇', normal='n', jacobians=('dV', 'dS'))
+    ns.u = domain.field('u', btype=btype, degree=degree)
+    ns.v = domain.field('v', btype=btype, degree=degree)
+    res = domain.integral('∇_i(v) ∇_i(u) dV' @ ns, degree=degree * 2)
+    res -= domain.boundary['right'].integral('v cos(1) cosh(x_1) dS' @ ns, degree=degree * 2)
+    sqr = domain.boundary['left'].integral('u^2 dS' @ ns, degree=degree * 2)
+    sqr += domain.boundary['top'].integral('(u - cosh(1) sin(x_0))^2 dS' @ ns, degree=degree * 2)
+    return domain, ns, res, sqr
+
+
+def laplace_example(pkg, nelems=4, etype='square', btype='std', degree=1):
+    '''``examples/laplace.py``'s ``main`` through package ``pkg``, without
+    its figure: (cons, u, L2 error).'''
+    solver = modules(pkg)[2]
+    domain, ns, res, sqr = laplace_example_forms(pkg, nelems, etype, btype, degree)
+    cons = solver.System(sqr, trial='u').solve_constraints(droptol=1e-15)
+    args = solver.System(res, trial='u', test='v').solve(constrain=cons)
+    err = domain.integral('(u - sin(x_0) cosh(x_1))^2 dV' @ ns, degree=degree * 2).eval(args) ** .5
+    return cons['u'], args['u'], err
+
+
+def build_fem_system(pkg, nelems=8):
+    '''The Stokes-like mixed system of ``tests/test_matrix.py``
+    (``_fem_system``), with convection: nonsymmetric after
+    linearization.'''
+    function, mesh, solver, _config = modules(pkg)
+    topo, geom = mesh.unitsquare(nelems, 'square')
+    u = topo.field('u', btype='std', degree=2, shape=(2,))
+    p = topo.field('p', btype='std', degree=1)
+    v = topo.field('v', btype='std', degree=2, shape=(2,))
+    q = topo.field('q', btype='std', degree=1)
+    J = function.J(geom)
+    gu = function.grad(u, geom)
+    gv = function.grad(v, geom)
+    res = topo.integral((function.sum_(gv * gu) + (gu @ u) @ v - function.div(v, geom) * p
+                         + q * function.div(u, geom)) * J, degree=4)
+    return solver.System(res, trial='u,p', test='v,q')
 
 
 def build_periodic(pkg, nelems):
@@ -139,6 +199,18 @@ def blockgrid_csr(name):
         jac, _res = system.assemble_jacobian_residual(args)
     return (numpy.asarray(jac.data), numpy.asarray(jac.indices), numpy.asarray(jac.indptr),
             tuple(jac._field_offsets), tuple(jac._field_grids))
+
+
+def forget_assembly(system):
+    '''Drop what a System of the port keeps from one assembly to the next
+    (feature operators, call-invariant parts, the chunk plan), so that the
+    next one is a first assembly again.'''
+    system._operators.clear()
+    for chunks in system._blocks:
+        for c in chunks:
+            if c.factored is not None:
+                c.factored._fixed = None
+    system._cache.pop('chunkplan', None)
 
 
 def rel(a, b):

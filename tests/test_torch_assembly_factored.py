@@ -11,6 +11,7 @@ import torch
 
 import _torch_parity as tp
 from nutils_tpu_torch import evaluable as ev
+from nutils_tpu_torch import solver
 from nutils_tpu_torch.ops import assembly
 from nutils_tpu_torch.utils import config
 
@@ -112,6 +113,12 @@ def test_other_forms(kind, route):
         assert not st._operators
 
 
+def _values(system, c, args, tables, overrides=None):
+    '''The generic route's values of chunk ``c``: its functional's gradient
+    in its test leaf, the leaves bound to ``overrides`` where given.'''
+    return solver._leaf_grad(c.comp, c.key, args, system._bound_leaves(args, overrides or {}, tables))
+
+
 def test_contractions_match_the_generic_route():
     # the plain versions of K11 and K12 on the factored operands give the
     # generic route's values chunk by chunk
@@ -137,13 +144,14 @@ def test_contractions_match_the_generic_route():
                 assert torch.equal(V, f.block(c.key, key, K, dargs, leaves))
                 loc = generic._trial_locs[u][li]
                 x0 = loc.leaf_value(gargs).contiguous()
-                Vg = torch.func.vmap(lambda s: torch.func.jvp(lambda x: cg.fn(gargs, {loc.leaf.key: x}, gtables), (x0,),
-                                                              (s.contiguous(),))[1])(loc.seeds())
+                Vg = torch.func.vmap(lambda s: torch.func.jvp(
+                    lambda x: _values(generic, cg, gargs, gtables, {loc.leaf.key: x}), (x0,), (s.contiguous(),))[1])(
+                    loc.seeds())
                 Vg = torch.movedim(Vg, 0, -1).sum(dim=reduce_axes)
                 assert tp.rel(V.reshape(Vg.shape), Vg) <= 1e-12
                 r = assembly.elem_vector_plain(Bt, g[..., f.layout[c.key][0]])
                 assert torch.equal(r, f.residual(c.key, g, dargs, leaves))
-                rg = cg.fn(gargs, {}, gtables).sum(dim=reduce_axes)
+                rg = _values(generic, cg, gargs, gtables).sum(dim=reduce_axes)
                 assert tp.rel(r.reshape(rg.shape), rg) <= 1e-12
 
 

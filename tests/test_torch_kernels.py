@@ -527,3 +527,68 @@ def test_cuda_assembly_goes_through_the_contractions(cuda, case):
     (wa, ra), (wb, rb) = out
     assert float((wa - wb).abs().max()) <= 1e-12 * float(wb.abs().max())
     assert float((ra - rb).abs().max()) <= 1e-12 * float(rb.abs().max())
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('case', ['ns_uu', 'tri_uu', 'laplace'])
+def test_assembly_contractions_into_chunk_rows(cuda, case, dtype, tol):
+    # K11 and K12 with ``out`` the middle chunk's rows of a buffer of three
+    # chunks: they write there in place, leave the other rows alone and
+    # equal their plain versions writing into another such buffer
+    Q, A, I, B, J, shared = CONTRACTIONS[case]
+    E = 1001
+    rng = numpy.random.default_rng(6)
+    Et = 1 if shared else E
+    Bt, Bs = (torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=cuda)
+              for s in ((Et, Q, A, I), (Et, Q, B, J)))
+    K = torch.as_tensor(rng.standard_normal((B, E, Q, A)), dtype=dtype, device=cuda).permute(1, 2, 3, 0)
+    g = torch.as_tensor(rng.standard_normal((E, Q, A)), dtype=dtype, device=cuda)
+    rows = slice(E, 2 * E)
+    for kernel, plain, operands, shape, magnitude in (
+            (assembly.elem_matrix, assembly.elem_matrix_plain, (Bt, K, Bs), (3 * E, I, J),
+             lambda: assembly.elem_matrix_plain(Bt.abs(), K.abs(), Bs.abs())),
+            (assembly.elem_vector, assembly.elem_vector_plain, (Bt, g), (3 * E, I),
+             lambda: assembly.elem_vector_plain(Bt.abs(), g.abs()))):
+        buf, want = (torch.zeros(shape, dtype=dtype, device=cuda) for _ in range(2))
+        launches = kernel.launches
+        got = kernel(*operands, out=buf[rows])
+        plain(*operands, out=want[rows])
+        torch.cuda.synchronize()
+        assert kernel.launches == launches + 1
+        assert got.data_ptr() == buf[rows].data_ptr()
+        assert not buf[:E].any() and not buf[2 * E:].any()
+        assert float((buf[rows] - want[rows]).abs().max() / magnitude().max()) <= tol
+        assert torch.equal(buf[rows], kernel(*operands))
+        with pytest.raises(ValueError):
+            kernel(*operands, out=buf[rows].transpose(0, -1))
+
+
+@pytest.mark.parametrize('case', ['laplace', 'ns', 'ns_tri'])
+def test_cuda_chunked_assembly_is_the_unchunked(cuda, case):
+    # each path at a small size in float64 in element chunks on the card:
+    # the same bits as the whole batch's assembly on the card, and the
+    # CPU's chunked assembly (plain versions) to 1e-12
+    import _torch_parity as tp
+    from nutils_tpu_torch.utils import config
+    out = []
+    for device in ('cuda', 'cpu'):
+        with config.device(device):
+            if case == 'laplace':
+                system = tp.build_laplace('nutils_tpu_torch', 16, numpy.float64, reaction=True)
+                args = {'u': numpy.random.default_rng(0).standard_normal(17 * 17)}
+            else:
+                system, args = tp.build_ns('nutils_tpu_torch', 6, numpy.float64, 'triangle' if case == 'ns_tri'
+                                           else 'square')
+            fn, clean = system._compiled('jacres'), system._clean(args)
+            whole = fn(clean)
+            with config.assembly_chunk(20):
+                launches = assembly.elem_matrix.launches
+                chunked = fn(clean)
+                assert system._chunk_plan()['nc'] > 1
+                if device == 'cuda':
+                    assert assembly.elem_matrix.launches - launches >= system._chunk_plan()['nc']
+            assert all(torch.equal(a, b) for a, b in zip(whole, chunked))
+            out.append(tuple(t.cpu() for t in chunked))
+    (wa, ra), (wb, rb) = out
+    assert float((wa - wb).abs().max()) <= 1e-12 * float(wb.abs().max())
+    assert float((ra - rb).abs().max()) <= 1e-12 * float(rb.abs().max())
