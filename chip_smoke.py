@@ -15,8 +15,12 @@ Phases, each printing JSON lines:
 3. kernel   — K1-K4 against their plain PyTorch versions on the card, at
    the Laplace slice's shapes (1025^2 grid, W = 9, float32 and float64) and
    on a periodic 2-D and a 3-D stencil: error, CUDA-event times, the bound
-   and, where one PyTorch call computes the same function, its time; K4's
-   entries also at grids of 1-8 blocks a multiprocessor.
+   and, where one PyTorch call computes the same function, its time
+   (from a CUDA graph, as the kernels);
+   K2's fused launches (jacobi_pre, jacobi_post) also at the example's
+   2049^2 grid in float64, each the same bits as the single sweeps it
+   replaces; K2's single sweeps also at the degree-2 example's fine grid
+   (k = 2); K4's entries also at grids of 1-8 blocks a multiprocessor.
 4. slice    — the bench's Laplace slice at 1,050,625 dofs in float32:
    System (every assembly chunk on the factored route), assembly through
    K11/K12, multigrid set-up and the refined CG solve to rtol 1e-10,
@@ -55,10 +59,12 @@ Phases, each printing JSON lines:
    to compare between calls), and a profile of one warm assembly
    and one warm solve of each method.
 11. ns_tri_kernels — K7 on CSR values and K8-K10 against their plain
-   versions at the triangle step's shapes.
+   versions at the triangle step's shapes (K9 also twice, for the same
+   bits, and with the loop's flag at 0, writing nothing).
 12. ns_tri_parity — the triangle step at 6x6 elements in float64 on the
    card and on the CPU: both methods' solutions agree to 1e-8 relative, in
-   as many iterations.
+   as many iterations; then ``k9_rows``: K9 on rows of 0, 1, 3, 59 and
+   more than its block's budget of nonzeros, starting at every offset.
 13. laplace_example — examples/laplace.py's solve path at 2048^2 elements
    (4,198,401 dofs) in float64 through the port's entry points:
    ``solve_constraints`` (4,097 dofs constrained), then
@@ -74,7 +80,12 @@ Phases, each printing JSON lines:
 15. laplace_example_parity — the example at 256^2 elements, in chunks of
    4,096 elements, on the card and on the CPU: cons and u agree to 1e-9 of
    their largest value.
-16. ns_newton — ``System.solve(method=Newton(), tol=...)`` on the
+16. laplace_example_p2 — the example at degree 2 on 256^2 elements
+   (263,169 dofs) in float64: its fine level (a k = 2 stencil) smooths
+   through K2's single sweeps, the coarser levels through the fused ones
+   (launch counts read around it); the L2 error below 4 x its O(h^3)
+   estimate.
+17. ns_newton — ``System.solve(method=Newton(), tol=...)`` on the
    Navier-Stokes step's System to 1e-5 of its first residual norm in at
    most 8 iterations: each iteration's norm, time, inner tolerance and
    solve record; every inner solve must be accepted on the device.
@@ -102,6 +113,8 @@ ROOT = Path(__file__).resolve().parent
 KERNELS = {
     'stencil_matvec': ('cuda', 'nutils_tpu_torch/csrc/stencil.cu', 'nutils_tpu/ops/stencil.py:313'),
     'jacobi_smooth': ('cuda', 'nutils_tpu_torch/csrc/mg.cu', 'nutils_tpu/ops/mg.py:162'),
+    'jacobi_pre': ('cuda', 'nutils_tpu_torch/csrc/mg.cu', 'nutils_tpu/ops/mg.py:162'),
+    'jacobi_post': ('cuda', 'nutils_tpu_torch/csrc/mg.cu', 'nutils_tpu/ops/mg.py:162'),
     'mg_restrict': ('cuda', 'nutils_tpu_torch/csrc/mg.cu', 'nutils_tpu/ops/mg.py:123'),
     'mg_prolong_add': ('cuda', 'nutils_tpu_torch/csrc/mg.cu', 'nutils_tpu/ops/mg.py:142'),
     'cg_dot': ('cuda', 'nutils_tpu_torch/csrc/cg.cu', 'nutils_tpu/ops/sparse.py:322'),
@@ -127,16 +140,20 @@ KERNELS = {
 }
 # the factored assembly's element contractions run on all three paths
 ASSEMBLY_KERNELS = ('elem_matrix', 'elem_vector')
-LAPLACE_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'mg_restrict', 'mg_prolong_add', 'cg_dot', 'cg_step',
-                   'cg_xpby') + ASSEMBLY_KERNELS
+LAPLACE_KERNELS = ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add', 'cg_dot',
+                   'cg_step', 'cg_xpby') + ASSEMBLY_KERNELS
 NS_KERNELS = ('blockgrid_matvec', 'gmres_project', 'gmres_update', 'gmres_normalize', 'gmres_combine',
               'schur_diag_inverse_device') + ASSEMBLY_KERNELS
 TRI_KERNELS = ('csr_scatter', 'csr_matvec', 'schur_diag_inverse_device', 'gmres_project', 'gmres_update',
                'gmres_normalize', 'gmres_combine', 'bicg_dots', 'bicg_s', 'bicg_xr', 'bicg_p') + ASSEMBLY_KERNELS
 # the Laplace example's solve: assembly in element chunks, GMRES with the
 # multigrid V-cycle on the masked stencil operator
-EXAMPLE_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'mg_restrict', 'mg_prolong_add', 'gmres_project',
+EXAMPLE_KERNELS = ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add', 'gmres_project',
                    'gmres_update', 'gmres_normalize', 'gmres_combine') + ASSEMBLY_KERNELS
+# the degree-2 example: its fine level's stencil (k = 2) smooths through
+# K2's single sweeps, the coarser levels (k = 1) through the fused ones
+P2_KERNELS = ('jacobi_smooth', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add')
+P2_NELEMS = 256
 # kernel vs plain: float32 sums in another order (and with fused multiply-
 # adds) differ by a few ulps, float64 ones by a few ulps of float64
 TOL = {'float32': 1e-6, 'float64': 1e-14}
@@ -165,6 +182,7 @@ def wrappers():
     from nutils_tpu_torch.ops import _triton_bicgstab, _triton_gmres, assembly, blockgrid, cg, mg, sparse, stencil
     return {'elem_matrix': assembly.elem_matrix, 'elem_vector': assembly.elem_vector,
             'stencil_matvec': stencil.stencil_matvec, 'jacobi_smooth': mg.jacobi_smooth,
+            'jacobi_pre': mg.jacobi_pre, 'jacobi_post': mg.jacobi_post,
             'mg_restrict': mg.mg_restrict, 'mg_prolong_add': mg.mg_prolong_add,
             'cg_dot': cg.cg_dot, 'cg_step': cg.cg_step, 'cg_xpby': cg.cg_xpby,
             'blockgrid_matvec': blockgrid.blockgrid_matvec, 'gmres_project': _triton_gmres.gmres_project,
@@ -351,6 +369,60 @@ def check_row(name, label, dname, relerr, fields):
         raise AssertionError(f'{name} ({label}, {dname}) disagrees with its plain version: {relerr:.3e}')
 
 
+def phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak, nu=2):
+    """K2's fused launches (``jacobi_pre``, ``jacobi_post``) at one grid:
+    the same bits as the single sweeps they replace (``jacobi_smooth``, its
+    launches counted: none may come from the fused calls), against their
+    plain versions, timed beside those sweeps; returns {name: row}."""
+    import torch
+    from nutils_tpu_torch.ops import mg
+    n = int(r.numel())
+    W = int(w.shape[0])
+    isz = r.element_size()
+
+    def pre_sweeps():
+        xs = mg.jacobi_smooth(w, dinv, r, None, ks, shape, per, mode=0)
+        for _ in range(nu - 1):
+            xs = mg.jacobi_smooth(w, dinv, r, xs, ks, shape, per, mode=1)
+        return xs, mg.jacobi_smooth(w, dinv, r, xs, ks, shape, per, mode=2)
+
+    def post_sweeps():
+        xs = x
+        for _ in range(nu):
+            xs = mg.jacobi_smooth(w, dinv, r, xs, ks, shape, per, mode=1)
+        return xs
+    # each launch moves the weights, r, dinv (and x) once and writes its
+    # outputs once: W + 4 values a point
+    cases = {'jacobi_pre': (lambda: mg.jacobi_pre(w, dinv, r, ks, shape, per, nu), pre_sweeps,
+                            lambda: mg.jacobi_pre_plain(w, dinv, r, ks, shape, per, mg.OMEGA, nu),
+                            2 * n + (nu - 1) * (2 * W + 4) * n + (2 * W + 1) * n),
+             'jacobi_post': (lambda: mg.jacobi_post(w, dinv, r, x, ks, shape, per, nu), post_sweeps,
+                             lambda: mg.jacobi_post_plain(w, dinv, r, x, ks, shape, per, mg.OMEGA, nu),
+                             nu * (2 * W + 4) * n)}
+    results = {}
+    for name, (kernel, sweeps, plain, flops) in cases.items():
+        single = mg.jacobi_smooth.launches
+        got = kernel()
+        if mg.jacobi_smooth.launches != single:
+            raise AssertionError(f'{name} ({label}) ran single sweeps, not its fused kernel')
+        ref, want = sweeps(), plain()
+        torch.cuda.synchronize()
+        got, ref, want = [(t,) if isinstance(t, torch.Tensor) else t for t in (got, ref, want)]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        errs = [_compare(a, b) for a, b in zip(got, want)]
+        err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
+        (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
+        sweeps_ms = time_ms(sweeps)[0]
+        fields = row(err, ms, plain_ms, (W + 4) * n * isz, flops, None, peak)
+        check_row(name, label, dname, relerr, dict(fields, shape=list(shape), ks=list(ks), periodic=list(per), nu=nu,
+                                                   bitwise_equal_single_sweeps=bitwise, single_sweeps_ms=sweeps_ms,
+                                                   single_sweeps_launches=2 * nu, call_ms=call_ms))
+        if not bitwise:
+            raise AssertionError(f'{name} ({label}, {dname}) differs from the single sweeps it replaces')
+        results[name] = fields
+    return results
+
+
 def phase_kernels(device='cuda'):
     """K1-K4 against their plain versions, on the card; returns {name: row}
     at the Laplace slice's float32 shapes."""
@@ -362,42 +434,52 @@ def phase_kernels(device='cuda'):
     dev = torch.device(device)
     rng = numpy.random.default_rng(0)
     results = {}
-    cases = [('slice', (1025, 1025), (1, 1), (False, False)),
-             ('periodic', (1024, 1025), (1, 1), (True, False)),
-             ('3d', (129, 129, 65), (1, 1, 1), (False, False, False))]
-    for label, shape, ks, per in cases:
+    # (label, shape, ks, periodic, dtypes, what): the Laplace slice's grid;
+    # a periodic 2-D and a 3-D grid; the example's fine grid (K2 fused, its
+    # float64); the degree-2 example's fine grid (K2 single sweeps, k = 2)
+    both = (torch.float32, torch.float64)
+    cases = [('slice', (1025, 1025), (1, 1), (False, False), both, ('stencil', 'sweeps', 'fused', 'transfers')),
+             ('periodic', (1024, 1025), (1, 1), (True, False), both, ('stencil', 'fused')),
+             ('3d', (129, 129, 65), (1, 1, 1), (False, False, False), both, ('stencil', 'fused')),
+             ('example', (2049, 2049), (1, 1), (False, False), (torch.float64,), ('fused',)),
+             ('p2', (2 * P2_NELEMS + 1,) * 2, (2, 2), (False, False), (torch.float64,), ('sweeps',))]
+    for label, shape, ks, per, dtypes, what in cases:
         W = int(numpy.prod([2 * k + 1 for k in ks]))
         w_np = rng.standard_normal((W,) + shape)
         x_np = rng.standard_normal(shape)
         n = int(numpy.prod(shape))
-        for dtype in (torch.float32, torch.float64):
+        for dtype in dtypes:
             dname = str(dtype).split('.')[1]
             isz = 4 if dtype == torch.float32 else 8
+            peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
             w = torch.as_tensor(w_np, dtype=dtype, device=dev)
             x = torch.as_tensor(x_np, dtype=dtype, device=dev)
+            dinv = torch.as_tensor(rng.random(shape) + 1, dtype=dtype, device=dev)
+            r = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
             library = {}
-            if label == 'slice' and dtype == torch.float32:
-                # the same product as one cuSPARSE CSR matvec
-                indptr, indices, data = carry._csr_of_stencil(w_np, ks, shape, per)
-                A = torch.sparse_csr_tensor(torch.as_tensor(indptr), torch.as_tensor(indices),
-                                            torch.as_tensor(data, dtype=dtype), size=(n, n)).to(dev)
-                xf = x.reshape(-1)
-                library['stencil_matvec'] = lambda: torch.mv(A, xf)  # timed eagerly
-            checks = {'stencil_matvec': (lambda: stencil.stencil_matvec(w, x, ks, shape, per),
-                                         lambda: stencil.matvec_plain(w, x, ks, shape, per),
-                                         (W + 2) * n * isz, 2 * W * n)}
-            if label == 'slice':
-                cshape = tuple((s + 1) // 2 for s in shape)
-                nc = int(numpy.prod(cshape))
-                dinv = torch.as_tensor(rng.random(shape) + 1, dtype=dtype, device=dev)
-                r = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
-                xc = torch.as_tensor(rng.standard_normal(cshape), dtype=dtype, device=dev)
-                sweep = {0: (3 * n, n), 1: ((W + 4) * n, (2 * W + 4) * n), 2: ((W + 3) * n, (2 * W + 1) * n)}
+            checks = {}
+            if 'stencil' in what:
+                checks['stencil_matvec'] = (lambda: stencil.stencil_matvec(w, x, ks, shape, per),
+                                            lambda: stencil.matvec_plain(w, x, ks, shape, per),
+                                            (W + 2) * n * isz, 2 * W * n)
+                if label == 'slice' and dtype == torch.float32:
+                    # the same product as one cuSPARSE CSR matvec
+                    indptr, indices, data = carry._csr_of_stencil(w_np, ks, shape, per)
+                    A = torch.sparse_csr_tensor(torch.as_tensor(indptr), torch.as_tensor(indices),
+                                                torch.as_tensor(data, dtype=dtype), size=(n, n)).to(dev)
+                    xf = x.reshape(-1)
+                    library['stencil_matvec'] = lambda: torch.mv(A, xf)
+            if 'sweeps' in what:
+                sweep = {0: (3 * n, 2 * n), 1: ((W + 4) * n, (2 * W + 4) * n), 2: ((W + 3) * n, (2 * W + 1) * n)}
                 for mode in (0, 1, 2):
                     checks[f'jacobi_smooth/mode{mode}'] = (
                         lambda mode=mode: mg.jacobi_smooth(w, dinv, r, x, ks, shape, per, mode=mode),
                         lambda mode=mode: mg.jacobi_plain(w, dinv, r, x, ks, shape, per, mg.OMEGA, mode),
                         sweep[mode][0] * isz, sweep[mode][1])
+            if 'transfers' in what:
+                cshape = tuple((s + 1) // 2 for s in shape)
+                nc = int(numpy.prod(cshape))
+                xc = torch.as_tensor(rng.standard_normal(cshape), dtype=dtype, device=dev)
                 checks['mg_restrict'] = (lambda: mg.mg_restrict(r, cshape), lambda: mg.restrict_plain(r, cshape),
                                          (n + nc) * isz, 8 * nc)
                 checks['mg_prolong_add'] = (lambda: mg.mg_prolong_add(x.clone(), xc),
@@ -406,7 +488,8 @@ def phase_kernels(device='cuda'):
                 if dtype == torch.float32:
                     # full weighting and linear interpolation as strided
                     # convolutions (non-periodic 2-D, both axes coarsened),
-                    # in full float32
+                    # in full float32; the transposed convolution does not
+                    # add into x, so it computes less than K3's prolong-add
                     t1 = torch.tensor([0.5, 1.0, 0.5], dtype=dtype, device=dev)
                     k2 = torch.outer(t1, t1).reshape(1, 1, 3, 3)
                     r4, xc4 = r.reshape(1, 1, *shape), xc.reshape(1, 1, *cshape)
@@ -418,15 +501,19 @@ def phase_kernels(device='cuda'):
                 err, relerr = _compare(got, want)
                 (ms, call_ms), (plain_ms, plain_call_ms) = time_ms(kernel), time_ms(plain)
                 lib = library.get(name.split('/')[0]) if name != 'jacobi_smooth/mode0' else None
-                library_ms = None if lib is None else time_eager_ms(lib) if name == 'stencil_matvec' \
-                    else time_ms(lib)[0]
-                fields = row(err, ms, plain_ms, nbytes, flops, library_ms)
+                fields = row(err, ms, plain_ms, nbytes, flops, None if lib is None else time_ms(lib)[0], peak)
                 check_row(name, label, dname, relerr, dict(fields, shape=list(shape), ks=list(ks),
                                                            periodic=list(per), call_ms=call_ms,
                                                            plain_call_ms=plain_call_ms))
-                if label == 'slice' and dtype == torch.float32 and name in ('stencil_matvec', 'jacobi_smooth/mode1',
-                                                                            'mg_restrict', 'mg_prolong_add'):
-                    results[name.split('/')[0]] = fields
+                if label == 'slice' and dtype == torch.float32 and name in ('stencil_matvec', 'mg_restrict',
+                                                                            'mg_prolong_add'):
+                    results[name] = fields
+                if label == 'p2' and name == 'jacobi_smooth/mode1':
+                    results['jacobi_smooth'] = fields
+            if 'fused' in what:
+                fused = phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak)
+                if label == 'slice' and dtype == torch.float32:
+                    results.update(fused)
     # K4 on CG vectors of the slice's length and a state of the loop's: each
     # entry against its plain version on the same state; the sums on the
     # scale of their terms (the scale of any summation's rounding error).
@@ -541,6 +628,7 @@ def phase_slice(nelems=1024, device='cuda'):
         torch.cuda.synchronize()
         t_solve = time.perf_counter() - t0
         launches = read_launches(LAPLACE_KERNELS)
+        single_sweeps = read_launches(('jacobi_smooth',))['jacobi_smooth']
         stats = dict(jac._solve_stats)
         peak = torch.cuda.max_memory_allocated()
         # a warm solve only replays: its launches are the replays times each
@@ -565,9 +653,12 @@ def phase_slice(nelems=1024, device='cuda'):
     emit('slice', ndofs=ndofs, t_system=t_system, t_jacres=t_jacres, t_pattern=t_pattern, t_setup=t_setup,
          t_solve=t_solve, t_solve_again=t_solve_again, t_solve_warm_all=times, solve_stats=stats,
          warm_solve_stats=warm, rel_residual=rel_residual, mg_levels=levels, peak_device_bytes=peak,
-         launches=launches, warm_launches_per_solve={k: v / 5 for k, v in warm_launches.items()})
+         launches=launches, single_sweep_launches=single_sweeps,
+         warm_launches_per_solve={k: v / 5 for k, v in warm_launches.items()})
     if x.shape != (ndofs,) or not numpy.isfinite(x).all():
         raise AssertionError('slice solution is not a finite vector of the dof count')
+    if single_sweeps:
+        raise AssertionError(f'the slice\'s V-cycle ran {single_sweeps} single K2 sweeps, not only fused ones')
     if stats['op_form'] != 'stencil' or stats['precon'] != 'mg':
         raise AssertionError(f'slice solved through {stats["op_form"]}/{stats["precon"]}, not stencil/mg')
     if stats['driver'] != 'graph' or warm['driver'] != 'graph' or warm['t_capture'] != 0:
@@ -588,9 +679,6 @@ def phase_slice_profile(jac, res):
     graphs through ``Matrix.solve``, the host loop through the same refined
     solve): wall time, device-busy time and its share, kernel launches,
     graph replays and host reads."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from nutils_tpu_torch.ops import sparse
     kw = _slice_operands(jac, res)
 
@@ -602,15 +690,8 @@ def phase_slice_profile(jac, res):
             ('host', host_loop)]
     for label, run in runs:
         run()  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            stats = run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != 'Command Buffer Full']
-        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        wall, kernels, _full, stats = profiled(run)
+        busy = busy_s(kernels)
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
         emit('slice_profile', driver=label, wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
              kernel_launches=sum(e.count for e in kernels), replays=stats.get('replays'),
@@ -727,6 +808,26 @@ def _sync_time(fn):
     return time.perf_counter() - t0, out
 
 
+def profiled(fn):
+    """(wall s, device kernels, the tracer's "Command Buffer Full" marks,
+    fn's result) of one synchronised call under torch.profiler; the
+    kernels are device events only (a CPU operator's device time repeats
+    its kernels'), and the marks tell when the launch queue was full."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, out = _sync_time(fn)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != 'Command Buffer Full']
+    return wall, kernels, [e for e in events if e.key == 'Command Buffer Full'], out
+
+
+def busy_s(kernels):
+    return sum(e.self_device_time_total for e in kernels) / 1e6
+
+
 def phase_ns(nelems=330, device='cuda'):
     """The second main path: the Taylor-Hood Navier-Stokes Newton step at
     983,403 dofs through the kernels; returns (launch counts, the step's
@@ -831,10 +932,10 @@ def phase_ns_kernels(jac, k5_setup):
         (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: blockgrid.blockgrid_matvec(v, x, plan)), \
             time_ms(lambda: blockgrid.compact_matvec_plain(v, x, plan))
         literal_ms = time_ms(lambda: blockgrid.matvec_plain(w, x, meta, woff))[0]
-        # cuSPARSE runs eagerly (not captured): beside it K5 eagerly too
+        # K5 eagerly too (the host's launch overhead in it)
         eager_ms = time_eager_ms(lambda: blockgrid.blockgrid_matvec(v, x, plan))
         Ad = A if dtype == torch.float32 else A.to(dtype)
-        lib = time_eager_ms(lambda: torch.mv(Ad, x))
+        lib = time_ms(lambda: torch.mv(Ad, x))[0]  # cuSPARSE, from a CUDA graph as the kernel
         lib_call_ms = _events(lambda: torch.mv(Ad, x), 7)
         pack_ms = time_ms(lambda: blockgrid.pack(w, plan))[0]
         del Ad
@@ -913,28 +1014,14 @@ def phase_ns_profile(system, jac, res, clean, methods=('gmres',), phase='ns_prof
     with each of ``methods`` (the slice: the assembly alone): device busy
     time against wall time, its share, kernel launches (the assembly's K11
     and K12 among them), and the top device operations."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn = system._compiled('jacres')
     fn(clean)  # warm
     runs = [('assemble', lambda: fn(clean))]
     runs += [(f'solve {method}', lambda method=method: jac.solve_leniently(res, solver=method, rtol=1e-3))
              for method in methods]
     for label, run in runs:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device kernels only: a CPU operator's device time repeats its
-        # kernels', and the tracer's "Command Buffer Full" marks the times
-        # the launch queue was full, not device work
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                   and e.key != 'Command Buffer Full']
-        full = [e for e in prof.key_averages() if e.key == 'Command Buffer Full']
-        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        wall, kernels, full, _out = profiled(run)
+        busy = busy_s(kernels)
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
         emit(phase, run=label, wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
              kernel_launches=sum(e.count for e in kernels), command_buffer_full=sum(e.count for e in full),
@@ -1062,6 +1149,7 @@ def phase_ns_tri(nelems=330, device='cuda'):
     counts, the step's system, jacobian, residual and arguments)."""
     import numpy
     import torch
+    from nutils_tpu_torch.ops import sparse
     from nutils_tpu_torch.utils import config
     with config.device(device):
         t_system, (system, args) = _sync_time(lambda: build_ns(nelems, numpy.float32, 'triangle'))
@@ -1088,6 +1176,11 @@ def phase_ns_tri(nelems=330, device='cuda'):
         # host: the operator's form (stencil and block-grid inference, which
         # this pattern refutes), once per pattern
         t_op_plan, _op = _sync_time(jac._device_op)
+        # K9's row-block plan on the operator's row pointers, made inside
+        # _device_op with the operator; timed here alone
+        indptr = jac._csr_tables()[3]
+        t_k9_plan, k9_plan = _sync_time(lambda: sparse.csr_plan(indptr))
+        k9_blocks = int(k9_plan.shape[0]) - 1
         solves = {}
         for method in TRI_METHODS:
             t_solve, dx = _sync_time(lambda: jac.solve_leniently(res, solver=method, rtol=1e-3))
@@ -1123,8 +1216,8 @@ def phase_ns_tri(nelems=330, device='cuda'):
         if not rel_residual <= 1e-3:
             raise AssertionError(f'triangle step ({method}) misses rtol 1e-3: {rel_residual:.3e}')
     emit('ns_tri', ndofs=ndofs, nnz=int(pattern.nnz), t_system=t_system, t_pattern=t_pattern + t_pattern_sort,
-         t_jacres=t_jacres, t_precon=t_precon, t_op_plan=t_op_plan, solves=out, peak_device_bytes=peak,
-         launches=launches)
+         t_jacres=t_jacres, t_precon=t_precon, t_op_plan=t_op_plan, t_k9_plan=t_k9_plan, k9_blocks=k9_blocks,
+         k9_cap=sparse.CSR_CAP, solves=out, peak_device_bytes=peak, launches=launches)
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the triangle Navier-Stokes path: {missing}')
@@ -1169,22 +1262,37 @@ def phase_ns_tri_kernels(system, jac):
                        call_ms=call_ms))
         if dtype == torch.float32:
             results['csr_scatter'] = fields
-        # K9 on the step's operator (float64: the refinement's widened copy)
+        # K9 on the step's operator (float64: the refinement's widened copy),
+        # with the plan the operator carries; twice (the same bits), and with
+        # the loop's flag at 0 (nothing written)
         data = data32.to(dtype)
         x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
         got, want = sparse.csr_matvec(data, indices, indptr, x), sparse.csr_matvec_plain(data, indices, indptr, x)
+        again = sparse.csr_matvec(data, indices, indptr, x)
+        idle = torch.full_like(got, 7.0)
+        sparse.csr_matvec(data, indices, indptr, x, active=torch.zeros(1, dtype=torch.int32, device=dev), out=idle)
         scale = sparse.csr_matvec_plain(data.abs(), indices, indptr, x.abs()).max()
         torch.cuda.synchronize()
+        bitwise_repeat, untouched = bool(torch.equal(got, again)), bool((idle == 7.0).all())
         err, relerr = _compare(got, want, scale)
         (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: sparse.csr_matvec(data, indices, indptr, x)), \
             time_ms(lambda: sparse.csr_matvec_plain(data, indices, indptr, x))
         Ad = A if dtype == torch.float32 else A.to(dtype)
-        lib = time_eager_ms(lambda: torch.mv(Ad, x))
-        fields = row(err, ms, plain_ms, nnz * (isz + 4) + (n + 1) * 4 + 2 * n * isz, 2 * nnz, lib)
+        lib = time_ms(lambda: torch.mv(Ad, x))[0]  # cuSPARSE, from a CUDA graph as the kernel
+        plan = sparse.csr_plan_of(indptr)
+        # the function reads each value and column once, the row pointers, x
+        # and writes y; the kernel also reads the plan's row starts
+        nbytes = nnz * (isz + 4) + (n + 1) * 4 + 2 * n * isz
+        fields = row(err, ms, plain_ms, nbytes, 2 * nnz, lib, F32_FLOPS if dtype == torch.float32 else F64_FLOPS)
         check_row('csr_matvec', 'ns_tri', dname, relerr,
-                  dict(fields, n=n, nnz=nnz, call_ms=call_ms))
+                  dict(fields, n=n, nnz=nnz, call_ms=call_ms, cap=sparse.CSR_CAP, blocks=int(plan.shape[0]) - 1, kernel_bytes=nbytes + plan.numel() * 4,
+                       bitwise_repeat=bitwise_repeat, flag_zero_untouched=untouched))
+        if not (bitwise_repeat and untouched):
+            raise AssertionError(f'K9 ({dname}): same bits twice {bitwise_repeat}, nothing written at flag 0 '
+                                 f'{untouched}')
         if dtype == torch.float32:
             results['csr_matvec'] = fields
+        del Ad, again, idle
         # K7 with no map: the values are the CSR data
         got = sparse.schur_diag_inverse_device(data, None, indices, indptr, n)
         want = sparse.schur_diag_plain(data, None, indices, indptr, n)
@@ -1257,6 +1365,37 @@ def phase_ns_tri_kernels(system, jac):
             if dtype == torch.float32 and '/' not in name:
                 results[name] = fields
     return results
+
+
+def phase_k9_rows(device='cuda'):
+    """K9 against its plain version on a matrix of rows of 0, 1, 3, 59, and
+    more than ``CSR_CAP`` nonzeros (blocks of one long row, in both of the
+    kernel's modes), whose rows start at every offset modulo its 16-byte
+    loads; the same bits twice."""
+    import _torch_parity as tp
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import sparse
+    cap = sparse.CSR_CAP
+    lens = [0, 1, 3, 59, 0, 2 * cap + 5, 1, 59, cap // 2 + 1, 0, 3] * 40 + [cap, 7, 59, 1]
+    data_np, indices_np, indptr_np = tp.csr_of_rows(lens, 12)
+    n = len(indptr_np) - 1
+    indices, indptr = (torch.as_tensor(a, device=device) for a in (indices_np, indptr_np))
+    x_np = numpy.random.default_rng(13).standard_normal(n)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split('.')[1]
+        data, x = (torch.as_tensor(a, dtype=dtype, device=device) for a in (data_np, x_np))
+        got, want = sparse.csr_matvec(data, indices, indptr, x), sparse.csr_matvec_plain(data, indices, indptr, x)
+        again = sparse.csr_matvec(data, indices, indptr, x)
+        scale = sparse.csr_matvec_plain(data.abs(), indices, indptr, x.abs()).max()
+        torch.cuda.synchronize()
+        _err, relerr = _compare(got, want, scale)
+        emit('k9_rows', dtype=dname, n=n, nnz=int(indptr_np[-1]), cap=cap,
+             blocks=int(sparse.csr_plan_of(indptr).shape[0]) - 1, max_rel_err=relerr, tol=TOL[dname],
+             bitwise_repeat=bool(torch.equal(got, again)))
+        if not (relerr <= TOL[dname] and torch.equal(got, again)):
+            raise AssertionError(f'K9 ({dname}) on rows of 0 to {max(lens)} nonzeros: {relerr:.3e}, same bits '
+                                 f'{bool(torch.equal(got, again))}')
 
 
 def phase_ns_tri_parity(devices=('cuda', 'cpu')):
@@ -1348,13 +1487,18 @@ def phase_laplace_example(nelems=2048):
         t_solve, dx = _sync_time(lambda: jac.solve(r, symmetric=system.is_symmetric))
         stats = dict(jac._solve_stats)
         launches = read_launches(EXAMPLE_KERNELS)
+        single_sweeps = read_launches(('jacobi_smooth',))['jacobi_smooth']
         t_solve_warm, dx_warm = _sync_time(lambda: jac.solve(r, symmetric=system.is_symmetric))
+        wall, kernels, _full, _dx = profiled(lambda: jac.solve(r, symmetric=system.is_symmetric))
+        solve_profile = dict(wall_s=wall, device_busy_s=busy_s(kernels), busy_share=busy_s(kernels) / wall,
+                             kernel_launches=sum(e.count for e in kernels))
         t_check, jdx = _sync_time(lambda: jac @ dx)
         rel_residual = float(numpy.linalg.norm(r - jdx) / numpy.linalg.norm(r))
         emit('laplace_example_solve_parts', t_mask=t_mask, op_form=op[0][0], t_op_form=t_op_form, t_setup=t_setup,
              mg_levels=None if mg is None else [list(lev[1]) for lev in mg.levels], t_solve=t_solve,
              t_solve_warm=t_solve_warm, solve_stats=stats, warm_solve_stats=dict(jac._solve_stats),
-             t_host_residual=t_check, rel_residual=rel_residual, launches=launches)
+             t_host_residual=t_check, rel_residual=rel_residual, launches=launches,
+             single_sweep_launches=single_sweeps, warm_solve_profile=solve_profile)
         # the same as the user calls it: the System keeps the constant
         # jacobian, and the jacobian its masked operator
         t_solve_entry, args = _sync_time(lambda: system.solve(constrain=cons))
@@ -1378,6 +1522,8 @@ def phase_laplace_example(nelems=2048):
         raise AssertionError(f'Laplace example: L2 error {err:.3e} is not below {4 * 1.63e-3 * (4 / nelems) ** 2:.2e}')
     if not (numpy.array_equal(u[isfree], x - dx) and numpy.array_equal(dx, dx_warm)):
         raise AssertionError('Laplace example: System.solve and its parts give other solutions')
+    if single_sweeps:
+        raise AssertionError(f'the example\'s V-cycle ran {single_sweeps} single K2 sweeps, not only fused ones')
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the Laplace example path: {missing}')
@@ -1501,6 +1647,32 @@ def phase_laplace_example_parity(nelems=256, devices=('cuda', 'cpu')):
         raise AssertionError(f'card and CPU examples differ: cons {dc:.3e}, u {du:.3e}, same dofs {same}')
 
 
+def phase_laplace_example_p2(nelems=P2_NELEMS):
+    """examples/laplace.py's ``main`` at degree 2 on ``nelems``^2 elements in
+    float64 through the port's entry points (``solve_constraints``,
+    ``System.solve(constrain=)``): the fine level's stencil has half-width
+    2, so the V-cycle smooths it through K2's single sweeps and its coarser
+    (k = 1) levels through the fused ones; launch counts read around it.
+    The L2 error must be below 4 x its O(h^3) estimate from 40^2 elements
+    (8.0e-8 on the CPU).  Returns the launch counts."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch.utils import config
+    with config.floatx(numpy.float64), config.device('cuda'):
+        reset_launches()
+        t, (cons, u, err) = _sync_time(lambda: tp.laplace_example('nutils_tpu_torch', nelems, degree=2))
+        launches = read_launches(P2_KERNELS)
+    limit = 4 * 8.0e-8 * (40 / nelems) ** 3
+    emit('laplace_example_p2', nelems=nelems * nelems, ndofs=len(u), seconds=t, l2_error=err, limit=limit,
+         constrained=int(numpy.isfinite(cons).sum()), launches=launches)
+    if u.shape != ((2 * nelems + 1) ** 2,) or not numpy.isfinite(u).all() or not err < limit:
+        raise AssertionError(f'degree-2 example: {u.shape} dofs, L2 error {err:.3e} (limit {limit:.2e})')
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f'kernels not launched on the degree-2 example: {missing}')
+    return launches
+
+
 def phase_ns_newton(nelems=330):
     """``System.solve(method=Newton(), tol=...)`` on the Navier-Stokes
     step's System (float32 assembly) from its random state, to 1e-5 of the
@@ -1587,6 +1759,7 @@ def main():
     del system, jac, res, clean
     torch.cuda.empty_cache()
     phase_ns_tri_parity()
+    phase_k9_rows()
     by_path['ns_tri'] = {name: tri_launches[name] for name in ASSEMBLY_KERNELS}
     # the kernels new on the triangle path count its launches; K7's CSR
     # variant is the same wrapper, read on that path
@@ -1599,6 +1772,8 @@ def main():
     del system, clean, w0, r0
     torch.cuda.empty_cache()
     phase_laplace_example_parity()
+    # K2's single sweeps: their launches come from the degree-2 example
+    launches['jacobi_smooth'] = phase_laplace_example_p2()['jacobi_smooth']
     phase_ns_newton()
     torch.cuda.empty_cache()
     by_path['laplace_example'] = {name: example_launches[name] for name in ASSEMBLY_KERNELS}

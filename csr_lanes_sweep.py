@@ -1,30 +1,35 @@
 #!/usr/bin/env python3
 '''Time kernel K9 (``nutils_tpu_torch/csrc/csr_spmv.cu``, the CSR matvec)
-at 4, 8, 16 and 32 lanes a row on the jacobian of the triangle
-Navier-Stokes step, on one CUDA card.
+at 1, 2, 4 and 8 lanes a row and on row-block plans of 1,024 to 4,096
+nonzeros a block, on the jacobian of the triangle Navier-Stokes step, on
+one CUDA card.
 
     python3 csr_lanes_sweep.py [nelems]
 
-K9 takes a fixed number of lanes a row (the constant ``LANES``).  This
-script rebuilds the source once for each lane count (one nvcc each, in
-parallel, into ``build/nutils_tpu_torch/lanes_sweep/``), runs each build on
-the step's operator (``unitsquare(nelems, 'triangle')``, default 330) in
-float32 and float64, checks it against the plain version and prints one
-JSON line per case with the device time and the bytes bound, as
-``chip_smoke.py`` measures them.  Rerun it when a ported path brings rows
-of another length.
+K9's two tunables: the lanes that sum a row of a block (the constant
+``LANES`` of the source) and the nonzeros a block stages (the plan's
+``cap``, ``ops/sparse.CSR_CAP``).  This script rebuilds the source once for
+each lane count (one nvcc each, in parallel, into
+``build/nutils_tpu_torch/lanes_sweep/``), makes the plan at each cap, runs
+every pair on the step's operator (``unitsquare(nelems, 'triangle')``,
+default 330) in float32 and float64, checks it against the plain version
+and prints one JSON line per case with the device time and the bytes
+bound, as ``chip_smoke.py`` measures them.  Rerun it when a ported path
+brings rows of another length.
 '''
 
 import ctypes
 import hashlib
+import itertools
 import json
 import subprocess
 import sys
 
 import chip_smoke
 
-LANES = (4, 8, 16, 32)
-CONSTANT = 'constexpr int LANES = 4;'
+LANES = (1, 2, 4, 8)
+CAPS = (1024, 2048, 3072, 4096)
+CONSTANT = 'constexpr int LANES = 2;'
 
 
 def build_variants():
@@ -65,32 +70,34 @@ def main(nelems=330):
     n, nnz = jac.shape[0], int(indices.shape[0])
     del system, jac
     x64 = numpy.random.default_rng(2).standard_normal(n)
+    plans = {cap: sparse.csr_plan(indptr, cap) for cap in CAPS}
     for dtype in (torch.float32, torch.float64):
         isz = 4 if dtype == torch.float32 else 8
         data, x = data32.to(dtype), torch.as_tensor(x64, dtype=dtype, device='cuda')
         want = sparse.csr_matvec_plain(data, indices, indptr, x)
         scale = float(sparse.csr_matvec_plain(data.abs(), indices, indptr, x.abs()).max())
         bound_ms, bound_by = chip_smoke.bound(nnz * (isz + 4) + (n + 1) * 4 + 2 * n * isz, 2 * nnz)
-        for lanes, path in paths.items():
+        for (lanes, path), (cap, plan) in itertools.product(paths.items(), plans.items()):
             fn = ctypes.CDLL(str(path)).ntt_csr_spmv
-            fn.argtypes = (ctypes.c_int,) + (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_void_p)
+            fn.argtypes = (ctypes.c_int,) + (ctypes.c_void_p,) * 7 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
             fn.restype = ctypes.c_int
             y = torch.empty(n, dtype=dtype, device='cuda')
 
             def run():
                 err = fn(0 if dtype == torch.float32 else 1, data.data_ptr(), indices.data_ptr(), indptr.data_ptr(),
-                         x.data_ptr(), y.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
+                         plan.data_ptr(), x.data_ptr(), y.data_ptr(), None, int(plan.shape[0]) - 1, cap,
+                         torch.cuda.current_stream().cuda_stream)
                 if err:
-                    raise RuntimeError(f'ntt_csr_spmv ({lanes} lanes): CUDA error {err}')
+                    raise RuntimeError(f'ntt_csr_spmv ({lanes} lanes, cap {cap}): CUDA error {err}')
             run()
             torch.cuda.synchronize()
             relerr = float((y.double() - want.double()).abs().max()) / scale
             ms, call_ms = chip_smoke.time_ms(run)
-            print(json.dumps({'phase': 'csr_lanes', 'lanes': lanes, 'dtype': str(dtype).split('.')[1], 'n': n,
-                              'nnz': nnz, 'ms': ms, 'call_ms': call_ms, 'bound_ms': bound_ms,
-                              'bound_by': bound_by, 'max_rel_err': relerr}), flush=True)
+            print(json.dumps({'phase': 'csr_lanes', 'lanes': lanes, 'cap': cap, 'blocks': int(plan.shape[0]) - 1,
+                              'dtype': str(dtype).split('.')[1], 'n': n, 'nnz': nnz, 'ms': ms, 'call_ms': call_ms,
+                              'bound_ms': bound_ms, 'bound_by': bound_by, 'max_rel_err': relerr}), flush=True)
             if not relerr <= chip_smoke.TOL[str(dtype).split('.')[1]]:
-                raise AssertionError(f'K9 at {lanes} lanes disagrees with its plain version: {relerr:.3e}')
+                raise AssertionError(f'K9 at {lanes} lanes, cap {cap} disagrees with its plain version: {relerr:.3e}')
 
 
 if __name__ == '__main__':

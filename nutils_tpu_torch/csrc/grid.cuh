@@ -55,9 +55,16 @@ __device__ __forceinline__ void coords_of(const Grid& g, int i, int (&c)[MAXD]) 
   }
 }
 
+// a * b + c rounded once, written out so that the compiler contracts no
+// sum differently in one kernel than in another (K2's single and fused
+// sweeps must give the same bits)
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
 // (A x)[i] = sum_s w[s, i] * x[i + a_s], slots in row-major window order
 // (last axis fastest), zero outside non-periodic axes, wrapped on periodic
-// ones.  Accumulates in slot order from zero, as the plain version does.
+// ones.  Accumulates in slot order from zero, one fma a slot, as the plain
+// version does (its products and sums rounded apart).
 template <typename T>
 __device__ __forceinline__ T stencil_row(const Grid& g, const T* __restrict__ w,
                                          const T* __restrict__ x, int i) {
@@ -79,7 +86,7 @@ __device__ __forceinline__ T stencil_row(const Grid& g, const T* __restrict__ w,
       }
       j += q * g.pitch[a];
     }
-    if (inside) acc += w[(int64_t)s * g.n + i] * x[j];
+    if (inside) acc = fma_rn(w[(int64_t)s * g.n + i], x[j], acc);
     bool carry = true;  // next slot: mixed-radix increment, last axis fastest
 #pragma unroll
     for (int a = MAXD - 1; a >= 0; --a) {

@@ -1,4 +1,4 @@
-// K2 (weighted-Jacobi sweep and residual) and K3 (full-weighting
+// K2 (weighted-Jacobi sweeps and residual) and K3 (full-weighting
 // restriction and linear prolongation) of the multigrid V-cycle.
 //
 // Replace the device work of nutils_tpu/ops/mg.py _vcycle_fn (a stencil
@@ -14,13 +14,48 @@
 // active flag first and does nothing once the loop has stopped (null:
 // always runs), so an iteration after the loop's exit costs empty launches,
 // not a V-cycle.
+//
+// K2 comes in two forms.  The single sweep (jacobi_kernel) takes any grid
+// of up to four axes and any half-width through the generic stencil_row.
+// The fused sweeps (jacobi_fused_kernel) take the V-cycle's smoothing of a
+// level in two launches instead of 2 nu: jacobi_pre is mode 0, nu - 1
+// mode-1 sweeps and the mode-2 residual, jacobi_post nu mode-1 sweeps.
+// They exist for 2-D and 3-D grids of half-width 1 (the 9- and 27-point
+// stencils of the degree-1 Laplace levels), with every slot unrolled and
+// no division per point.  A block owns a tile of outputs (2-D 16 x 32 in
+// float32 and 8 x 32 in float64, 3-D 4 x 4 x 32) and stages r, dinv and x
+// on the tile grown by a halo of nu
+// points in shared memory (periodic axes wrap, points off a non-periodic
+// axis hold 0); each sweep runs on a halo one point smaller, so the halo
+// points are recomputed, not exchanged between blocks.  The weights are
+// not staged: each sweep reads a point's slots from device memory where it
+// needs them, L1 and L2 serving the repeats (the tile's interior in the
+// next sweep, the halos of neighbouring tiles), so that a 2-D block takes
+// 14-16 KB of shared memory and eight fit a multiprocessor: the resident
+// blocks, not the staging, hide the loads.  A launch thus reads
+// w, r, dinv (and x) from device memory about once, and writes its outputs
+// once: (W + 4) values a dof, against (W + 4) + (W + 3) + 3 for the single
+// sweeps of jacobi_pre at nu = 2.  The grids' rows (1025, 2049 points) are
+// not multiples of 16 bytes, so the loads are coalesced 4- or 8-byte ones,
+// not tensor maps.
+// Both forms compute a point with the same jacobi_point and sum its slots
+// in the same order with explicit fmas, so a fused launch gives the same
+// bits as the single sweeps it replaces.
 #include "grid.cuh"
 
 namespace ntt {
 
-// mode 0: out = omega dinv r            (first sweep from x = 0)
-// mode 1: out = x + omega dinv (r - A x)
-// mode 2: out = r - A x                  (residual for restriction)
+// One point of a sweep, given ax = (A x)[i]:
+// mode 0: omega dinv r            (first sweep from x = 0; x, ax unused)
+// mode 1: x + omega dinv (r - ax)
+// mode 2: r - ax                  (residual for restriction; dinv unused)
+template <typename T>
+__device__ __forceinline__ T jacobi_point(int mode, T omega, T dinv, T r, T x, T ax) {
+  if (mode == 0) return omega * dinv * r;
+  T res = r - ax;
+  return mode == 2 ? res : fma_rn(omega * dinv, res, x);
+}
+
 template <typename T>
 __global__ void jacobi_kernel(Grid g, const T* __restrict__ w, const T* __restrict__ dinv,
                               const T* __restrict__ r, const T* __restrict__ x,
@@ -29,11 +64,211 @@ __global__ void jacobi_kernel(Grid g, const T* __restrict__ w, const T* __restri
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= g.n) return;
   if (mode == 0) {
-    out[i] = omega * dinv[i] * r[i];
+    out[i] = jacobi_point(0, omega, dinv[i], r[i], T(0), T(0));
     return;
   }
-  T res = r[i] - stencil_row(g, w, x, i);
-  out[i] = mode == 2 ? res : x[i] + omega * dinv[i] * res;
+  out[i] = jacobi_point(mode, omega, mode == 2 ? T(0) : dinv[i], r[i], mode == 2 ? T(0) : x[i],
+                        stencil_row(g, w, x, i));
+}
+
+// ------------------------------------------------------------ fused sweeps
+
+constexpr int FTHREADS = 256;
+
+// a block's tile of outputs, axes outermost first (a 2-D grid is the one
+// plane of a 3-D grid whose outer axis has one point), and the slots.  A
+// 2-D tile has 64 bytes of rows a column (16 in float32, 8 in float64): a
+// larger tile recomputes less halo, a smaller one leaves more of the
+// multiprocessor's memory to L1, which serves the weights' repeats.
+template <typename T, int D>
+struct FTile;
+template <typename T>
+struct FTile<T, 2> {
+  static constexpr int T0 = 1, T1 = 64 / (int)sizeof(T), T2 = 32, W = 9;
+};
+template <typename T>
+struct FTile<T, 3> {
+  static constexpr int T0 = 4, T1 = 4, T2 = 32, W = 27;
+};
+
+// the grid as three axes: sizes, periodic flags, tiles along each
+struct Box {
+  int n[3];
+  int per[3];
+  int tiles[3];
+  int npts;
+};
+
+// extents of the staged arrays: the tile grown by NU on every grid axis
+template <typename T, int D, int NU>
+struct Region {
+  using Tile = FTile<T, D>;
+  static constexpr int H0 = D == 3 ? NU : 0;
+  static constexpr int R0 = Tile::T0 + 2 * H0, R1 = Tile::T1 + 2 * NU, R2 = Tile::T2 + 2 * NU;
+  static constexpr int RS = R0 * R1 * R2;
+  static constexpr size_t bytes = 4 * RS * sizeof(T) + RS * sizeof(int);
+};
+
+// index into the grid of the staged point (l0, l1, l2) of the tile at o,
+// wrapped on periodic axes; -1 off a non-periodic axis
+template <int D, int NU>
+__device__ __forceinline__ int global_of(const Box& b, const int (&o)[3], int l0, int l1, int l2) {
+  const int q[3] = {o[0] + l0 - (D == 3 ? NU : 0), o[1] + l1 - NU, o[2] + l2 - NU};
+  int g = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    int qa = q[a];
+    if (qa < 0 || qa >= b.n[a]) {
+      if (!b.per[a]) return -1;
+      qa %= b.n[a];
+      if (qa < 0) qa += b.n[a];
+    }
+    g = g * b.n[a] + qa;
+  }
+  return g;
+}
+
+// f(l0, l1, l2, i) over the tile grown by h, in staged coordinates and
+// their index i into the staged arrays; unrolled, so that the loads of a
+// thread's points are issued together
+template <typename T, int D, int NU, int h, typename F>
+__device__ __forceinline__ void for_region(F f) {
+  using G = Region<T, D, NU>;
+  constexpr int h0 = D == 3 ? h : 0;
+  constexpr int E0 = G::Tile::T0 + 2 * h0, E1 = G::Tile::T1 + 2 * h, E2 = G::Tile::T2 + 2 * h;
+#pragma unroll
+  for (int k = 0; k < (E0 * E1 * E2 + FTHREADS - 1) / FTHREADS; ++k) {
+    const int p = threadIdx.x + k * FTHREADS;
+    if (p < E0 * E1 * E2) {
+      const int m0 = p / (E1 * E2), rem = p - m0 * (E1 * E2), m1 = rem / E2, m2 = rem - m1 * E2;
+      const int l0 = m0 + G::H0 - h0, l1 = m1 + NU - h, l2 = m2 + NU - h;
+      f(l0, l1, l2, (l0 * G::R1 + l1) * G::R2 + l2);
+    }
+  }
+}
+
+// (A x) at staged point i (grid index g >= 0) from the staged x: the slots
+// in stencil_row's order, one fma each, the weights read from device memory
+template <typename T, int D, int NU>
+__device__ __forceinline__ T stencil_sum(const Box& b, const T* __restrict__ w, const T* xs, int g, int i) {
+  using G = Region<T, D, NU>;
+  T acc = T(0);
+#pragma unroll
+  for (int s = 0; s < FTile<T, D>::W; ++s) {
+    const int d0 = D == 3 ? s / 9 - 1 : 0, d1 = s / 3 % 3 - 1, d2 = s % 3 - 1;
+    acc = fma_rn(__ldg(w + (int64_t)s * b.npts + g), xs[i + (d0 * G::R1 + d1) * G::R2 + d2], acc);
+  }
+  return acc;
+}
+
+// mode-1 sweeps over the tile grown by h, h - 1, ..., last, from src into
+// dst and back (0 off the grid); returns the buffer holding the last
+template <typename T, int D, int NU, int h, int last>
+__device__ __forceinline__ T* sweeps(const Box& b, const T* __restrict__ w, const int* sg, const T* sr, const T* sd,
+                                     T* src, T* dst, T omega) {
+  if constexpr (h < last) {
+    return src;
+  } else {
+    for_region<T, D, NU, h>([&](int, int, int, int i) {
+      const int g = sg[i];
+      dst[i] = g < 0 ? T(0) : jacobi_point(1, omega, sd[i], sr[i], src[i], stencil_sum<T, D, NU>(b, w, src, g, i));
+    });
+    __syncthreads();
+    return sweeps<T, D, NU, h - 1, last>(b, w, sg, sr, sd, dst, src, omega);
+  }
+}
+
+// PRE: xout = x after mode 0 and NU - 1 mode-1 sweeps, res = r - A xout.
+// Post (not PRE): xout = NU mode-1 sweeps from xin.  res or xin unused.
+template <typename T, int D, int NU, bool PRE>
+__global__ void __launch_bounds__(FTHREADS)
+    jacobi_fused_kernel(Box b, const T* __restrict__ w, const T* __restrict__ dinv, const T* __restrict__ r,
+                        const T* __restrict__ xin, T* __restrict__ xout, T* __restrict__ res, T omega,
+                        const int* active) {
+  if (stopped(active)) return;
+  using G = Region<T, D, NU>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xa = (T*)smem_raw;
+  T* xb = xa + G::RS;
+  T* sr = xb + G::RS;
+  T* sd = sr + G::RS;
+  int* sg = (int*)(sd + G::RS);
+  int t = blockIdx.x, o[3];
+  o[2] = t % b.tiles[2] * G::Tile::T2;
+  t /= b.tiles[2];
+  o[1] = t % b.tiles[1] * G::Tile::T1;
+  o[0] = t / b.tiles[1] * G::Tile::T0;
+  // stage r, dinv and x (PRE: x0 = omega dinv r) over the halo NU; Post
+  // reads r and dinv over the halo NU - 1 only
+  for_region<T, D, NU, NU>([&](int l0, int l1, int l2, int i) {
+    const int g = global_of<D, NU>(b, o, l0, l1, l2);
+    sg[i] = g;
+    if (PRE) {
+      const T rv = g >= 0 ? r[g] : T(0), dv = g >= 0 ? dinv[g] : T(0);
+      sr[i] = rv;
+      sd[i] = dv;
+      xa[i] = g >= 0 ? jacobi_point(0, omega, dv, rv, T(0), T(0)) : T(0);
+    } else {
+      xa[i] = g >= 0 ? xin[g] : T(0);
+      const bool in1 = l1 > 0 && l1 < G::R1 - 1 && l2 > 0 && l2 < G::R2 - 1 &&
+                       (D == 2 || (l0 > 0 && l0 < G::R0 - 1));
+      if (in1 && g >= 0) {
+        sr[i] = r[g];
+        sd[i] = dinv[g];
+      }
+    }
+  });
+  __syncthreads();
+  const T* xs = sweeps<T, D, NU, NU - 1, 1>(b, w, sg, sr, sd, xa, xb, omega);
+  // the tile itself: the residual (PRE) or the last sweep (Post), written
+  // where the tile lies on the grid
+  for_region<T, D, NU, 0>([&](int l0, int l1, int l2, int i) {
+    if (o[0] + l0 - G::H0 >= b.n[0] || o[1] + l1 - NU >= b.n[1] || o[2] + l2 - NU >= b.n[2]) return;
+    const int g = sg[i];
+    const T ax = stencil_sum<T, D, NU>(b, w, xs, g, i);
+    if (PRE) {
+      res[g] = jacobi_point(2, omega, T(0), sr[i], T(0), ax);
+      xout[g] = xs[i];
+    } else {
+      xout[g] = jacobi_point(1, omega, sd[i], sr[i], xs[i], ax);
+    }
+  });
+}
+
+template <typename T, int D, int NU, bool PRE>
+int launch_fused(Box b, const void* w, const void* dinv, const void* r, const void* xin, void* xout, void* res,
+                 double omega, const int* active, cudaStream_t s) {
+  using Tile = FTile<T, D>;
+  b.tiles[0] = (b.n[0] + Tile::T0 - 1) / Tile::T0;
+  b.tiles[1] = (b.n[1] + Tile::T1 - 1) / Tile::T1;
+  b.tiles[2] = (b.n[2] + Tile::T2 - 1) / Tile::T2;
+  const size_t bytes = Region<T, D, NU>::bytes;
+  auto kernel = jacobi_fused_kernel<T, D, NU, PRE>;
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned int tiles = (unsigned int)b.tiles[0] * b.tiles[1] * b.tiles[2];
+  kernel<<<tiles, FTHREADS, bytes, s>>>(b, (const T*)w, (const T*)dinv, (const T*)r, (const T*)xin, (T*)xout,
+                                        (T*)res, (T)omega, active);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D, bool PRE>
+int fused_nu(int nu, const Box& b, const void* w, const void* dinv, const void* r, const void* xin, void* xout,
+             void* res, double omega, const int* active, cudaStream_t s) {
+  switch (nu) {
+    case 1: return launch_fused<T, D, 1, PRE>(b, w, dinv, r, xin, xout, res, omega, active, s);
+    case 2: return launch_fused<T, D, 2, PRE>(b, w, dinv, r, xin, xout, res, omega, active, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool PRE>
+int fused(int ndim, int nu, const Box& b, const void* w, const void* dinv, const void* r, const void* xin,
+          void* xout, void* res, double omega, const int* active, cudaStream_t s) {
+  if (ndim == 2) return fused_nu<T, 2, PRE>(nu, b, w, dinv, r, xin, xout, res, omega, active, s);
+  return fused_nu<T, 3, PRE>(nu, b, w, dinv, r, xin, xout, res, omega, active, s);
 }
 
 // rc[j] = sum over coarsened axes of f[2 j + a] weighted (1/2, 1, 1/2) for
@@ -132,6 +367,32 @@ int ntt_jacobi(int dtype, const void* w, const void* dinv, const void* r, const 
         g, (const double*)w, (const double*)dinv, (const double*)r, (const double*)x,
         (double*)out, omega, mode, active);
   return (int)cudaGetLastError();
+}
+
+// The fused sweeps of a level: pre (mode 0, nu - 1 sweeps, the residual
+// into res) or post (nu sweeps from xin), on a 2-D or 3-D grid of half-width
+// 1 on every axis, nu 1 or 2 (else cudaErrorInvalidValue).
+int ntt_jacobi_fused(int dtype, const void* w, const void* dinv, const void* r, const void* xin, void* xout,
+                     void* res, const int* active, double omega, int nu, int pre, int ndim, const int64_t* shape,
+                     const int* ks, const int* per, void* stream) {
+  if (ndim < 2 || ndim > 3 || nu < 1 || nu > 2) return (int)cudaErrorInvalidValue;
+  for (int a = 0; a < ndim; ++a)
+    if (ks[a] != 1) return (int)cudaErrorInvalidValue;
+  ntt::Box b;
+  b.npts = 1;
+  for (int a = 0; a < 3; ++a) {
+    const int src = a - (3 - ndim);  // a 2-D grid is axes 1 and 2
+    b.n[a] = src >= 0 ? (int)shape[src] : 1;
+    b.per[a] = src >= 0 ? per[src] : 0;
+    b.npts *= b.n[a];
+  }
+  if (b.npts == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return pre ? ntt::fused<float, true>(ndim, nu, b, w, dinv, r, xin, xout, res, omega, active, s)
+               : ntt::fused<float, false>(ndim, nu, b, w, dinv, r, xin, xout, res, omega, active, s);
+  return pre ? ntt::fused<double, true>(ndim, nu, b, w, dinv, r, xin, xout, res, omega, active, s)
+             : ntt::fused<double, false>(ndim, nu, b, w, dinv, r, xin, xout, res, omega, active, s);
 }
 
 int ntt_restrict(int dtype, const void* f, void* rc, const int* active, int ndim, const int64_t* fshape,

@@ -361,9 +361,10 @@ class Matrix:
         verified grid stencil (kernel K1), else a block-grid form (K5, on the
         compact operand of its plan, ``('blockgrid', plan)``), else
         the CSR operand itself, ``('csr',)`` with (data, indices, indptr)
-        (K9), whatever ``spmv`` layout the JAX package would pick (its
-        ``bell``, ``ell`` and ``csr`` forms are the TPU's layouts of one
-        function).  The plan depends on the pattern only and caches there.'''
+        (K9; its row-block plan is made here and kept on ``indptr``),
+        whatever ``spmv`` layout the JAX package would pick (its ``bell``,
+        ``ell`` and ``csr`` forms are the TPU's layouts of one function).
+        The plan depends on the pattern only and caches there.'''
         cached = getattr(self, '_device_op_cache', None)
         if cached is not None:
             return cached
@@ -402,7 +403,9 @@ class Matrix:
             kplan = blockgrid_plan(pattern, meta, woff, numpy.asarray(woff)[fill[1]] + fill[2])
             cached = (('blockgrid', kplan), (_bg.pack(torch.as_tensor(w, device=config.torch_device()), kplan),))
         else:
+            from .ops.sparse import csr_plan_of
             data, _cmap, indices, indptr = self._csr_tables()
+            csr_plan_of(indptr)  # K9's row blocks, kept on the pattern's row pointers
             cached = (('csr',), (data, indices, indptr))
         self._device_op_cache = cached
         return cached

@@ -9,14 +9,17 @@ conditioned.  Setup is host-side and matrix-algebraic (copied from
 computed with scipy sparse and re-expressed as stencils over the KNOWN
 coarse grid; the coarsest level is inverted densely once.
 
-The V(2,2) cycle (:func:`apply_vcycle`) runs on the device through three
-hand-written kernels: K2 :func:`jacobi_smooth` (weighted-Jacobi sweep, or the
-residual r - A x, fused with the stencil matvec), K3 :func:`mg_restrict`
-(full weighting) and :func:`mg_prolong_add` (x += P xc, linear
-interpolation); the coarsest level is a plain ``torch.matmul`` with the
-dense inverse.  Each kernel's plain torch version (the literal port of
-``_vcycle_fn``'s updates, ``_restrict`` and ``_prolong``) runs for tensors on
-the CPU.
+The V(2,2) cycle (:func:`apply_vcycle`) runs on the device through
+hand-written kernels: K2 smooths a level in two launches, :func:`jacobi_pre`
+(the pre-smoothing sweeps and the residual r - A x) and :func:`jacobi_post`
+(the post-smoothing sweeps), each fused with the stencil matvec, on 2-D and
+3-D grids of half-width 1 (:func:`fused_shape`); other levels take K2's
+single sweeps, :func:`jacobi_smooth`, one launch a sweep.  K3
+:func:`mg_restrict` (full weighting) and :func:`mg_prolong_add` (x += P xc,
+linear interpolation) move between levels; the coarsest level is a plain
+``torch.matmul`` with the dense inverse.  Each kernel's plain torch version
+(the literal port of ``_vcycle_fn``'s updates, ``_restrict`` and
+``_prolong``) runs for tensors on the CPU.
 '''
 
 import numpy
@@ -166,6 +169,34 @@ def jacobi_plain(w, dinv, r, x, ks, shape, periodic, omega, mode):
     return res if mode == 2 else x + omega * dinv * res
 
 
+def _pre_sweeps(sweep, nu):
+    '''(x, r - A x) of the sweeps a level's pre-smoothing makes, each
+    ``sweep(x, mode)``: mode 0, ``nu - 1`` times mode 1, then mode 2.'''
+    x = sweep(None, 0)
+    for _ in range(nu - 1):
+        x = sweep(x, 1)
+    return x, sweep(x, 2)
+
+
+def _post_sweeps(sweep, x, nu):
+    '''x after a level's post-smoothing: ``nu`` times ``sweep(x, 1)``.'''
+    for _ in range(nu):
+        x = sweep(x, 1)
+    return x
+
+
+def jacobi_pre_plain(w, dinv, r, ks, shape, periodic, omega, nu):
+    '''Plain version of :func:`jacobi_pre`: the :func:`jacobi_plain` sweeps
+    it fuses.'''
+    return _pre_sweeps(lambda x, mode: jacobi_plain(w, dinv, r, x, ks, shape, periodic, omega, mode), nu)
+
+
+def jacobi_post_plain(w, dinv, r, x, ks, shape, periodic, omega, nu):
+    '''Plain version of :func:`jacobi_post`: the :func:`jacobi_plain` sweeps
+    it fuses.'''
+    return _post_sweeps(lambda x, mode: jacobi_plain(w, dinv, r, x, ks, shape, periodic, omega, mode), x, nu)
+
+
 # ------------------------------------------------------------ kernels K2, K3
 
 def jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega=OMEGA, mode=1, active=None):
@@ -194,6 +225,78 @@ def jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega=OMEGA, mode=1, activ
 
 
 _kernels.counted(jacobi_smooth)
+
+# the sweeps a fused K2 launch may hold (its instantiations in csrc/mg.cu)
+FUSED_NU = (1, 2)
+
+
+def fused_shape(ks, nu):
+    '''Whether a level of half-widths ``ks`` smooths through the fused
+    sweeps (:func:`jacobi_pre`, :func:`jacobi_post`: 2-D and 3-D grids of
+    half-width 1 on every axis, ``nu`` in :data:`FUSED_NU`) rather than
+    through 2 ``nu`` single sweeps.'''
+    return len(ks) in (2, 3) and all(int(k) == 1 for k in ks) and int(nu) in FUSED_NU
+
+
+def _fused(name, pre, w, dinv, r, x, ks, shape, periodic, omega, nu, active):
+    '''Launch the fused K2 kernel (``ntt_jacobi_fused``); returns its
+    outputs (x, and the residual where ``pre``).'''
+    W = int(numpy.prod([2 * k + 1 for k in ks]))
+    named = dict(w=(w, (W,) + shape), dinv=(dinv, shape))
+    if not pre:
+        named['xin'] = (x, shape)
+    _kernels.check_operands(name, r, shape, r.dtype, **named)
+    _kernels.check_flag(name, active, r)
+    out = torch.empty_like(r)
+    res = torch.empty_like(r) if pre else None
+    _kernels.launch('ntt_jacobi_fused', r, [w, dinv, r, None if pre else x, out, res, active], shape, ks=ks,
+                    periodic=periodic, scalars=(float(omega), int(nu), int(pre)))
+    return (out, res) if pre else out
+
+
+def _grid(ks, shape, periodic):
+    return tuple(int(k) for k in ks), tuple(int(s) for s in shape), tuple(bool(p) for p in periodic)
+
+
+def jacobi_pre(w, dinv, r, ks, shape, periodic, nu=2, omega=OMEGA, active=None):
+    '''A level's pre-smoothing and residual in one launch (kernel K2,
+    ``csrc/mg.cu``): the first sweep from x = 0, ``nu - 1`` sweeps, then
+    ``r - A x``; returns (x, residual).  The same bits as those
+    :func:`jacobi_smooth` sweeps (modes 0, 1 ... 1, 2), which it replaces
+    where :func:`fused_shape` holds and which run in its place elsewhere.
+    Outputs are left unwritten while ``active`` is 0.'''
+    ks, shape, periodic = _grid(ks, shape, periodic)
+    if r.device.type == 'cpu':
+        return jacobi_pre_plain(w, dinv, r, ks, shape, periodic, omega, nu)
+    if not fused_shape(ks, nu):
+        return _pre_sweeps(lambda x, mode: jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega, mode, active),
+                           nu)
+    out = _fused('jacobi_pre', True, w, dinv, r, None, ks, shape, periodic, omega, nu, active)
+    jacobi_pre.launches += 1
+    return out
+
+
+_kernels.counted(jacobi_pre)
+
+
+def jacobi_post(w, dinv, r, x, ks, shape, periodic, nu=2, omega=OMEGA, active=None):
+    '''A level's post-smoothing in one launch (kernel K2, ``csrc/mg.cu``):
+    ``nu`` sweeps from ``x``; returns the new x.  The same bits as those
+    :func:`jacobi_smooth` sweeps, which it replaces where
+    :func:`fused_shape` holds and which run in its place elsewhere.  The
+    output is left unwritten while ``active`` is 0.'''
+    ks, shape, periodic = _grid(ks, shape, periodic)
+    if r.device.type == 'cpu':
+        return jacobi_post_plain(w, dinv, r, x, ks, shape, periodic, omega, nu)
+    if not fused_shape(ks, nu):
+        return _post_sweeps(lambda x, mode: jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega, mode, active),
+                            x, nu)
+    out = _fused('jacobi_post', False, w, dinv, r, x, ks, shape, periodic, omega, nu, active)
+    jacobi_post.launches += 1
+    return out
+
+
+_kernels.counted(jacobi_post)
 
 
 def mg_restrict(f, cshape, active=None):
@@ -240,6 +343,7 @@ def vcycle(levels, mg_ops, r_nd, nu=2, active=None):
     '''V(nu, nu) cycle with weighted-Jacobi smoothing for the static
     ((ks, shape, periodic), ...) level tuple (the coarsest included) on the
     operands ``(ws, dinvs, coarse_inv)``; ``r_nd`` has the finest shape.
+    Each level smooths in two K2 launches where :func:`fused_shape` holds.
     K2 and K3 do nothing while the CG loop's flag ``active`` is 0 (the
     coarsest level's product still runs).'''
     ws, dinvs, coarse_inv = mg_ops
@@ -251,15 +355,9 @@ def vcycle(levels, mg_ops, r_nd, nu=2, active=None):
             return (coarse_inv @ r.reshape(-1)).reshape(cshape)
         ks, shape, per = levels[level]
         w, dinv = ws[level], dinvs[level]
-        x = jacobi_smooth(w, dinv, r, None, ks, shape, per, mode=0, active=active)
-        for _ in range(nu - 1):
-            x = jacobi_smooth(w, dinv, r, x, ks, shape, per, active=active)
-        rc = mg_restrict(jacobi_smooth(w, dinv, r, x, ks, shape, per, mode=2, active=active),
-                         levels[level + 1][1], active)
-        x = mg_prolong_add(x, cycle(level + 1, rc), active)
-        for _ in range(nu):
-            x = jacobi_smooth(w, dinv, r, x, ks, shape, per, active=active)
-        return x
+        x, res = jacobi_pre(w, dinv, r, ks, shape, per, nu, active=active)
+        x = mg_prolong_add(x, cycle(level + 1, mg_restrict(res, levels[level + 1][1], active)), active)
+        return jacobi_post(w, dinv, r, x, ks, shape, per, nu, active=active)
     return cycle(0, r_nd)
 
 

@@ -35,9 +35,9 @@ they are Python loops over device tensors.
 
 Operators: the stencil matvec K1 (``ops/stencil.py``), the block-grid
 matvec K5 (``ops/blockgrid.py``) and the CSR matvec K9 (``csrc/csr_spmv.cu``,
-:func:`csr_matvec`).  Preconditioners: ``diag``, ``('mg', levels)``
-(kernels K2 and K3, ``ops/mg.py``) and ``('fieldsplit', offsets,
-subkinds)``.  The CSR value scatter of assembly is kernel K8
+:func:`csr_matvec`, on a row-block plan kept with the operand).
+Preconditioners: ``diag``, ``('mg', levels)`` (kernels K2 and K3,
+``ops/mg.py``) and ``('fieldsplit', offsets, subkinds)``.  The CSR value scatter of assembly is kernel K8
 (``csrc/csr_scatter.cu``, :func:`csr_scatter`).  Block Jacobi and the masked
 operator are ROADMAP A6 and A3.
 '''
@@ -150,24 +150,71 @@ def csr_matvec_plain(data, indices, indptr, x):
     return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(0, rows, data * x[indices.long()])
 
 
-def csr_matvec(data, indices, indptr, x):
+# K9's plan: nonzeros a block stages in shared memory (csr_lanes_sweep.py
+# times other values on the card: larger blocks leave L1 too little room
+# for the gathers of x in float64)
+CSR_CAP = 1024
+
+
+def csr_plan(indptr, cap=CSR_CAP):
+    '''K9's plan for the row pointers ``indptr``: int32 row starts
+    ``[0, ..., n]`` cutting the rows into blocks of at most ``cap``
+    nonzeros, except that a row of more than ``cap // 2`` nonzeros is a
+    block of its own.  Made on ``indptr``'s device from the targets
+    ``0, s, 2 s, ...`` along the nonzeros with ``s = cap - m`` (``m`` the
+    longest other row): the first row starting at or after a target opens
+    a block, so a block ends before it holds ``s + m`` nonzeros.  Two reads
+    of the device (nnz and ``m``).'''
+    ip = indptr.long()
+    n = int(ip.shape[0]) - 1
+    dev = ip.device
+    if n <= 0:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    lens = ip[1:] - ip[:-1]
+    long_rows = lens > cap // 2
+    nnz = int(ip[-1])
+    step = cap - int(torch.where(long_rows, 0, lens).max())
+    lr = torch.nonzero(long_rows).flatten()
+    cuts = torch.cat([torch.searchsorted(ip, torch.arange(0, nnz, step, device=dev)), lr, lr + 1,
+                      torch.tensor([0, n], device=dev)])
+    return torch.unique(cuts).to(torch.int32)
+
+
+def csr_plan_of(indptr):
+    '''K9's plan (:func:`csr_plan`) for ``indptr``, made at the first
+    call and kept on the tensor itself, so that it lives and dies with the
+    operand it describes.'''
+    plan = getattr(indptr, '_k9_plan', None)
+    if plan is None:
+        plan = indptr._k9_plan = csr_plan(indptr)
+    return plan
+
+
+def csr_matvec(data, indices, indptr, x, active=None, out=None):
     '''``y = A x`` for the CSR matrix (data, indices, indptr), kernel K9
     (``csrc/csr_spmv.cu``), replacing the unstructured operator kinds of
     ``nutils_tpu.ops.sparse._make_matvec`` (csr, ell, bell: the TPU's
     layouts of one function).  ``indices`` and ``indptr`` are int32 beside
-    ``data``.  Memory-bound: four lanes per row with a fixed-order shuffle
-    reduction.  Tensors on the CPU take :func:`csr_matvec_plain`; a
-    CUDA tensor launches the kernel or raises.'''
+    ``data``.  Memory-bound: row blocks of :func:`csr_plan_of` staged
+    through shared memory, each row summed in a fixed order.  ``y`` goes
+    into ``out`` where given; it is left unwritten while the int32 flag
+    ``active`` (the CG loop's, ``ops/cg.py``) is 0.  Tensors on the CPU take
+    :func:`csr_matvec_plain`; a CUDA tensor launches the kernel or
+    raises.'''
     if x.device.type == 'cpu':
-        return csr_matvec_plain(data, indices, indptr, x)
+        y = csr_matvec_plain(data, indices, indptr, x)
+        return y if out is None else out.copy_(y)
     n = int(indptr.shape[0]) - 1
     nnz = int(indices.shape[0])
     for name, t, shape in (('indices', indices, (nnz,)), ('indptr', indptr, (n + 1,))):
         if t.device != x.device or t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f'csr_matvec: {name} must be a contiguous int32 tensor of shape {shape} on {x.device}')
-    _kernels.check_operands('csr_matvec', x, (n,), x.dtype, data=(data, (nnz,)))
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
-    _kernels.call('ntt_csr_spmv', x, [data, indices, indptr, x, y], scalars=(n,))
+    y = torch.empty(n, dtype=x.dtype, device=x.device) if out is None else out
+    _kernels.check_operands('csr_matvec', x, (n,), x.dtype, data=(data, (nnz,)), out=(y, (n,)))
+    _kernels.check_flag('csr_matvec', active, x)
+    plan = csr_plan_of(indptr)
+    _kernels.call('ntt_csr_spmv', x, [data, indices, indptr, plan, x, y, active],
+                  scalars=(int(plan.shape[0]) - 1, CSR_CAP))
     csr_matvec.launches += 1
     return y
 
@@ -237,8 +284,8 @@ def _precon_apply(kind):
 
 
 def _make_matvec(mv_kind):
-    '''Resolve an operator kind to mv(op, x, active=None); the stencil
-    kernel does nothing while the CG loop's flag ``active`` is 0.'''
+    '''Resolve an operator kind to mv(op, x, active=None); the stencil and
+    CSR kernels do nothing while the CG loop's flag ``active`` is 0.'''
     if mv_kind[0] == 'stencil':
         _kind, ks, shape, periodic = mv_kind
 
@@ -256,7 +303,7 @@ def _make_matvec(mv_kind):
     if mv_kind[0] == 'csr':
         def mv(op, x, active=None):
             data, indices, indptr = op
-            return csr_matvec(data, indices, indptr, x)
+            return csr_matvec(data, indices, indptr, x, active)
         return mv
     raise NotImplementedError(f'matvec kind {mv_kind[0]!r} is not ported yet (ROADMAP A4, A6)')
 

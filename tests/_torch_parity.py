@@ -213,6 +213,19 @@ def forget_assembly(system):
     system._cache.pop('chunkplan', None)
 
 
+def csr_of_rows(lens, seed):
+    '''A square CSR matrix whose rows have the lengths ``lens``, then rows
+    of two nonzeros as far as the longest row needs columns (distinct,
+    sorted columns within a row; values from ``seed``): (data, indices,
+    indptr) as numpy arrays, int32 tables.'''
+    rng = numpy.random.default_rng(seed)
+    n = max(len(lens), max(lens) + 1)
+    lens = list(lens) + [2] * (n - len(lens))
+    indptr = numpy.concatenate([[0], numpy.cumsum(lens)]).astype(numpy.int32)
+    indices = numpy.concatenate([numpy.sort(rng.choice(n, k, replace=False)) for k in lens] + [[]])
+    return rng.standard_normal(indptr[-1]), indices.astype(numpy.int32), indptr
+
+
 def rel(a, b):
     '''Normwise relative difference of two arrays.'''
     a = numpy.asarray(a, dtype=numpy.float64)

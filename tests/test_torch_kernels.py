@@ -75,6 +75,45 @@ def test_multigrid_kernels(cuda, shape, cshape, ks, per, dtype, tol):
     assert _rel(got, x + mg.prolong_plain(xc, shape)) <= tol
 
 
+FUSED_CASES = [((1025, 1025), (1, 1), (True, False)),
+               ((1024, 1025), (1, 1), (False, True)),
+               ((3, 40), (1, 1), (True, True)),
+               ((129, 129, 65), (1, 1, 1), (False, True, False)),
+               ((2, 5, 33), (1, 1, 1), (True, True, False))]
+
+
+@pytest.mark.parametrize('nu', [1, 2])
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('shape,ks,per', FUSED_CASES)
+def test_fused_jacobi_is_its_single_sweeps(cuda, shape, ks, per, dtype, tol, nu):
+    # K2's fused launches give the bits of the single sweeps they replace
+    # (the Laplace grid, periodic axes, axes shorter than the halo, 3-D),
+    # and agree with the plain sweeps
+    rng = numpy.random.default_rng(11)
+    W = int(numpy.prod([2 * k + 1 for k in ks]))
+    w, dinv, r, x = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (
+        rng.standard_normal((W,) + shape), rng.random(shape) + 1, rng.standard_normal(shape),
+        rng.standard_normal(shape)))
+    assert mg.fused_shape(ks, nu)
+    before = mg.jacobi_pre.launches, mg.jacobi_post.launches, mg.jacobi_smooth.launches
+    xf, resf = mg.jacobi_pre(w, dinv, r, ks, shape, per, nu)
+    post = mg.jacobi_post(w, dinv, r, x, ks, shape, per, nu)
+    assert (mg.jacobi_pre.launches, mg.jacobi_post.launches, mg.jacobi_smooth.launches) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    xs = mg.jacobi_smooth(w, dinv, r, None, ks, shape, per, mode=0)
+    for _ in range(nu - 1):
+        xs = mg.jacobi_smooth(w, dinv, r, xs, ks, shape, per, mode=1)
+    ress = mg.jacobi_smooth(w, dinv, r, xs, ks, shape, per, mode=2)
+    posts = x
+    for _ in range(nu):
+        posts = mg.jacobi_smooth(w, dinv, r, posts, ks, shape, per, mode=1)
+    torch.cuda.synchronize()
+    assert torch.equal(xf, xs) and torch.equal(resf, ress) and torch.equal(post, posts)
+    xp, resp = mg.jacobi_pre_plain(w, dinv, r, ks, shape, per, mg.OMEGA, nu)
+    assert _rel(xf, xp) <= tol and _rel(resf, resp) <= tol
+    assert _rel(post, mg.jacobi_post_plain(w, dinv, r, x, ks, shape, per, mg.OMEGA, nu)) <= tol
+
+
 def _cg_state(dev, dtype, rz, pap, rzold, atol=0.0, maxiter=1000, k=0, reason=cg.RUNNING, active=1):
     """A K4 state with the given scalars (rounded to ``dtype``)."""
     st = cg.new_state(dev)
@@ -206,12 +245,13 @@ def test_cg_graph_driver_is_the_host_loop(cuda, precon):
 
 
 def test_cuda_slice_goes_through_the_kernels(cuda):
-    # the 65^2-dof slice in float64 on the card: every kernel launches, and
-    # the solution is the CPU's (plain versions) to 1e-8
+    # the 65^2-dof slice in float64 on the card: every kernel launches (K2
+    # as the fused sweeps alone: its levels are 2-D, k = 1), and the
+    # solution is the CPU's (plain versions) to 1e-8
     from nutils_tpu_torch import function, mesh
     from nutils_tpu_torch.solver import System
     from nutils_tpu_torch.utils import config
-    wrappers = [stencil.stencil_matvec, mg.jacobi_smooth, mg.mg_restrict, mg.mg_prolong_add,
+    wrappers = [stencil.stencil_matvec, mg.jacobi_pre, mg.jacobi_post, mg.mg_restrict, mg.mg_prolong_add,
                 cg.cg_dot, cg.cg_step, cg.cg_xpby]
     xs = []
     for device in ('cuda', 'cpu'):
@@ -223,9 +263,11 @@ def test_cuda_slice_goes_through_the_kernels(cuda):
             energy = topo.integral(((g @ g) / 2 + (u * u) / 2 - f * u) * function.J(geom), degree=2)
             jac, res = System(energy, trial='u').assemble_jacobian_residual({'u': numpy.zeros(65 * 65)})
             before = [wr.launches for wr in wrappers]
+            single = mg.jacobi_smooth.launches
             xs.append(jac.solve(res, solver='cg', rtol=1e-10))
             if device == 'cuda':
                 assert all(wr.launches > b for wr, b in zip(wrappers, before))
+                assert mg.jacobi_smooth.launches == single
                 assert jac._solve_stats['driver'] == 'graph'
     assert numpy.linalg.norm(xs[0] - xs[1]) <= 1e-8 * numpy.linalg.norm(xs[1])
 
@@ -361,6 +403,35 @@ def test_csr_matvec(cuda, rowlen, dtype, tol):
     got = sparse.csr_matvec(data, indices, indptr, x)
     assert sparse.csr_matvec.launches == launches + 1
     assert _rel(got, sparse.csr_matvec_plain(data, indices, indptr, x)) <= tol
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+def test_csr_matvec_rows(cuda, dtype, tol):
+    # rows of 0, 1, 3, 59 and more than CSR_CAP nonzeros, in an order that
+    # starts rows at every offset modulo K9's 16-byte loads; the same bits
+    # twice; with the flag at 0 nothing is written
+    import _torch_parity as tp
+    cap = sparse.CSR_CAP
+    lens = [0, 1, 3, 59, 0, 2 * cap + 5, 1, 59, cap // 2 + 1, 0, 3] * 40 + [cap, 7, 59, 1]
+    data, indices, indptr = tp.csr_of_rows(lens, 12)
+    xn = numpy.random.default_rng(13).standard_normal(len(indptr) - 1)
+    data, x = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (data, xn))
+    indices, indptr = (torch.as_tensor(a, device=cuda) for a in (indices, indptr))
+    got = sparse.csr_matvec(data, indices, indptr, x)
+    want = sparse.csr_matvec_plain(data, indices, indptr, x)
+    scale = sparse.csr_matvec_plain(data.abs(), indices, indptr, x.abs()).max()
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / scale) <= tol
+    assert torch.equal(got, sparse.csr_matvec(data, indices, indptr, x))
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.full_like(got, 7.0)
+    sparse.csr_matvec(data, indices, indptr, x, active=flag, out=out)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    flag.fill_(1)
+    sparse.csr_matvec(data, indices, indptr, x, active=flag, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
 
 
 @pytest.mark.parametrize('dtype,tol', TOLS)
