@@ -9,7 +9,7 @@ Phases, each printing JSON lines:
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; fails without a CUDA card.
-2. build    — builds the CUDA kernels K1-K5, K7-K9, K11 and K12 from
+2. build    — builds the CUDA kernels K1-K5, K7-K9 and K11-K14 from
    ``nutils_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, in
    parallel) and compiles the Triton kernels of K6 and K10.
 3. kernel   — K1-K4 against their plain PyTorch versions on the card, at
@@ -89,6 +89,28 @@ Phases, each printing JSON lines:
    Navier-Stokes step's System to 1e-5 of its first residual norm in at
    most 8 iterations: each iteration's norm, time, inner tolerance and
    solve record; every inner solve must be accepted on the device.
+18. elasticity — examples/elasticity.py on ``unitsquare(360, 'triangle')``
+   at degree 2 (259,200 triangles, 1,039,682 dofs) in float64 through the
+   port's entry points: ``solve_constraints``, then ``System.solve(
+   constrain=cons, method=Direct(solver='cg', precon='block',
+   preconargs={'blocksize': 2}))``, first part by part (the CSR assembly
+   through K8, K11 and K12; the masked operator and its nodal blocks'
+   inverse; block-Jacobi CG through K13, K9 and K4 from CUDA graphs, K13
+   at least once an iteration and no plain version run) and then as the
+   user calls it; the traction solve and the clamping force, (0, 1) to
+   1e-8.  Beside it, for the record, the same CG under the default
+   preconditioner (K7).  Then ``elasticity_masked``: block-Jacobi CG on the
+   device's masked operator of the whole jacobian (``_isfree=``: K14
+   around K9), the same free rows as the public solve to 1e-8, its set-up
+   beside the public one's.
+19. elasticity_kernels — K13 and K14 against their plain versions at that
+   path's shapes, in float32 and float64, beside ``torch.bmm`` and
+   ``torch.mul`` (``mask_post``: ``torch.mul`` then ``torch.addcmul``).
+20. elasticity_square — the example on 256^2 squares at degree 2 (526,338
+   dofs): its masked operator has the 3-D stencil form of 75 slots, so the
+   CG graphs hold K13 beside the 3-D K1.
+21. elasticity_parity — the example at 16 elements a side, triangles and
+   squares, on the card and on the CPU: u and t agree to 1e-10 relative.
 
 Each path's assembly line also gives ``t_assemble_generic``: the same
 System with every chunk on the generic ``vmap(jvp)`` route, in the same
@@ -99,6 +121,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 not 0.
 '''
 
+import contextlib
 import hashlib
 import json
 import statistics
@@ -137,6 +160,9 @@ KERNELS = {
     'bicg_p': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
     'elem_matrix': ('cuda', 'nutils_tpu_torch/csrc/assembly.cu', 'nutils_tpu/solver.py:1231'),
     'elem_vector': ('cuda', 'nutils_tpu_torch/csrc/assembly.cu', 'nutils_tpu/solver.py:950'),
+    'block_apply': ('cuda', 'nutils_tpu_torch/csrc/block_jacobi.cu', 'nutils_tpu/ops/sparse.py:122'),
+    'mask_pre': ('cuda', 'nutils_tpu_torch/csrc/masked.cu', 'nutils_tpu/ops/sparse.py:274'),
+    'mask_post': ('cuda', 'nutils_tpu_torch/csrc/masked.cu', 'nutils_tpu/ops/sparse.py:274'),
 }
 # the factored assembly's element contractions run on all three paths
 ASSEMBLY_KERNELS = ('elem_matrix', 'elem_vector')
@@ -154,6 +180,16 @@ EXAMPLE_KERNELS = ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict',
 # K2's single sweeps, the coarser levels (k = 1) through the fused ones
 P2_KERNELS = ('jacobi_smooth', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add')
 P2_NELEMS = 256
+# the elasticity example's displacement solve: block-Jacobi CG (K13) on the
+# masked CSR operator (K9) from CUDA graphs (K4), assembled through K8, K11
+# and K12; the masked operator of the device (K14) on the same jacobian;
+# on squares, K13 beside the 3-D stencil K1
+ELASTICITY_NELEMS = 360
+ELASTICITY_KERNELS = ('block_apply', 'csr_matvec', 'cg_dot', 'cg_step', 'cg_xpby', 'csr_scatter') + ASSEMBLY_KERNELS
+MASKED_KERNELS = ('mask_pre', 'mask_post', 'block_apply', 'csr_matvec', 'cg_dot', 'cg_step', 'cg_xpby')
+SQUARE_NELEMS = 256
+SQUARE_KERNELS = ('block_apply', 'stencil_matvec', 'cg_dot', 'cg_step', 'cg_xpby') + ASSEMBLY_KERNELS
+BLOCK_CG = {'solver': 'cg', 'precon': 'block', 'preconargs': {'blocksize': 2}}
 # kernel vs plain: float32 sums in another order (and with fused multiply-
 # adds) differ by a few ulps, float64 ones by a few ulps of float64
 TOL = {'float32': 1e-6, 'float64': 1e-14}
@@ -179,8 +215,10 @@ def emit(phase, **fields):
 
 
 def wrappers():
-    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_gmres, assembly, blockgrid, cg, mg, sparse, stencil
+    from nutils_tpu_torch.ops import (_triton_bicgstab, _triton_gmres, assembly, blockgrid, cg, mg, precon, sparse,
+                                      stencil)
     return {'elem_matrix': assembly.elem_matrix, 'elem_vector': assembly.elem_vector,
+            'block_apply': precon.block_apply, 'mask_pre': sparse.mask_pre, 'mask_post': sparse.mask_post,
             'stencil_matvec': stencil.stencil_matvec, 'jacobi_smooth': mg.jacobi_smooth,
             'jacobi_pre': mg.jacobi_pre, 'jacobi_post': mg.jacobi_post,
             'mg_restrict': mg.mg_restrict, 'mg_prolong_add': mg.mg_prolong_add,
@@ -1720,6 +1758,271 @@ def phase_ns_newton(nelems=330):
         raise AssertionError(f'Newton\'s inner solves left the device: {host}')
 
 
+@contextlib.contextmanager
+def plain_calls():
+    """Count, while the block is open, the calls of the plain versions that
+    the elasticity paths' kernels fall back to on the CPU: {name: calls}
+    (none may come from a path on the card)."""
+    from nutils_tpu_torch.ops import precon, sparse
+    counts = {}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (precon, 'block_apply_plain'), (sparse, 'mask_pre_plain'), (sparse, 'mask_post_plain'),
+        (sparse, 'csr_matvec_plain'))]
+    for mod, name, fn in saved:
+        def counting(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+        setattr(mod, name, counting)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_elasticity(nelems=ELASTICITY_NELEMS):
+    """examples/elasticity.py at ``nelems`` triangles a side, degree 2, in
+    float64, through the port's entry points: ``solve_constraints`` on the
+    clamped top, then ``System.solve(constrain=cons, method=Direct(solver=
+    'cg', precon='block', preconargs={'blocksize': 2}))`` part by part (the
+    CSR assembly through K8, K11 and K12, the masked operator and its
+    nodal-block inverse, block-Jacobi CG through K13, K9 and K4 from CUDA
+    graphs; no plain version may run) and as the user calls it, the
+    traction solve and the clamping force F, which must be (0, 1) to 1e-8.
+    Beside it, for the record, the same solve under the default
+    preconditioner (K7's Schur diagonal, plain Jacobi on this matrix).
+    Then block-Jacobi CG on the device's masked operator (``_isfree=``:
+    K14 around K9) of the whole jacobian, whose free rows must be the
+    public solve's to 1e-8.  Returns (launch counts, the block inverse of
+    the masked matrix, the free rows)."""
+    import _torch_parity as tp
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import sparse
+    from nutils_tpu_torch.solver import Direct, System
+    from nutils_tpu_torch.utils import config
+    with config.floatx(numpy.float64), config.device('cuda'):
+        t_forms, (domain, ns, sqr, energy, traction) = _sync_time(
+            lambda: tp.elasticity_forms('nutils_tpu_torch', nelems, 'triangle'))
+        t_system, (scons, system) = _sync_time(lambda: (System(sqr, trial='u'), System(energy, trial='u')))
+        ndofs = int(numpy.prod(system.trial_shapes[0]))
+        emit('elasticity_system', nelems=2 * nelems * nelems, ndofs=ndofs, t_forms=t_forms, t_system=t_system)
+        check_routes('elasticity', system)
+        t_cons, cons = _sync_time(lambda: scons.solve_constraints(droptol=1e-15))
+        constrained = int(numpy.isfinite(cons['u']).sum())
+        emit('elasticity_cons', t_cons=t_cons, constrained=constrained,
+             solve_stats=scons._cache['jacmat']._solve_stats)
+        if constrained != 2 * (2 * nelems + 1):
+            raise AssertionError(f'solve_constraints constrained {constrained} dofs, expected {2 * (2 * nelems + 1)}')
+        # host planning: the CSR pattern sort and the value scatter's plan
+        t_pattern, (_meta, lazy, jplan) = _sync_time(lambda: system._jac_layout)
+        t_pattern_sort, pattern = _sync_time(lazy.get)
+        if jplan is not None:
+            raise AssertionError(f'the elasticity example planned a {jplan["form"]} jacobian, expected CSR')
+        arguments, x = system.deconstruct({}, cons)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t_assemble_first, (jac, r) = _sync_time(lambda: system.assemble_jacobian_residual(arguments, x))
+        peak_first = _peak()
+        clean = system._clean(system.construct(arguments, x))
+        fn = system._compiled('jacres')
+        t_assemble = min(_sync_time(lambda: fn(clean))[0] for _ in range(2))
+        emit('elasticity_assembly', entries=int(len(pattern.slot)), nnz=int(pattern.nnz),
+             t_pattern=t_pattern + t_pattern_sort, t_assemble_first=t_assemble_first, t_assemble=t_assemble,
+             peak_first_bytes=peak_first)
+        # System.solve(constrain=cons) part by part: the masked operator and
+        # its form, the nodal blocks' inverse, the block-Jacobi CG
+        parent, isfree = jac._parent, jac._mask
+        t_mask, masked = _sync_time(lambda: parent._masked(isfree))
+        t_op_form, op = _sync_time(masked._device_op)
+        t_precon, pc = _sync_time(lambda: masked.getprecon('block', blocksize=2))
+        with plain_calls() as plain:
+            t_solve, dx = _sync_time(lambda: jac.solve(r, **BLOCK_CG))
+            stats = dict(jac._solve_stats)
+            launches = read_launches(ELASTICITY_KERNELS)
+            warm = [_sync_time(lambda: jac.solve(r, **BLOCK_CG)) for _ in range(3)]
+        t_solve_warm = statistics.median(t for t, _dx in warm)
+        warm_stats = dict(jac._solve_stats)
+        repeatable = all(numpy.array_equal(d, dx) for _t, d in warm)
+        t_check, jdx = _sync_time(lambda: jac @ dx)
+        rel_residual = tp.rel(jdx, r)
+        # the default preconditioner, for the record: what the nodal
+        # blocks buy over plain Jacobi
+        t_default, dx_default = _sync_time(lambda: jac.solve_leniently(r, solver='cg'))
+        default_stats = dict(jac._solve_stats)
+        t_default_warm = statistics.median(_sync_time(lambda: jac.solve_leniently(r, solver='cg'))[0]
+                                           for _ in range(3))
+        emit('elasticity_solve_parts', t_mask=t_mask, op_form=op[0][0], t_op_form=t_op_form, t_precon=t_precon,
+             t_solve=t_solve, t_solve_warm=t_solve_warm, solve_stats=stats, warm_solve_stats=warm_stats,
+             repeatable=repeatable, t_host_residual=t_check, rel_residual=rel_residual, launches=launches,
+             plain_calls=plain, default_precon=dict(t_solve=t_default, t_solve_warm=t_default_warm,
+                                                    solve_stats=default_stats, rel_to_block=tp.rel(dx_default, dx)))
+        # as the user calls it, then the traction solve and the force
+        t_solve_entry, args = _sync_time(lambda: system.solve(constrain=cons, method=Direct(**BLOCK_CG)))
+        tsystem = System(traction, trial='t', test='u')
+        t_traction, args = _sync_time(lambda: tsystem.solve(constrain={'t': numpy.isnan(cons['u'])}, arguments=args))
+        t_force, F = _sync_time(lambda: numpy.asarray(
+            domain.boundary['top'].integrate('t_i dS' @ ns, degree=4, arguments=args)))
+        peak = _peak()
+        # the device's masked operator on the whole jacobian
+        full, res = system.assemble_jacobian_residual({'u': numpy.zeros(system.trial_shapes[0])})
+        free = numpy.isnan(cons['u']).ravel()
+        t_full_op, (mv_kind, fop) = _sync_time(full._device_op)
+        t_full_precon, _pc = _sync_time(lambda: full.getprecon('block', blocksize=2))
+        t_mask_device, _mop = _sync_time(lambda: full._masked_op(mv_kind, fop, sparse.widen(fop), free))
+        b = numpy.where(free, res, 0.)
+        reset_launches()
+        with plain_calls() as mplain:
+            t_msolve, dxm = _sync_time(lambda: full._solve_cg(b, atol=0., rtol=1e-11, precon='block',
+                                                              preconargs={'blocksize': 2}, _isfree=free))
+            mstats = dict(full._solve_stats)
+            mlaunches = read_launches(MASKED_KERNELS)
+            t_msolve_warm = _sync_time(lambda: full._solve_cg(b, atol=0., rtol=1e-11, precon='block',
+                                                              preconargs={'blocksize': 2}, _isfree=free))[0]
+        rel_masked = tp.rel(dxm[free], dx)
+    u = args['u']
+    force_error = float(numpy.abs(F - [0., 1.]).max())
+    emit('elasticity_masked', setup_public=dict(t_mask=t_mask, t_op_form=t_op_form, t_precon=t_precon),
+         setup_masked=dict(t_mask_device=t_mask_device, t_op_form=t_full_op, t_precon=t_full_precon),
+         t_solve=t_msolve, t_solve_warm=t_msolve_warm, solve_stats=mstats, launches=mlaunches, plain_calls=mplain,
+         rel_to_public=rel_masked, tol=1e-8)
+    emit('elasticity', nelems=2 * nelems * nelems, ndofs=ndofs, nnz=int(pattern.nnz), t_system=t_system,
+         t_cons=t_cons, t_pattern=t_pattern + t_pattern_sort, t_assemble_first=t_assemble_first,
+         t_assemble=t_assemble, t_precon=t_precon, t_solve=t_solve, t_solve_warm=t_solve_warm,
+         iters=stats['iters'], rounds=stats['rounds'], driver=stats.get('driver'), host_reads=stats.get('host_reads'),
+         t_solve_entry=t_solve_entry, t_traction=t_traction, t_force=t_force, F=F.tolist(), force_error=force_error,
+         rel_residual=rel_residual, peak_device_bytes=peak, default_iters=default_stats['iters'],
+         default_t_solve_warm=t_default_warm)
+    if u.shape != tuple(system.trial_shapes[0]) or not numpy.isfinite(u).all():
+        raise AssertionError('elasticity: the displacement is not a finite array of the field\'s shape')
+    want = {'method': 'cg', 'op_form': 'csr', 'precon': 'block', 'accepted_on_device': True, 'driver': 'graph'}
+    for record in (stats, warm_stats):
+        if any(record.get(k) != v for k, v in want.items()):
+            raise AssertionError(f'elasticity solved through {record}, expected {want}')
+    if launches['block_apply'] < stats['iters']:
+        raise AssertionError(f'K13 launched {launches["block_apply"]} times in {stats["iters"]} CG iterations')
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing or plain:
+        raise AssertionError(f'elasticity: kernels not launched {missing}, plain versions run {plain}')
+    if not force_error < 1e-8:
+        raise AssertionError(f'elasticity: the clamping force {F} is not (0, 1) to 1e-8')
+    mwant = {'method': 'cg', 'op_form': 'masked', 'precon': 'block', 'accepted_on_device': True}
+    if any(mstats.get(k) != v for k, v in mwant.items()) or not rel_masked <= 1e-8:
+        raise AssertionError(f'elasticity, masked operator: {mstats}, {rel_masked:.3e} from the public solve')
+    mmissing = [name for name, count in mlaunches.items() if count <= 0]
+    if mmissing or mplain:
+        raise AssertionError(f'elasticity, masked operator: kernels not launched {mmissing}, plain versions run '
+                             f'{mplain}')
+    return dict(launches, mask_pre=mlaunches['mask_pre'], mask_post=mlaunches['mask_post']), pc.minv, free
+
+
+def phase_elasticity_kernels(minv_host, free):
+    """K13 and K14 against their plain versions at the elasticity path's
+    shapes (its nodal blocks' inverse, n = 1,039,682, bs = 2; its mask), in
+    float32 and float64, timed beside one PyTorch call: ``torch.bmm`` of
+    the blocks for K13, ``torch.mul`` for ``mask_pre``; ``mask_post`` has no
+    one call (``torch.mul`` then ``torch.addcmul`` are timed, as
+    ``two_calls_ms``).  Returns {name: row} in float64, the path's dtype."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import precon, sparse
+    rng = numpy.random.default_rng(21)
+    nb, bs, _ = minv_host.shape
+    n = len(free)
+    if nb * bs != n:
+        raise AssertionError(f'elasticity: {n} dofs in {nb} blocks of {bs}')
+    r_np, x_np, y_np = (rng.standard_normal(n) for _ in range(3))
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split('.')[1]
+        isz = 4 if dtype == torch.float32 else 8
+        peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
+        minv = torch.as_tensor(minv_host, device='cuda').to(dtype)
+        m = torch.as_tensor(free, device='cuda').to(dtype)
+        mc = 1 - m
+        r, x, y = (torch.as_tensor(a, dtype=dtype, device='cuda') for a in (r_np, x_np, y_np))
+        z = torch.empty_like(r)
+        r3 = r.view(nb, bs, 1)
+        cases = {'block_apply': (lambda: precon.block_apply(minv, r, out=z), lambda: precon.block_apply_plain(minv, r),
+                                 lambda: precon.block_apply_plain(minv.abs(), r.abs()),
+                                 lambda: torch.bmm(minv, r3), None, (n * bs + 2 * n) * isz, 2 * bs * n),
+                 'mask_pre': (lambda: sparse.mask_pre(m, x, out=z), lambda: sparse.mask_pre_plain(m, x), None,
+                              lambda: torch.mul(m, x), None, 3 * n * isz, n),
+                 'mask_post': (lambda: sparse.mask_post(m, y, x, out=z), lambda: sparse.mask_post_plain(m, y, x), None,
+                               None, lambda: torch.addcmul(torch.mul(mc, x), m, y), 4 * n * isz, 4 * n)}
+        for name, (kernel, plain, magnitude, library, two_calls, nbytes, flops) in cases.items():
+            got, want = kernel().clone(), plain()
+            torch.cuda.synchronize()
+            err, relerr = _compare(got, want, None if magnitude is None else magnitude().max())
+            same_values = bool((got == want).all())
+            (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
+            fields = row(err, ms, plain_ms, nbytes, flops, None if library is None else time_ms(library)[0], peak)
+            extra = dict(n=n, bs=bs, call_ms=call_ms, same_values_as_plain=same_values)
+            if two_calls is not None:
+                extra['two_calls_ms'] = time_ms(two_calls)[0]
+            check_row(name, 'elasticity', dname, relerr, dict(fields, **extra))
+            if name != 'block_apply' and not same_values:
+                raise AssertionError(f'{name} ({dname}) differs from its plain version')
+            if dtype == torch.float64:
+                results[name] = dict(fields, **{k: v for k, v in extra.items() if k == 'two_calls_ms'})
+            del got, want
+    return results
+
+
+def phase_elasticity_square(nelems=SQUARE_NELEMS):
+    """The elasticity example on ``nelems``^2 squares at degree 2 (grid
+    (2 nelems + 1, 2 nelems + 1, 2), 526,338 dofs at 256) in float64 with
+    the same block-Jacobi CG: its masked operator has the 3-D stencil form
+    of ks (2, 2, 1), 75 slots, so the CG graphs hold K13 beside the 3-D K1.
+    Returns the launch counts of the run."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch.utils import config
+    with config.floatx(numpy.float64), config.device('cuda'):
+        reset_launches()
+        t, (cons, u, _t, F, system) = _sync_time(
+            lambda: tp.elasticity('nutils_tpu_torch', nelems, 'square', degree=2, **BLOCK_CG))
+        launches = read_launches(SQUARE_KERNELS)
+        jm = system._cache['jacmat']
+        stats = dict(jm._solve_stats)
+        mv_kind = jm._masked_solve_cache[1]._device_op()[0]
+    chunk = stats.get('graph_launches', {}).get('chunk', {})
+    force_error = float(numpy.abs(F - [0., 1.]).max())
+    emit('elasticity_square', nelems=nelems * nelems, ndofs=int(u.size), seconds=t, op=[mv_kind[0], list(mv_kind[1]),
+         list(mv_kind[2])], solve_stats=stats, F=F.tolist(), force_error=force_error, launches=launches)
+    if mv_kind[0] != 'stencil' or tuple(mv_kind[1]) != (2, 2, 1) or len(mv_kind[2]) != 3:
+        raise AssertionError(f'the square elasticity operator is {mv_kind}, not the 3-D stencil of ks (2, 2, 1)')
+    if stats['precon'] != 'block' or not stats['accepted_on_device'] or not (
+            chunk.get('block_apply', 0) > 0 and chunk.get('stencil_matvec', 0) > 0):
+        raise AssertionError(f'the square elasticity CG went {stats}')
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing or not force_error < 1e-8:
+        raise AssertionError(f'square elasticity: kernels not launched {missing}, force {F}')
+    return launches
+
+
+def phase_elasticity_parity(nelems=16, devices=('cuda', 'cpu')):
+    """The elasticity example at ``nelems`` elements a side, triangles and
+    squares at degree 2, in float64 with block-Jacobi CG, on the card and
+    through the port's CPU path: u and t agree to 1e-10 relative."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch.utils import config
+    for etype in ('triangle', 'square'):
+        out = {}
+        with config.floatx(numpy.float64):
+            for device in devices:
+                with config.device(device):
+                    cons, u, t, F, system = tp.elasticity('nutils_tpu_torch', nelems, etype, degree=2, **BLOCK_CG)
+                    out[device] = u, t, F, dict(system._cache['jacmat']._solve_stats)
+        (ua, ta, Fa, sa), (ub, tb, Fb, sb) = (out[d] for d in devices)
+        ru, rt = tp.rel(ua, ub), tp.rel(ta, tb)
+        emit('elasticity_parity', etype=etype, nelems=nelems, ndofs=int(ub.size), rel_u=ru, rel_t=rt, tol=1e-10,
+             F=[Fa.tolist(), Fb.tolist()], iters=[sa['iters'], sb['iters']], devices=list(devices))
+        if not (ru <= 1e-10 and rt <= 1e-10 and sa['precon'] == 'block'):
+            raise AssertionError(f'card and CPU elasticity ({etype}) differ: u {ru:.3e}, t {rt:.3e}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1777,6 +2080,14 @@ def main():
     phase_ns_newton()
     torch.cuda.empty_cache()
     by_path['laplace_example'] = {name: example_launches[name] for name in ASSEMBLY_KERNELS}
+    elasticity_launches, minv, free = phase_elasticity()
+    measured.update(phase_elasticity_kernels(minv, free))
+    del minv, free
+    torch.cuda.empty_cache()
+    phase_elasticity_square()
+    phase_elasticity_parity()
+    by_path['elasticity'] = {name: elasticity_launches[name] for name in ASSEMBLY_KERNELS}
+    launches.update({name: elasticity_launches[name] for name in ('block_apply', 'mask_pre', 'mask_post')})
     # K11 and K12: launches summed over the paths' runs, each path's beside
     # them; their float64 measurements on one of the example's element
     # chunks, written in place, beside those of the largest block

@@ -2,8 +2,9 @@
 
 K1 (``csrc/stencil.cu``), K2 and K3 (``csrc/mg.cu``), K4 (``csrc/cg.cu``),
 K5 (``csrc/blockgrid.cu``), K7 (``csrc/schur.cu``), K8
-(``csrc/csr_scatter.cu``), K9 (``csrc/csr_spmv.cu``) and K11 and K12
-(``csrc/assembly.cu``) compile with
+(``csrc/csr_scatter.cu``), K9 (``csrc/csr_spmv.cu``), K11 and K12
+(``csrc/assembly.cu``), K13 (``csrc/block_jacobi.cu``) and K14
+(``csrc/masked.cu``) compile with
 ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together, and
 link into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at first use, into
@@ -59,6 +60,9 @@ _SIG = {
     'ntt_csr_spmv': (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     'ntt_elem_matrix': (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _PI64, _P),
     'ntt_elem_vector': (_I, _P, _P, _P, _I, _I, _I, _I, _PI64, _P),
+    'ntt_block_apply': (_I, _P, _P, _P, _P, _I, _I, _P),
+    'ntt_mask_pre': (_I, _P, _P, _P, _P, _I, _P),
+    'ntt_mask_post': (_I, _P, _P, _P, _P, _P, _I, _P),
 }
 
 

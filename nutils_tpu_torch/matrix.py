@@ -19,17 +19,23 @@ CSR operand itself (kernel K9).  Solve backends:
   Stencil operators get the multigrid V-cycle, others the Schur-aware
   inverse diagonal computed on the device (kernel K7); a multi-field system
   whose diagonal scaling stalls is retried with the fieldsplit
-  preconditioner (velocity multigrid, pressure scaling).  Float64 is native
+  preconditioner (velocity multigrid, pressure scaling).  ``precon=`` picks
+  a preconditioner of :meth:`Matrix.getprecon` instead: ``diag``,
+  ``schurdiag`` or ``block`` (block Jacobi, kernel K13).  Float64 is native
   on the card, so the device residual is accepted under the same
   ``_accept`` contract as the JAX package's host polish loop, which is not
-  ported.
+  ported;
+* ``scipy:<name>``, ``bicg``, ``cgs``, ``lgmres`` (and ``bicgstab`` under a
+  host preconditioner, ``splu`` or ``spilu``) — scipy's iterative solvers on
+  the host in float64.
 
 Constrained solves (``solve(constrain=)``, ``submatrix``) follow the JAX
 package: the device Krylov methods solve the masked operator
 ``M A M + (I - M)``, built on the host with scipy once per mask and routed
 to its stencil, block-grid or CSR form like any other matrix; the other
-methods solve the free submatrix.  The host scipy solvers, the matrix
-algebra and block Jacobi are ROADMAP A3 and A6.
+methods solve the free submatrix.  The device solvers' ``_isfree=``
+keyword solves ``m A(m x) + (1 - m) x`` instead, the operator wrapped on
+the device by the mask (kernel K14).  The matrix algebra is ROADMAP A3.
 '''
 
 import time
@@ -270,15 +276,57 @@ class Matrix:
             return e.best
 
     def getprecon(self, precon='diag', **args):
-        '''Device preconditioner handle; ``diag`` (inverse diagonal) only.'''
+        '''Build (and cache, per name and arguments) a preconditioner
+        handle :class:`_Precon` (reference: ``nutils_tpu/matrix.py:400``).
+
+        Device kinds, fed to the Krylov loops on the card:
+
+        * ``diag`` — the inverse diagonal;
+        * ``schurdiag`` / ``schur-diag`` — the Schur-aware inverse diagonal
+          (:func:`ops.sparse.schur_diag_inverse`, on the host);
+        * ``block`` — block Jacobi of ``blocksize`` (4) rows: the dense
+          diagonal blocks inverted on the host once
+          (:func:`ops.precon.block_jacobi_inverse`), applied by kernel K13.
+
+        Host kinds, for scipy's solvers: ``direct`` / ``splu`` (sparse LU)
+        and ``spilu`` / ``spilu0`` (incomplete LU).'''
+        key = (precon, tuple(sorted(args.items())))
+        cached = getattr(self, '_precon_cache', None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
         if self.shape[0] != self.shape[1]:
             raise MatrixError('matrix must be square')
-        if precon != 'diag':
-            raise NotImplementedError(f'preconditioner {precon!r} is not ported yet (ROADMAP A4, A6)')
-        d = self.diagonal()
-        if not d.all():
-            raise MatrixError("building 'diag' preconditioner: diagonal has zero entries")
-        return 'diag', 1.0 / d
+        if precon == 'diag':
+            d = self.diagonal()
+            if not d.all():
+                raise MatrixError("building 'diag' preconditioner: diagonal has zero entries")
+            obj = _Precon('diag', minv=1.0 / d)
+        elif precon in ('schurdiag', 'schur-diag'):
+            from .ops.sparse import schur_diag_inverse
+            obj = _Precon('diag', minv=schur_diag_inverse(_host(self.data), self.indices, self.indptr, self.shape[0]))
+        elif precon == 'block':
+            from .ops.precon import block_jacobi_inverse
+            bs = int(args.get('blocksize', 4))
+            obj = _Precon('block', minv=block_jacobi_inverse(_host(self.data), self.indices, self.indptr,
+                                                             self.shape[0], bs))
+        elif precon in ('direct', 'splu'):
+            import scipy.sparse.linalg
+            try:
+                obj = _Precon('host', apply=scipy.sparse.linalg.factorized(self._scipy().tocsc()))
+            except RuntimeError as e:
+                raise MatrixError(f'failed to create preconditioner: {e}') from e
+        elif precon in ('spilu', 'spilu0'):
+            import scipy.sparse.linalg
+            if precon == 'spilu0':
+                args = dict(args, fill_factor=1.)
+            try:
+                obj = _Precon('host', apply=scipy.sparse.linalg.spilu(self._scipy().tocsc(), **args).solve)
+            except RuntimeError as e:
+                raise MatrixError(f'failed to create preconditioner: {e}') from e
+        else:
+            raise MatrixError(f'unknown preconditioner {precon!r}')
+        self._precon_cache = (key, obj)
+        return obj
 
     def _solve_free(self, rhs, solver, atol, rtol, symmetric, precon, **kwargs):
         if not len(rhs):
@@ -299,7 +347,8 @@ class Matrix:
                 return self._solve_cg(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
             if solver == 'gmres':
                 return self._solve_gmres(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
-            if solver == 'bicgstab' and precon not in ('direct', 'splu', 'spilu', 'spilu0'):
+            if solver == 'bicgstab' and not (precon in ('direct', 'splu', 'spilu', 'spilu0')
+                                             or getattr(precon, 'kind', None) == 'host'):
                 return self._solve_bicgstab(rhs, atol=atol, rtol=rtol or 1e-11, precon=precon, **kwargs)
         except ToleranceNotReached:
             if not fallback:
@@ -311,7 +360,38 @@ class Matrix:
             x = self._solve_direct(rhs)
             self._solve_stats = {'method': 'direct', 'accepted_on_device': False, 'fallback_from': failed}
             return x
-        raise NotImplementedError(f'solver {solver!r} (the host scipy solvers) is not ported yet (ROADMAP A6)')
+        if solver.startswith('scipy:'):
+            return self._solver_scipy(rhs, solver[6:], atol=atol, rtol=rtol, precon=precon, **kwargs)
+        if solver in ('bicg', 'bicgstab', 'cgs', 'lgmres'):  # host-precon bicgstab lands here
+            return self._solver_scipy(rhs, solver, atol=atol, rtol=rtol, precon=precon, **kwargs)
+        raise ValueError(f'unknown solver {solver!r}')
+
+    def _solver_scipy(self, rhs, method, *, atol, rtol, maxiter=None, precon=None, preconargs=None, **kwargs):
+        '''scipy's iterative solver ``method`` (``cg``, ``bicg``,
+        ``bicgstab``, ``cgs``, ``gmres``, ``lgmres``, ...) on the host CSR in
+        float64 (reference: ``nutils_tpu/matrix.py:893``), preconditioned by
+        the host apply of any :class:`_Precon`.'''
+        import scipy.sparse.linalg
+        solverfun = getattr(scipy.sparse.linalg, method, None)
+        if not callable(solverfun):
+            raise ValueError(f'unknown solver {"scipy:" + method!r}')
+        # the host solved it, whatever the outcome: no device record stays
+        self._solve_stats = {'method': f'scipy:{method}', 'accepted_on_device': False}
+        A = self._scipy().astype(numpy.float64)
+        M = None
+        if precon is not None:
+            obj = precon if isinstance(precon, _Precon) else self.getprecon(precon, **(preconargs or {}))
+            apply = obj.apply_host()
+            # rmatvec: exact for the symmetric diag and block kinds, the
+            # customary same-operator approximation for ILU (bicg needs it)
+            M = scipy.sparse.linalg.LinearOperator(A.shape, apply, rmatvec=apply, dtype=float)
+        target = max(atol, rtol * float(numpy.linalg.norm(rhs)))
+        if maxiter is None and method == 'lgmres':
+            maxiter = 1000
+        x, info = solverfun(A, rhs, M=M, atol=target, rtol=0., maxiter=maxiter, **kwargs)
+        if info != 0:
+            raise ToleranceNotReached(x)
+        return x
 
     def _solve_direct(self, rhs):
         import scipy.sparse.linalg
@@ -411,12 +491,14 @@ class Matrix:
         return cached
 
     def _device_precon(self, precon, preconargs):
-        '''(kind, minv) for the device Krylov solvers.  The default is the
-        Schur-aware inverse diagonal: plain Jacobi on rows with a healthy
-        diagonal, a diagonal Schur-complement estimate on rows whose diagonal
-        is negligible (the pressure block of saddle-point systems).  It is
-        computed on the device (kernel K7) from the device weights or CSR
-        values and pattern-cached tables, and cached per matrix.'''
+        '''(kind, minv) for the device Krylov solvers, from a
+        :class:`_Precon` or a name of :meth:`getprecon`; a host kind raises.
+        The default (``None``) is the Schur-aware inverse diagonal: plain
+        Jacobi on rows with a healthy diagonal, a diagonal Schur-complement
+        estimate on rows whose diagonal is negligible (the pressure block of
+        saddle-point systems).  It is computed on the device (kernel K7) from
+        the device weights or CSR values and pattern-cached tables, and
+        cached per matrix.'''
         if precon is None:
             cached = getattr(self, '_device_precon_cache', None)
             if cached is None:
@@ -425,7 +507,40 @@ class Matrix:
                 cached = self._device_precon_cache = (
                     'diag', schur_diag_inverse_device(w, cmap, indices, indptr, self.shape[0]))
             return cached
-        return self.getprecon(precon, **(preconargs or {}))
+        obj = precon if isinstance(precon, _Precon) else self.getprecon(precon, **(preconargs or {}))
+        if obj.kind == 'host':
+            raise MatrixError('host preconditioner cannot feed the device solver')
+        return obj.kind, obj.minv
+
+    def _device_minv(self, minv, device, dtype, isfree=None):
+        '''``minv`` (a host array or a device tensor of any shape) as a
+        tensor of ``dtype`` on ``device``, set to 1 on the rows that
+        ``isfree`` fixes where given (a diagonal's); kept for the same
+        ``minv`` and mask, so repeated solves hand the CG graphs the same
+        operand.'''
+        key = (device, dtype, None if isfree is None else isfree.tobytes())
+        cached = getattr(self, '_device_minv_cache', None)
+        if cached is not None and cached[0] is minv and cached[1] == key:
+            return cached[2]
+        t = torch.as_tensor(minv, device=device).to(dtype)
+        if isfree is not None:
+            t = torch.where(torch.as_tensor(isfree, device=device), t, torch.ones((), dtype=dtype, device=device))
+        self._device_minv_cache = (minv, key, t)
+        return t
+
+    def _masked_op(self, mv_kind, op, op64, isfree):
+        '''The masked operator ``m A(m x) + (1 - m) x`` of free mask
+        ``isfree`` around the operator (mv_kind, op) and its float64 twin
+        ``op64``: ``('masked', mv_kind)``, the mask (in each operand's dtype)
+        first in each operand (reference: ``nutils_tpu/matrix.py:538``).
+        Kept per mask and operator.'''
+        key = isfree.tobytes()
+        cached = getattr(self, '_masked_op_cache', None)
+        if cached is None or cached[0] != key or cached[1] is not op:
+            m = torch.as_tensor(isfree, device=op[0].device)
+            cached = self._masked_op_cache = (key, op, ('masked', mv_kind), (m.to(op[0].dtype),) + tuple(op),
+                                              (m.to(torch.float64),) + tuple(op64))
+        return cached[2:]
 
     def _mg(self):
         '''Cached geometric-multigrid hierarchy for stencil-form matrices
@@ -524,7 +639,7 @@ class Matrix:
         return float(resnorm) <= floor
 
     def _device_krylov(self, method, rhs, *, atol, rtol, maxiter=None, restart=100,
-                       precon=None, preconargs=None):
+                       precon=None, preconargs=None, _isfree=None):
         '''Mixed-precision iteratively refined device Krylov solve: the inner
         CG, GMRES or BiCGStab runs on the device in the assembly dtype inside a float64
         refinement loop whose true residual is computed on the device
@@ -532,15 +647,21 @@ class Matrix:
         multigrid V-cycle as preconditioner (it also preconditions GMRES on
         nonsymmetric stencils), others the device Schur diagonal; a
         multi-field solve that the diagonal scaling does not carry to the
-        target is retried with the fieldsplit preconditioner.  The float64
-        device residual is the acceptance test (``_accept``).'''
+        target is retried with the fieldsplit preconditioner.  ``_isfree``
+        (a boolean mask of the free rows) solves the masked operator
+        ``m A(m x) + (1 - m) x`` instead, with neither the multigrid default
+        nor the retry, and a diagonal preconditioner set to 1 on the fixed
+        rows.  The float64 device residual (of the masked operator, where
+        masked) is the acceptance test (``_accept``).'''
         from .ops.sparse import refined_solve_op, widen
         b64 = numpy.asarray(rhs, dtype=numpy.float64)
         target = max(atol, rtol * float(numpy.linalg.norm(b64)))
         mv_kind, op = self._device_op()
         dt = op[0].dtype
+        if _isfree is not None:
+            _isfree = numpy.asarray(_isfree, dtype=bool)
         kind = minv = None
-        if precon is None and mv_kind[0] == 'stencil':
+        if precon is None and _isfree is None and mv_kind[0] == 'stencil':
             mg = self._mg()
             if mg is not None:
                 kind = ('mg', mg.levels)
@@ -555,12 +676,14 @@ class Matrix:
                 precon = None
         if kind is None:
             kind, minv = self._device_precon(precon, preconargs)
-            minv = torch.as_tensor(minv, device=op[0].device).to(dt)
+            minv = self._device_minv(minv, op[0].device, dt, _isfree if kind == 'diag' else None)
         n = self.shape[0]
         cap = maxiter or max(1024, int(16 * numpy.sqrt(n)))
         op64 = getattr(self, '_op64_cache', None)
         if op64 is None:
             op64 = self._op64_cache = widen(op)
+        if _isfree is not None:
+            mv_kind, op, op64 = self._masked_op(mv_kind, op, op64, _isfree)
         t0 = time.perf_counter()
         driver = {}
         x, resnorm, iters, rounds = refined_solve_op(
@@ -579,7 +702,7 @@ class Matrix:
             **driver,
         }
         if not self._accept(x, resnorm, target, numpy.float64):
-            if precon is None and getattr(self, '_field_offsets', None) is not None \
+            if precon is None and _isfree is None and getattr(self, '_field_offsets', None) is not None \
                     and self._fieldsplit() is not None:
                 # second tier: stiff (diffusion-dominant) multi-field systems
                 # defeat the diagonal scaling but converge under the
@@ -593,23 +716,54 @@ class Matrix:
                   f'(device resnorm {resnorm:.1e}, target {target:.1e})')
         return x
 
-    def _solve_cg(self, rhs, *, atol, rtol, maxiter=None, precon=None, preconargs=None):
+    def _solve_cg(self, rhs, *, atol, rtol, maxiter=None, precon=None, preconargs=None, _isfree=None):
         '''Preconditioned CG: device inner loop + float64 iterative
         refinement (see _device_krylov).'''
         return self._device_krylov('cg', rhs, atol=atol, rtol=rtol, maxiter=maxiter,
-                                   precon=precon, preconargs=preconargs)
+                                   precon=precon, preconargs=preconargs, _isfree=_isfree)
 
-    def _solve_gmres(self, rhs, *, atol, rtol, maxiter=None, restart=100, precon=None, preconargs=None):
+    def _solve_gmres(self, rhs, *, atol, rtol, maxiter=None, restart=100, precon=None, preconargs=None,
+                     _isfree=None):
         '''Restarted GMRES(m): device inner loop + float64 iterative
         refinement (see _device_krylov).'''
         return self._device_krylov('gmres', rhs, atol=atol, rtol=rtol, maxiter=maxiter,
-                                   restart=restart, precon=precon, preconargs=preconargs)
+                                   restart=restart, precon=precon, preconargs=preconargs, _isfree=_isfree)
 
-    def _solve_bicgstab(self, rhs, *, atol, rtol, maxiter=None, precon=None, preconargs=None):
+    def _solve_bicgstab(self, rhs, *, atol, rtol, maxiter=None, precon=None, preconargs=None, _isfree=None):
         '''Right-preconditioned BiCGStab: device inner loop + float64
         iterative refinement (see _device_krylov).'''
         return self._device_krylov('bicgstab', rhs, atol=atol, rtol=rtol, maxiter=maxiter,
-                                   precon=precon, preconargs=preconargs)
+                                   precon=precon, preconargs=preconargs, _isfree=_isfree)
+
+
+class _Precon:
+    '''Preconditioner handle (reference: ``nutils_tpu/matrix.py:1062``):
+    the device kinds ``'diag'`` and ``'block'`` carry ``minv`` (an ``[n]``
+    or ``[nb, bs, bs]`` host array) for the device Krylov loops, the kind
+    ``'host'`` an ``apply`` callable for scipy's solvers; every kind has a
+    host apply (:meth:`apply_host`).'''
+
+    def __init__(self, kind, minv=None, apply=None):
+        self.kind = kind
+        self.minv = minv
+        self.apply = apply
+
+    def apply_host(self):
+        if self.kind == 'host':
+            return self.apply
+        if self.kind == 'diag':
+            minv = self.minv
+            return lambda v: minv * v
+        if self.kind == 'block':
+            minv = numpy.asarray(self.minv)
+            nb, bs, _ = minv.shape
+
+            def apply(v):
+                n = len(v)
+                vp = numpy.pad(v, (0, nb * bs - n))
+                return numpy.einsum('bij,bj->bi', minv, vp.reshape(nb, bs)).ravel()[:n]
+            return apply
+        raise MatrixError(self.kind)
 
 
 class _SubMatrix(Matrix):

@@ -34,12 +34,14 @@ they are Python loops over device tensors.
   :func:`schur_diag_inverse_device`).
 
 Operators: the stencil matvec K1 (``ops/stencil.py``), the block-grid
-matvec K5 (``ops/blockgrid.py``) and the CSR matvec K9 (``csrc/csr_spmv.cu``,
-:func:`csr_matvec`, on a row-block plan kept with the operand).
-Preconditioners: ``diag``, ``('mg', levels)`` (kernels K2 and K3,
-``ops/mg.py``) and ``('fieldsplit', offsets, subkinds)``.  The CSR value scatter of assembly is kernel K8
-(``csrc/csr_scatter.cu``, :func:`csr_scatter`).  Block Jacobi and the masked
-operator are ROADMAP A6 and A3.
+matvec K5 (``ops/blockgrid.py``), the CSR matvec K9 (``csrc/csr_spmv.cu``,
+:func:`csr_matvec`, on a row-block plan kept with the operand), and any of
+them masked, ``('masked', kind)``: ``m A(m x) + (1 - m) x`` through the two
+passes of kernel K14 (``csrc/masked.cu``, :func:`mask_pre`,
+:func:`mask_post`).  Preconditioners: ``diag``, ``block`` (kernel K13,
+``ops/precon.py``), ``('mg', levels)`` (kernels K2 and K3, ``ops/mg.py``)
+and ``('fieldsplit', offsets, subkinds)``.  The CSR value scatter of
+assembly is kernel K8 (``csrc/csr_scatter.cu``, :func:`csr_scatter`).
 '''
 
 import collections
@@ -53,6 +55,7 @@ from .. import _kernels
 from . import blockgrid as _bg
 from . import cg as _cg
 from . import mg as _mg
+from . import precon as _precon
 from . import stencil as _st
 from . import _triton_bicgstab as _bicg
 from ._triton_gmres import gmres_combine, gmres_normalize, gmres_project, gmres_update
@@ -255,14 +258,76 @@ def csr_scatter(values, order, segptr, slot=None):
 _kernels.counted(csr_scatter)
 
 
+# ------------------------------------------------------------ masked operator
+
+def mask_pre_plain(m, x):
+    '''Plain torch version of :func:`mask_pre`: ``m * x``.'''
+    return m * x
+
+
+def mask_post_plain(m, y, x):
+    '''Plain torch version of :func:`mask_post`: ``m * y + (1 - m) * x``.'''
+    return m * y + (1.0 - m) * x
+
+
+def _check_mask(name, m, x, active, **named):
+    n = int(x.shape[0])
+    if n >= 2**31:
+        raise ValueError(f'{name}: {n} entries pass 2^31')
+    _kernels.check_operands(name, x, (n,), x.dtype, m=(m, (n,)), **{k: (t, (n,)) for k, t in named.items()})
+    _kernels.check_flag(name, active, x)
+    return n
+
+
+def mask_pre(m, x, active=None, out=None):
+    '''``xm = m x`` for the free-dof mask ``m`` (1 free, 0 fixed, in
+    ``x``'s dtype), the first pass of the masked operator ``m A(m x) +
+    (1 - m) x`` of ``nutils_tpu.ops.sparse._make_matvec``: kernel K14
+    (``csrc/masked.cu``).  ``xm`` goes into ``out`` where given; it is left
+    unwritten while the int32 flag ``active`` (the CG loop's) is 0.
+    Tensors on the CPU take :func:`mask_pre_plain`; a CUDA tensor launches
+    the kernel or raises.'''
+    if x.device.type == 'cpu':
+        xm = mask_pre_plain(m, x)
+        return xm if out is None else out.copy_(xm)
+    xm = torch.empty_like(x) if out is None else out
+    n = _check_mask('mask_pre', m, x, active, out=xm)
+    _kernels.call('ntt_mask_pre', x, [m, x, xm, active], scalars=(n,))
+    mask_pre.launches += 1
+    return xm
+
+
+_kernels.counted(mask_pre)
+
+
+def mask_post(m, y, x, active=None, out=None):
+    '''``m y + (1 - m) x`` for the free-dof mask ``m`` and ``y = A(m x)``,
+    the second pass of the masked operator: kernel K14
+    (``csrc/masked.cu``).  The result goes into ``out`` where given, which
+    may be ``y`` itself; it is left unwritten while the int32 flag
+    ``active`` is 0.  Tensors on the CPU take :func:`mask_post_plain`; a
+    CUDA tensor launches the kernel or raises.'''
+    if x.device.type == 'cpu':
+        z = mask_post_plain(m, y, x)
+        return z if out is None else out.copy_(z)
+    z = torch.empty_like(x) if out is None else out
+    n = _check_mask('mask_post', m, x, active, y=y, out=z)
+    _kernels.call('ntt_mask_post', x, [m, y, x, z, active], scalars=(n,))
+    mask_post.launches += 1
+    return z
+
+
+_kernels.counted(mask_post)
+
+
 # ------------------------------------------------------------ precon apply
 
 def _precon_apply(kind):
-    '''Resolve a precon kind — ``'diag'``, ``('mg', levels)`` with the
-    static per-level (ks, shape, periodic) tuple, or
+    '''Resolve a precon kind — ``'diag'``, ``'block'``, ``('mg', levels)``
+    with the static per-level (ks, shape, periodic) tuple, or
     ``('fieldsplit', offsets, subkinds)`` — to apply(operand, r, active=None);
-    the multigrid kernels do nothing while the CG loop's flag ``active`` is
-    0.'''
+    the block-Jacobi and multigrid kernels do nothing while the CG loop's
+    flag ``active`` is 0.'''
     if isinstance(kind, tuple) and kind[0] == 'mg':
         levels = kind[1]
         shape = levels[0][1]
@@ -280,12 +345,24 @@ def _precon_apply(kind):
         return apply
     if kind == 'diag':
         return lambda minv, r, active=None: minv * r
-    raise NotImplementedError(f'preconditioner {kind!r} is not ported yet (ROADMAP A4, A6)')
+    if kind == 'block':
+        return _precon.block_apply
+    raise ValueError(f'unknown preconditioner kind {kind!r}')
 
 
 def _make_matvec(mv_kind):
-    '''Resolve an operator kind to mv(op, x, active=None); the stencil and
-    CSR kernels do nothing while the CG loop's flag ``active`` is 0.'''
+    '''Resolve an operator kind to mv(op, x, active=None); the stencil,
+    CSR and mask kernels do nothing while the CG loop's flag ``active`` is
+    0.  ``('masked', kind)`` takes the mask first in its operand, then
+    ``kind``'s.'''
+    if mv_kind[0] == 'masked':
+        inner = _make_matvec(mv_kind[1])
+
+        def mv(op, x, active=None):
+            m = op[0]
+            y = inner(op[1:], mask_pre(m, x, active), active)
+            return mask_post(m, y, x, active, out=y)
+        return mv
     if mv_kind[0] == 'stencil':
         _kind, ks, shape, periodic = mv_kind
 
@@ -305,7 +382,7 @@ def _make_matvec(mv_kind):
             data, indices, indptr = op
             return csr_matvec(data, indices, indptr, x, active)
         return mv
-    raise NotImplementedError(f'matvec kind {mv_kind[0]!r} is not ported yet (ROADMAP A4, A6)')
+    raise ValueError(f'unknown matvec kind {mv_kind[0]!r}')
 
 
 # ------------------------------------------------------------ CG

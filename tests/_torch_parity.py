@@ -72,6 +72,62 @@ def laplace_example(pkg, nelems=4, etype='square', btype='std', degree=1):
     return cons['u'], args['u'], err
 
 
+def elasticity_forms(pkg, nelems=8, etype='square', btype='std', degree=2, poisson=.3):
+    '''``examples/elasticity.py``'s domain, namespace and functionals
+    through package ``pkg``: the constraints' ``sqr``, the ``energy`` of the
+    plate under its load and the traction system's functional.'''
+    function, mesh, _solver, _config = modules(pkg)
+    Namespace = importlib.import_module(f'{pkg}.expression').Namespace
+    domain, geom = mesh.unitsquare(nelems, etype)
+    ns = Namespace()
+    ns.δ = function.eye(2)
+    ns.x = geom
+    ns.define_for('x', gradient='∇', normal='n', jacobians=('dV', 'dS'))
+    ns.u = domain.field('u', btype=btype, degree=degree, shape=[2])
+    ns.X_i = 'x_i + u_i'
+    ns.λ = 1
+    ns.μ = .5 / poisson - 1
+    ns.ε_ij = '.5 (∇_i(u_j) + ∇_j(u_i))'
+    ns.σ_ij = 'λ ε_kk δ_ij + 2 μ ε_ij'
+    ns.E = 'ε_ij σ_ij'
+    ns.q_i = '-δ_i1'
+    ns.t = domain.field('t', btype=btype, degree=degree, shape=[2])
+    sqr = domain.boundary['top'].integral('u_k u_k dS' @ ns, degree=degree * 2)
+    energy = domain.integral('(E - u_i q_i) dV' @ ns, degree=degree * 2)
+    traction = energy - domain.boundary['top'].integral('u_i t_i dS' @ ns, degree=degree * 2)
+    return domain, ns, sqr, energy, traction
+
+
+def elasticity(pkg, nelems=8, etype='square', btype='std', degree=2, poisson=.3, **linargs):
+    '''``examples/elasticity.py``'s ``main`` through package ``pkg``,
+    without its figure, its displacement solve under ``Direct(**linargs)``:
+    (cons, u, t, F, the displacement's System), F the total clamping
+    force.'''
+    solver = modules(pkg)[2]
+    domain, ns, sqr, energy, traction = elasticity_forms(pkg, nelems, etype, btype, degree, poisson)
+    cons = solver.System(sqr, trial='u').solve_constraints(droptol=1e-15)
+    system = solver.System(energy, trial='u')
+    args = system.solve(constrain=cons, method=solver.Direct(**linargs))
+    args = solver.System(traction, trial='t', test='u').solve(constrain={'t': numpy.isnan(cons['u'])},
+                                                               arguments=args)
+    F = domain.boundary['top'].integrate('t_i dS' @ ns, degree=degree * 2, arguments=args)
+    return cons['u'], args['u'], args['t'], numpy.asarray(F), system
+
+
+def spd_jacobian(pkg, form):
+    '''The jacobian and residual at zero of a symmetric positive definite
+    system whose matrix in the port has the given form: the Laplace slice
+    with reaction (``'stencil'``), the weakly coupled two-field energy
+    (``'blockgrid'``), the slice's form on P2 triangles (``'csr'``).'''
+    if form == 'stencil':
+        system = build_laplace(pkg, 8, reaction=True)
+    elif form == 'blockgrid':
+        system = build_two_field(pkg, 8)
+    else:
+        system = build_laplace(pkg, 5, reaction=True, etype='triangle', degree=2)
+    return system.assemble_jacobian_residual({t: numpy.zeros(s) for t, s in zip(system.trials, system.trial_shapes)})
+
+
 def build_fem_system(pkg, nelems=8):
     '''The Stokes-like mixed system of ``tests/test_matrix.py``
     (``_fem_system``), with convection: nonsymmetric after

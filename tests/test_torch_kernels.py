@@ -1,4 +1,4 @@
-'''The hand kernels of nutils_tpu_torch (K1-K12) against their plain PyTorch
+'''The hand kernels of nutils_tpu_torch (K1-K14) against their plain PyTorch
 versions, on a CUDA card.  This file imports no jax, so it runs where the
 card is:
 
@@ -15,7 +15,7 @@ import torch
 from nutils_tpu_torch import _kernels, matrix
 from nutils_tpu_torch.ops import _triton_bicgstab as tbi
 from nutils_tpu_torch.ops import _triton_gmres as tgm
-from nutils_tpu_torch.ops import assembly, blockgrid, cg, mg, sparse, stencil
+from nutils_tpu_torch.ops import assembly, blockgrid, cg, mg, precon, sparse, stencil
 
 pytestmark = pytest.mark.gpu
 
@@ -663,3 +663,98 @@ def test_cuda_chunked_assembly_is_the_unchunked(cuda, case):
     (wa, ra), (wb, rb) = out
     assert float((wa - wb).abs().max()) <= 1e-12 * float(wb.abs().max())
     assert float((ra - rb).abs().max()) <= 1e-12 * float(rb.abs().max())
+
+
+# K13 and K14 on vectors of one row, of 1,003 rows (a ragged last block
+# for every block size from 2 to 8) and of the elasticity path's 1,039,682
+APPLY_ROWS = [1, 1003, 1039682]
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('bs', range(1, 9))
+@pytest.mark.parametrize('n', APPLY_ROWS)
+def test_block_apply(cuda, n, bs, dtype, tol):
+    rng = numpy.random.default_rng(n + bs)
+    nb = -(-n // bs)
+    minv = torch.as_tensor(rng.standard_normal((nb, bs, bs)), dtype=dtype, device=cuda)
+    r = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    launches = precon.block_apply.launches
+    got = precon.block_apply(minv, r)
+    assert precon.block_apply.launches == launches + 1
+    want = precon.block_apply_plain(minv, r)
+    scale = precon.block_apply_plain(minv.abs(), r.abs())
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / scale.max()) <= tol
+    assert torch.equal(got, precon.block_apply(minv, r))
+    # the loop's flag: 0 leaves out untouched, 1 writes it
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.full_like(r, 7.0)
+    assert precon.block_apply(minv, r, active=flag, out=out) is out
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    flag.fill_(1)
+    precon.block_apply(minv, r, active=flag, out=out)
+    assert torch.equal(out, got)
+
+
+def test_block_apply_refuses(cuda):
+    r = torch.zeros(10, device=cuda)
+    with pytest.raises(ValueError):
+        precon.block_apply(torch.zeros((2, 9, 9), device=cuda), torch.zeros(18, device=cuda))
+    with pytest.raises(ValueError):
+        precon.block_apply(torch.zeros((2, 4, 4), device=cuda), r)  # 10 rows, 8 in the blocks
+    with pytest.raises(TypeError):
+        precon.block_apply(torch.zeros((5, 2, 2), dtype=torch.float64, device=cuda), r)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n', APPLY_ROWS)
+def test_mask_passes(cuda, n, dtype):
+    # products by 0 and 1 are exact: the kernels give the plain versions'
+    # values (a zero's sign aside)
+    rng = numpy.random.default_rng(n)
+    m = torch.as_tensor(rng.random(n) > 0.25, device=cuda).to(dtype)
+    x, y = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda) for _ in range(2))
+    launches = sparse.mask_pre.launches, sparse.mask_post.launches
+    xm, z = sparse.mask_pre(m, x), sparse.mask_post(m, y, x)
+    assert (sparse.mask_pre.launches, sparse.mask_post.launches) == (launches[0] + 1, launches[1] + 1)
+    assert bool((xm == sparse.mask_pre_plain(m, x)).all()) and bool((z == sparse.mask_post_plain(m, y, x)).all())
+    y2 = y.clone()
+    assert sparse.mask_post(m, y2, x, out=y2) is y2 and bool((y2 == z).all())
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.full_like(x, 7.0)
+    sparse.mask_pre(m, x, active=flag, out=out)
+    sparse.mask_post(m, y, x, active=flag, out=out)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    flag.fill_(1)
+    assert bool((sparse.mask_post(m, y, x, active=flag, out=out) == z).all())
+
+
+def test_cuda_elasticity_goes_through_the_block_and_mask_kernels(cuda):
+    # examples/elasticity.py at 8 triangles a side in float64: block-Jacobi
+    # CG from CUDA graphs through K13 (and K9), and the masked operator's
+    # CG through K14 around K9; both the CPU's (plain versions) to 1e-8
+    import _torch_parity as tp
+    from nutils_tpu_torch.utils import config
+    block = dict(solver='cg', precon='block', preconargs={'blocksize': 2})
+    out = {}
+    for device in ('cuda', 'cpu'):
+        with config.device(device), config.floatx(numpy.float64):
+            before = precon.block_apply.launches, sparse.mask_pre.launches, sparse.mask_post.launches
+            cons, u, t, F, system = tp.elasticity('nutils_tpu_torch', 8, 'triangle', **block)
+            stats = dict(system._cache['jacmat']._solve_stats)
+            isfree = numpy.isnan(cons).ravel()
+            jac, res = system.assemble_jacobian_residual({'u': numpy.zeros(system.trial_shapes[0])})
+            dx = jac._solve_cg(numpy.where(isfree, res, 0.), atol=0., rtol=1e-11, precon='block',
+                               preconargs={'blocksize': 2}, _isfree=isfree)
+            out[device] = u, t, F, dx, stats, dict(jac._solve_stats)
+            if device == 'cuda':
+                after = precon.block_apply.launches, sparse.mask_pre.launches, sparse.mask_post.launches
+                assert all(a > b for a, b in zip(after, before))
+    (u, t, F, dx, st, sm), (uc, tc, _Fc, dxc, _stc, _smc) = out['cuda'], out['cpu']
+    assert st['precon'] == 'block' and st['driver'] == 'graph' and st['accepted_on_device']
+    assert sm['op_form'] == 'masked' and sm['precon'] == 'block' and sm['accepted_on_device']
+    assert numpy.abs(F - [0., 1.]).max() <= 1e-10
+    for a, b in ((u, uc), (t, tc), (dx, dxc)):
+        assert numpy.linalg.norm(a - b) <= 1e-8 * numpy.linalg.norm(b)
