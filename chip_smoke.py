@@ -4,8 +4,16 @@ CUDA card and check it: the quickest proof that the port still starts on
 the GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only kernels   # K11-K14's rows alone, no solves
+    python3 chip_smoke.py --only assemble  # warm assemblies alone, no solves
 
-Phases, each printing JSON lines:
+Phases, each printing JSON lines (``--only kernels``: device, build, the
+``assembly_kernels`` rows of the slice, NS, triangles and elasticity, the
+example's chunk rows and ``elasticity_kernels``; run from another
+checkout's root, with this script copied there, it measures that
+checkout's kernels at the same shapes; ``--only assemble``: device, build
+and ``assemble_only``, many warm assemblies of each path, for comparing
+two checkouts the same way):
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; fails without a CUDA card.
@@ -28,7 +36,9 @@ Phases, each printing JSON lines:
    read around the run; a warm solve's counts are its replays times each
    graph's launches, plus the refinement's residuals); then
    ``assembly_kernels``: K11 and K12 against their plain versions at the
-   slice's shapes, and a profile of one warm assembly.
+   slice's shapes (each K11 row with the launch plan it took,
+   ``ops/assembly.matrix_plan``, and whether two launches gave the same
+   bits), and a profile of one warm assembly.
 5. slice_driver — on the same slice: the graph driver against the host
    loop (bitwise x, the same iterations and rounds), warm solves at chunk
    lengths 1-8, and an iteration's device time after the loop's stop,
@@ -76,7 +86,8 @@ Phases, each printing JSON lines:
 14. laplace_example_chunks — that assembly in two chunks and in one: the
    first assembly's peak memory each, and the sha1 of w and r, which must
    be equal; then K11 and K12 in float64 on one chunk, writing into its
-   rows of the batch's buffer, against their plain versions.
+   rows of the batch's buffer, against their plain versions (K11's plan;
+   two launches the same bits).
 15. laplace_example_parity — the example at 256^2 elements, in chunks of
    4,096 elements, on the card and on the CPU: cons and u agree to 1e-9 of
    their largest value.
@@ -102,10 +113,15 @@ Phases, each printing JSON lines:
    preconditioner (K7).  Then ``elasticity_masked``: block-Jacobi CG on the
    device's masked operator of the whole jacobian (``_isfree=``: K14
    around K9), the same free rows as the public solve to 1e-8, its set-up
-   beside the public one's.
+   beside the public one's.  Then ``assembly_kernels`` on its System in
+   float64 (P2 vector triangles, I = J = 12, one shared operator).
 19. elasticity_kernels — K13 and K14 against their plain versions at that
    path's shapes, in float32 and float64, beside ``torch.bmm`` and
-   ``torch.mul`` (``mask_post``: ``torch.mul`` then ``torch.addcmul``).
+   ``torch.mul`` (``mask_post``: ``torch.mul`` then ``torch.addcmul``);
+   each row with two launches the same bits, and K14's with its split
+   (``ops/sparse.mask_plan``: scalar head, 16-byte vectors, scalar tail)
+   and the same pass on views one entry in (n - 1 entries), equal to the
+   plain version.
 20. elasticity_square — the example on 256^2 squares at degree 2 (526,338
    dofs): its masked operator has the 3-D stencil form of 75 slots, so the
    CG graphs hold K13 beside the 3-D K1.
@@ -1116,11 +1132,26 @@ def _distinct_numel(*tensors):
     return sum(seen.values())
 
 
+def k11_plan(Bt, K, Bs):
+    """The launch plan K11 takes for these operands (``ops/assembly.
+    elem_matrix_plan``), without its copies' strides: the regime, elements
+    a group, threads, stages, tiles, shared-memory bytes, whether Bt and Bs
+    are staged as one, and each operand's copy width in values.  None for
+    a package whose K11 has no host plan (an older checkout, measured with
+    this script for a "before")."""
+    from nutils_tpu_torch.ops import assembly
+    if not hasattr(assembly, 'elem_matrix_plan'):
+        return None
+    plan = assembly.elem_matrix_plan(Bt, K, Bs)
+    keys = ('regime', 'G', 'threads', 'stages', 'ti', 'tj', 'ta', 'tjt', 'smem', 'same', 'shBt', 'shBs')
+    return dict({key: plan[key] for key in keys}, copy_vec={name: c['vec'] for name, c in plan['copies'].items()})
+
+
 def phase_assembly_kernels(system, clean, path):
     """K11 and K12 against their plain versions (one ``torch.einsum``) at
     the shapes of every block of the path's assembly, in its precision; the library
-    call is the same contraction through one ``torch.einsum`` call.
-    Returns {name: row} of the largest block."""
+    call is the same contraction through one ``torch.einsum`` call.  K11's
+    rows give its launch plan.  Returns {name: row} of the largest block."""
     import torch
     from nutils_tpu_torch.ops import assembly
     results = {}
@@ -1129,6 +1160,7 @@ def phase_assembly_kernels(system, clean, path):
         E, Q, A, B = K.shape
         I, J = Bt.shape[-1], Bs.shape[-1]
         isz = K.element_size()
+        peak = F32_FLOPS if K.dtype == torch.float32 else F64_FLOPS
         shared = Bt.shape[0] == 1 and Bs.shape[0] == 1
         cases = [('elem_matrix', lambda: assembly.elem_matrix(Bt, K, Bs), lambda: assembly.elem_matrix_plain(Bt, K, Bs),
                   lambda: torch.einsum('eqai,eqab,eqbj->eij', Bt, K, Bs),
@@ -1146,10 +1178,11 @@ def phase_assembly_kernels(system, clean, path):
             torch.cuda.synchronize()
             err, relerr = _compare(got, want, scale)
             (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
-            fields = row(err, ms, plain_ms, nbytes, flops, time_ms(library)[0])
+            fields = row(err, ms, plain_ms, nbytes, flops, time_ms(library)[0], peak)
+            extra = dict(plan=k11_plan(Bt, K, Bs)) if name == 'elem_matrix' else {}
             check_row(name, f'{path} {label}', str(K.dtype).split('.')[1], relerr,
                       dict(fields, E=E, Q=Q, A=A, B=B, I=I, J=J, shared_operators=shared,
-                           bitwise_repeat=bool(torch.equal(got, again)), call_ms=call_ms))
+                           bitwise_repeat=bool(torch.equal(got, again)), call_ms=call_ms, **extra))
             if not torch.equal(got, again):
                 raise AssertionError(f'{name} ({path} {label}) differs between two launches')
             if name not in results or flops > results[name][1]:
@@ -1647,14 +1680,18 @@ def phase_chunk_kernels(system, clean):
         buf = bufs[bufname]
         in_place = got.data_ptr() == buf[rows].data_ptr()
         untouched = bool((buf[:ce] == 0).all() and (buf[2 * ce:] == 0).all())
+        first = got.clone()
+        repeat = bool(torch.equal(kernel(), first))
         err, relerr = _compare(got, want, scale)
         (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
         fields = row(err, ms, plain_ms, nbytes, flops, time_ms(library)[0], peak=F64_FLOPS)
+        extra = dict(plan=k11_plan(Bt, Kts, Bs)) if name == 'elem_matrix' else {}
         check_row(name, f'laplace_example chunk {rows.start}:{rows.stop} of {E}', 'float64', relerr,
                   dict(fields, E=ce, Q=Q, A=A, B=B, I=I, J=J, in_place=in_place, other_rows_untouched=untouched,
-                       call_ms=call_ms))
-        if not (in_place and untouched):
-            raise AssertionError(f'{name} did not write in place into its chunk\'s rows alone')
+                       bitwise_repeat=repeat, call_ms=call_ms, **extra))
+        if not (in_place and untouched and repeat):
+            raise AssertionError(f'{name} did not write in place into its chunk\'s rows alone, or two launches '
+                                 'differ')
         results[name] = fields
         del got, want
     return results
@@ -1794,7 +1831,8 @@ def phase_elasticity(nelems=ELASTICITY_NELEMS):
     Then block-Jacobi CG on the device's masked operator (``_isfree=``:
     K14 around K9) of the whole jacobian, whose free rows must be the
     public solve's to 1e-8.  Returns (launch counts, the block inverse of
-    the masked matrix, the free rows)."""
+    the masked matrix, the free rows, the displacement's System and its
+    clean arguments)."""
     import _torch_parity as tp
     import numpy
     import torch
@@ -1913,7 +1951,8 @@ def phase_elasticity(nelems=ELASTICITY_NELEMS):
     if mmissing or mplain:
         raise AssertionError(f'elasticity, masked operator: kernels not launched {mmissing}, plain versions run '
                              f'{mplain}')
-    return dict(launches, mask_pre=mlaunches['mask_pre'], mask_post=mlaunches['mask_post']), pc.minv, free
+    return dict(launches, mask_pre=mlaunches['mask_pre'], mask_post=mlaunches['mask_post']), pc.minv, free, system, \
+        clean
 
 
 def phase_elasticity_kernels(minv_host, free):
@@ -1952,21 +1991,54 @@ def phase_elasticity_kernels(minv_host, free):
                                None, lambda: torch.addcmul(torch.mul(mc, x), m, y), 4 * n * isz, 4 * n)}
         for name, (kernel, plain, magnitude, library, two_calls, nbytes, flops) in cases.items():
             got, want = kernel().clone(), plain()
+            repeat = bool(torch.equal(kernel(), got))
             torch.cuda.synchronize()
             err, relerr = _compare(got, want, None if magnitude is None else magnitude().max())
             same_values = bool((got == want).all())
             (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
             fields = row(err, ms, plain_ms, nbytes, flops, None if library is None else time_ms(library)[0], peak)
-            extra = dict(n=n, bs=bs, call_ms=call_ms, same_values_as_plain=same_values)
+            extra = dict(n=n, bs=bs, call_ms=call_ms, same_values_as_plain=same_values, bitwise_repeat=repeat)
             if two_calls is not None:
                 extra['two_calls_ms'] = time_ms(two_calls)[0]
+            if name != 'block_apply':
+                extra.update(mask_rows(name, m, x, y, dtype))
             check_row(name, 'elasticity', dname, relerr, dict(fields, **extra))
-            if name != 'block_apply' and not same_values:
-                raise AssertionError(f'{name} ({dname}) differs from its plain version')
+            if not repeat or (name != 'block_apply' and not (same_values and extra['misaligned']['same_values'])):
+                raise AssertionError(f'{name} ({dname}) differs from its plain version or between two launches')
             if dtype == torch.float64:
                 results[name] = dict(fields, **{k: v for k, v in extra.items() if k == 'two_calls_ms'})
             del got, want
     return results
+
+
+def mask_rows(name, m, x, y, dtype):
+    """K14's split of the row (``ops/sparse.mask_plan``: the scalar head,
+    16-byte vectors, scalar tail and grid; None for a package without it)
+    and the same pass on views one entry into the operands (n - 1 entries,
+    not a multiple of the vector width): its split, its values against the
+    plain version's, its device time."""
+    import torch
+    from nutils_tpu_torch.ops import sparse
+    n = int(x.shape[0])
+
+    def plan(*tensors):
+        if not hasattr(sparse, 'mask_plan'):
+            return None
+        return sparse.mask_plan(int(tensors[0].shape[0]), tensors[0].element_size(),
+                                tuple(t.data_ptr() % 16 for t in tensors))
+    z = torch.empty_like(x)
+    mo, xo, yo, zo = m[1:], x[1:], y[1:], z[1:]
+    if name == 'mask_pre':
+        args, kernel, want = (mo, xo, zo), lambda: sparse.mask_pre(mo, xo, out=zo), sparse.mask_pre_plain(mo, xo)
+        full = plan(m, x, z)
+    else:
+        args, kernel, want = (mo, yo, xo, zo), lambda: sparse.mask_post(mo, yo, xo, out=zo), \
+            sparse.mask_post_plain(mo, yo, xo)
+        full = plan(m, y, x, z)
+    got = kernel()
+    torch.cuda.synchronize()
+    return dict(vector_path=full, misaligned=dict(n=n - 1, plan=plan(*args), same_values=bool((got == want).all()),
+                                                  ms=time_ms(kernel)[0]))
 
 
 def phase_elasticity_square(nelems=SQUARE_NELEMS):
@@ -2023,6 +2095,95 @@ def phase_elasticity_parity(nelems=16, devices=('cuda', 'cpu')):
             raise AssertionError(f'card and CPU elasticity ({etype}) differ: u {ru:.3e}, t {rt:.3e}')
 
 
+def kernels_only():
+    """``--only kernels``: the kernel rows of K11-K14 alone, without the
+    solves: K11 and K12 at every block of the slice, the NS step, the
+    triangle step and the elasticity example and on one of the Laplace
+    example's chunks; K13 and K14 at the elasticity path's shapes (its free
+    rows from ``solve_constraints``, random nodal blocks).  Run from
+    another checkout's root (a copy of this script beside its package), it
+    measures that checkout's kernels at the same shapes."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch.solver import System
+    from nutils_tpu_torch.utils import config
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    with config.device('cuda'):
+        system = build_laplace(1024, numpy.float32, reaction=True)
+        phase_assembly_kernels(system, system._clean({'u': numpy.zeros(system.trial_shapes[0][0])}), 'slice')
+        for etype, path in (('square', 'ns'), ('triangle', 'ns_tri')):
+            system, args = build_ns(330, numpy.float32, etype)
+            phase_assembly_kernels(system, system._clean(args), path)
+        del system
+        config.floatx.value = numpy.float64
+        _domain, _ns, res, _sqr = tp.laplace_example_forms('nutils_tpu_torch', 2048)
+        system = System(res, trial='u', test='v')
+        clean = system._clean({'u': numpy.zeros(system.trial_shapes[0][0])})
+        system._compiled('jacres')(clean)
+        phase_chunk_kernels(system, clean)
+        del system, clean
+        _domain, _ns, sqr, energy, _traction = tp.elasticity_forms('nutils_tpu_torch', ELASTICITY_NELEMS, 'triangle')
+        cons = System(sqr, trial='u').solve_constraints(droptol=1e-15)
+        system = System(energy, trial='u')
+        phase_assembly_kernels(system, system._clean({'u': numpy.zeros(system.trial_shapes[0])}), 'elasticity')
+        free = numpy.isnan(cons['u']).ravel()
+        minv = numpy.random.default_rng(3).standard_normal((len(free) // 2, 2, 2))
+        phase_elasticity_kernels(minv, free)
+    emit('done', seconds=time.perf_counter() - t0)
+
+
+ASSEMBLE_REPS = 12
+
+
+def assemble_only(reps=ASSEMBLE_REPS):
+    """``--only assemble``: warm ``t_assemble`` alone, ``reps`` times on
+    every path (the slice, the NS step on squares and on triangles, the
+    Laplace example at 2048^2 in its 2 chunks, the elasticity example), each
+    System built as its phase builds it at zero arguments and called once
+    first: every sample (host clock around a synchronised call), their
+    minimum and median.  Run from another checkout's root (a copy of this
+    script beside its package), it times that checkout's assembly."""
+    import _torch_parity as tp
+    import numpy
+    import torch
+    from nutils_tpu_torch.solver import System
+    from nutils_tpu_torch.utils import config
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+
+    def slice_system():
+        return build_laplace(1024, numpy.float32, reaction=True)
+
+    def ns_system(etype):
+        return build_ns(330, numpy.float32, etype)[0]
+
+    def example_system():
+        config.floatx.value = numpy.float64
+        return System(tp.laplace_example_forms('nutils_tpu_torch', 2048)[2], trial='u', test='v')
+
+    def elasticity_system():
+        config.floatx.value = numpy.float64
+        return System(tp.elasticity_forms('nutils_tpu_torch', ELASTICITY_NELEMS, 'triangle')[3], trial='u')
+    with config.device('cuda'):
+        for path, make in (('slice', slice_system), ('ns', lambda: ns_system('square')),
+                           ('ns_tri', lambda: ns_system('triangle')), ('laplace_example', example_system),
+                           ('elasticity', elasticity_system)):
+            system = make()
+            clean = system._clean({t: numpy.zeros(shape) for t, shape in zip(system.trials, system.trial_shapes)})
+            fn = system._compiled('jacres')
+            t_first = _sync_time(lambda: fn(clean))[0]
+            times = [_sync_time(lambda: fn(clean))[0] for _ in range(reps)]
+            plan = system._chunk_plan()
+            emit('assemble_only', path=path, chunks=plan['nc'] if plan else 1, t_assemble_first=t_first,
+                 t_assemble=min(times), t_assemble_median=statistics.median(times), samples=times)
+            del system, clean, fn
+            torch.cuda.empty_cache()
+    emit('done', seconds=time.perf_counter() - t0)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2032,6 +2193,12 @@ def main():
     import nutils_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     sys.path.insert(0, str(ROOT / 'tests'))  # _torch_parity: the tests' problem builders (no JAX)
     from nutils_tpu_torch.utils import config
+    if sys.argv[1:] == ['--only', 'kernels']:
+        return kernels_only()
+    if sys.argv[1:] == ['--only', 'assemble']:
+        return assemble_only()
+    if sys.argv[1:]:
+        raise SystemExit(f'chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --only kernels or --only assemble)')
     t0 = time.perf_counter()
     phase_device()
     phase_build()
@@ -2080,7 +2247,10 @@ def main():
     phase_ns_newton()
     torch.cuda.empty_cache()
     by_path['laplace_example'] = {name: example_launches[name] for name in ASSEMBLY_KERNELS}
-    elasticity_launches, minv, free = phase_elasticity()
+    elasticity_launches, minv, free, system, clean = phase_elasticity()
+    with config.floatx(numpy.float64):  # the example's own precision
+        elasticity_rows = phase_assembly_kernels(system, clean, 'elasticity')
+    del system, clean
     measured.update(phase_elasticity_kernels(minv, free))
     del minv, free
     torch.cuda.empty_cache()
@@ -2090,11 +2260,12 @@ def main():
     launches.update({name: elasticity_launches[name] for name in ('block_apply', 'mask_pre', 'mask_post')})
     # K11 and K12: launches summed over the paths' runs, each path's beside
     # them; their float64 measurements on one of the example's element
-    # chunks, written in place, beside those of the largest block
+    # chunks, written in place, and on the elasticity example's block,
+    # beside those of the largest block
     for name in ASSEMBLY_KERNELS:
         launches[name] = sum(counts[name] for counts in by_path.values())
         measured[name] = dict(measured[name], launches_by_path={path: counts[name] for path, counts in by_path.items()},
-                              float64_chunk=chunk_rows[name])
+                              float64_chunk=chunk_rows[name], elasticity_block=elasticity_rows[name])
     emit('done', seconds=time.perf_counter() - t0)
     print(json.dumps({'kernels': [
         {'name': name, 'route': route, 'source': source, 'replaces': replaces, 'launches': launches[name],

@@ -61,8 +61,8 @@ _SIG = {
     'ntt_elem_matrix': (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _PI64, _P),
     'ntt_elem_vector': (_I, _P, _P, _P, _I, _I, _I, _I, _PI64, _P),
     'ntt_block_apply': (_I, _P, _P, _P, _P, _I, _I, _P),
-    'ntt_mask_pre': (_I, _P, _P, _P, _P, _I, _P),
-    'ntt_mask_post': (_I, _P, _P, _P, _P, _P, _I, _P),
+    'ntt_mask_pre': (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'ntt_mask_post': (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

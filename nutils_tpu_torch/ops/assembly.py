@@ -21,10 +21,12 @@ Each kernel has a plain version, one ``torch.einsum`` over the same
 operands.  Tensors on the CPU take it; a CUDA tensor launches the kernel
 (``csrc/assembly.cu``) or raises.  Both write into ``out`` where it is
 given: an element chunk's rows of a batch's value buffer, which the kernel
-fills in place.
+fills in place.  K11 launches on a plan that :func:`matrix_plan`, a pure
+function of the shapes, strides and alignment, chooses on the host.
 '''
 
 import ctypes
+import functools
 
 import torch
 
@@ -82,22 +84,212 @@ def _output(name, ref, shape, out):
     return out
 
 
+# ------------------------------------------------------------ K11's plan
+
+SMEM_BYTES = 232448  # the shared memory one block of an H100 may take (227 KB)
+SMEM_SM = 233472  # a multiprocessor's, of which each resident block reserves 1 KB
+SMEM_BUDGET = SMEM_SM // 2 - 1024  # K11's share: two blocks a multiprocessor
+MAX_THREADS = 512  # K11's launch bound
+STAGES = 2  # the ring's stages (a larger group measured better than a deeper ring)
+TILE_ORDER = (3, 4, 2)  # register tile extents, preferred in this order where one divides the outputs
+# the plan's scalars, in the order the kernel reads them (csrc/assembly.cu
+# launch_matrix); the copies of Bt, Bs and K follow, COPY_FIELDS each
+PLAN_FIELDS = ('G', 'threads', 'stages', 'kfast', 'ti', 'tj', 'ta', 'tjt', 'nBt', 'nBs', 'nK', 'nT', 'nV', 'oBt',
+               'oBs', 'oK', 'oStage', 'stage', 'oT', 'oV', 'shBt', 'shBs', 'smem')
+COPY_FIELDS = ('s0', 's1', 's2', 's3', 'se', 'n0', 'n1', 'n2', 'n3', 'd0', 'd1', 'd2', 'd3', 'kd', 'vec')
+
+
+def _tile(n):
+    '''A register tile's extent (1 to 4) along an axis of n outputs: the
+    first of TILE_ORDER that divides n (3 x 3 tiles measured best on the
+    18 x 18 and 12 x 12 blocks, kernel_plan_sweep.py), else the largest
+    that wastes at most a quarter.'''
+    for t in TILE_ORDER:
+        if n % t == 0:
+            return t
+    return next(t for t in (4, 3, 2, 1) if n >= 0.75 * t * -(-n // t))
+
+
+def _copy(dims, vec, aligned):
+    '''One operand's copy of a group into shared memory: ``dims`` are
+    (extent, source stride, destination stride, is the element dim), in
+    values.  The dims go in order of source stride, largest first, so that
+    neighbouring threads read neighbouring values; dims of extent 1 go,
+    dims contiguous in both source and destination merge; the innermost
+    copies ``vec`` values (16 bytes) at a time where it is contiguous on
+    both sides, ``aligned`` (the source's base on 16 bytes) and every other
+    stride a multiple of ``vec``, else one value.  Returns the COPY_FIELDS
+    as a dict, padded to 4 dims outermost first.'''
+    kept = sorted((d for d in dims if d[0] != 1 or d[3]), key=lambda d: -d[1])
+    merged = []
+    for d in kept:
+        o = merged[-1] if merged else None
+        if o and not o[3] and not d[3] and o[1] == d[0] * d[1] and o[2] == d[0] * d[2]:
+            merged[-1] = (o[0] * d[0], d[1], d[2], False)
+        else:
+            merged.append(d)
+    merged = [(1, 0, 0, False)] * (4 - len(merged)) + merged
+    n, s, dst, el = (list(x) for x in zip(*merged))
+    width = 1
+    if vec > 1 and aligned and not el[3] and s[3] == 1 and dst[3] == 1 and n[3] % vec == 0 \
+            and all(x % vec == 0 for x in s[:3] + dst[:3]):
+        width, n[3], s[3], dst[3] = vec, n[3] // vec, vec, vec
+    kd = el.index(True) if True in el else -1
+    return dict(zip(COPY_FIELDS, (*s, s[kd] if kd >= 0 else 0, *n, *dst, kd, width)))
+
+
+_NO_COPY = dict(zip(COPY_FIELDS, (0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0, -1, 1)))
+
+
+@functools.lru_cache(maxsize=256)
+def matrix_plan(E, Q, A, B, I, J, itemsize, strides, same=False, aligned=(True, True, True)):
+    '''The launch plan of K11 for ``V[e,i,j] = sum_qab Bt[e,q,a,i]
+    K[e,q,a,b] Bs[e,q,b,j]`` (a pure function; cached).  ``strides`` are
+    those of Bt (e, q, a, i), K (e, q, a, b) and Bs (e, q, b, j) in values,
+    an element stride of 0 for an operator every element shares; ``same``:
+    Bt and Bs are one tensor; ``aligned``: the base of Bt, K and Bs on 16
+    bytes.  Returns a dict:
+
+    - ``regime``: ``'element_lanes'`` where an element has fewer than 32
+      tiles of V and a group 32 elements or more (a warp's lanes take 32
+      elements, whose slices lie at odd strides in shared memory: no bank
+      conflicts; with ``align16``, at odd multiples of 16 bytes, for
+      16-byte copies), else ``'tile_lanes'`` (a warp's lanes take one
+      element's tiles; slices on 16 bytes for 16-byte copies, the
+      elements of a warp 32 / (its elements) banks apart);
+    - ``G`` elements a group (as many as the budget, :data:`SMEM_BUDGET`,
+      holds, up to one V tile a thread for MAX_THREADS threads),
+      ``threads`` a block, ``stages`` in the ring (:data:`STAGES`);
+    - the register tiles of V (``ti`` x ``tj``) and of T (``ta`` x ``tjt``);
+    - each region's element stride (``nBt`` ... ``nV``) and offset, in
+      values, ``smem`` bytes (within :data:`SMEM_BYTES`);
+    - ``shBt``/``shBs``: an operator staged once a block (shared, or Bs
+      being Bt where Bt is);
+    - ``copies``: the copy of each operand (:func:`_copy`); Bs has none
+      where it is Bt.
+
+    Raises ValueError where even one element does not fit in shared
+    memory.'''
+    st, sk, ss = strides
+    vec = 16 // itemsize
+    shBt = st[0] == 0
+    shBs = shBt if same else ss[0] == 0
+    ti, tj, ta, tjt = _tile(I), _tile(J), _tile(A), _tile(J)
+    tasks_v = -(-I // ti) * -(-J // tj)
+    tasks_t = Q * -(-A // ta) * -(-J // tjt)
+    stages = STAGES
+
+    def up(n):
+        return -(-n // vec) * vec
+
+    # tile_lanes: a warp's lanes take epw elements; their slices start
+    # 32 / epw banks apart (at least 4: 16-byte copies stay aligned)
+    epw = 1 << (max(1, 32 // tasks_v) - 1).bit_length()
+    shift = max(4, 32 // epw) if epw > 1 else 0
+
+    def strides_of(kfast, align16):
+        def pad(n):
+            if kfast and align16:
+                return up(n) + vec * (up(n) // vec % 2 == 0)
+            if kfast:
+                return n | 1
+            n = up(n)
+            while shift and n * itemsize // 4 % 32 != shift:
+                n += vec
+            return n
+        nBt = pad(Q * A * I)
+        return nBt, nBt if same else pad(Q * B * J), pad(Q * B * A), pad(Q * A * J), pad(I * J)
+
+    def layout(G, kfast, align16):
+        nBt, nBs, nK, nT, nV = strides_of(kfast, align16)
+        # the operators staged once a block, then the ring, then T and V
+        oBt, end = 0, Q * A * I if shBt else 0
+        oBs = 0
+        if shBs and not same:
+            oBs = up(end)
+            end = oBs + Q * B * J
+        oStage = up(end)
+        s_Bt = 0
+        s_Bs = (s_Bt if same else up(s_Bt + (0 if shBt else G * nBt))) if not shBs else 0
+        s_K = up(max(s_Bt + (0 if shBt else G * nBt), s_Bs + (0 if shBs or same else G * nBs)))
+        stage = up(s_K + G * nK)
+        oT = oStage + stages * stage
+        oV = up(oT + G * nT)
+        return dict(nBt=nBt, nBs=nBs, nK=nK, nT=nT, nV=nV, oBt=oBt if shBt else s_Bt, oBs=oBs if shBs else s_Bs,
+                    oK=s_K, oStage=oStage, stage=stage, oT=oT, oV=oV, smem=(oV + G * nV) * itemsize)
+
+    def group(kfast, align16):
+        nBt, nBs, nK, nT, nV = strides_of(kfast, align16)
+        per = stages * ((0 if shBt else nBt) + (0 if shBs or same else nBs) + nK) + nT + nV
+        G = max(1, min(E, MAX_THREADS // tasks_v, SMEM_BUDGET // itemsize // per))
+        while G > 1 and layout(G, kfast, align16)['smem'] > SMEM_BUDGET:
+            G -= 1
+        return G
+
+    def copies_of(G, lay):
+        return {'Bt': _copy([(G, st[0], lay['nBt'], True)] * (not shBt)
+                            + [(Q, st[1], A * I, False), (A, st[2], I, False), (I, st[3], 1, False)], vec, aligned[0]),
+                'K': _copy([(G, sk[0], lay['nK'], True), (Q, sk[1], A, False), (A, sk[2], 1, False),
+                            (B, sk[3], Q * A, False)], vec, aligned[1]),
+                'Bs': _NO_COPY if same else _copy(
+                    [(G, ss[0], lay['nBs'], True)] * (not shBs)
+                    + [(Q, ss[1], B * J, False), (B, ss[2], J, False), (J, ss[3], 1, False)], vec, aligned[2])}
+    kfast = tasks_v < 32 and group(True, False) >= 32
+    # element lanes: slices on 16 bytes where that lets an operand of each
+    # element go by 16-byte copies (despite the bank conflicts of an odd
+    # multiple of 16 bytes: fewer copy instructions)
+    align16 = kfast and any(c['vec'] > 1 and c['kd'] >= 0 for c in copies_of(1, layout(1, True, True)).values())
+    G = group(kfast, align16)
+    lay = layout(G, kfast, align16)
+    if lay['smem'] > SMEM_BYTES:
+        raise ValueError(f'elem_matrix: {G} elements of Q {Q}, A {A}, B {B}, I {I}, J {J} in {stages} stages do '
+                         f'not fit in {SMEM_BYTES} bytes of shared memory')
+    threads = min(MAX_THREADS, max(32 * -(-G * tasks_v // 32), min(256, 32 * -(-G * tasks_t // 32))))
+    return dict(regime='element_lanes' if kfast else 'tile_lanes', G=G, threads=threads, stages=stages,
+                kfast=int(kfast), align16=bool(align16), ti=ti, tj=tj, ta=ta, tjt=tjt, shBt=int(shBt),
+                shBs=int(shBs), same=bool(same), copies=copies_of(G, lay), **lay)
+
+
+@functools.lru_cache(maxsize=256)
+def _packed(*key):
+    plan = matrix_plan(*key)
+    vals = [plan[f] for f in PLAN_FIELDS] + [plan['copies'][name][f] for name in ('Bt', 'Bs', 'K')
+                                              for f in COPY_FIELDS]
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _plan_key(Bt, K, Bs):
+    E, Q, A, B = K.shape
+    same = Bt is Bs or (Bt.data_ptr() == Bs.data_ptr() and Bt.shape == Bs.shape and Bt.stride() == Bs.stride())
+    return (E, Q, A, B, Bt.shape[-1], Bs.shape[-1], K.element_size(),
+            (_strides(Bt, E), _strides(K, E), _strides(Bs, E)), bool(same),
+            tuple(t.data_ptr() % 16 == 0 for t in (Bt, K, Bs)))
+
+
+def elem_matrix_plan(Bt, K, Bs):
+    '''The plan (:func:`matrix_plan`) on which :func:`elem_matrix` launches
+    for these operands.'''
+    return matrix_plan(*_plan_key(Bt, K, Bs))
+
+
 def elem_matrix(Bt, K, Bs, out=None):
     '''Element blocks ``V[e, i, j] = sum_qab Bt[e,q,a,i] K[e,q,a,b]
     Bs[e,q,b,j]``, kernel K11: ``[E, I, J]``, contiguous, in ``out`` where
     given.  ``K`` is ``[E, Q, A, B]``, ``Bt`` ``[E or 1, Q, A, I]``, ``Bs``
-    ``[E or 1, Q, B, J]``, any strides.  One thread block stages an
-    element's slices in shared memory and each thread sums its outputs over
-    ``q, a, b`` in a fixed order: no atomics, bitwise reproducible.'''
+    ``[E or 1, Q, B, J]``, any strides.  Persistent blocks stage groups of
+    elements by asynchronous copies and form each output in registers, summed
+    over ``b`` and then ``q, a`` in a fixed order (:func:`matrix_plan`): no
+    atomics, bitwise reproducible.'''
     if K.device.type == 'cpu':
         return elem_matrix_plain(Bt, K, Bs, out)
     E, Q, A, B = K.shape
     I, J = Bt.shape[-1], Bs.shape[-1]
     _check('elem_matrix', K, Bt=(Bt, (None, Q, A, I)), Bs=(Bs, (None, Q, B, J)))
     out = _output('elem_matrix', K, (E, I, J), out)
-    strides = (ctypes.c_int64 * 12)(*_strides(Bt, E), *_strides(K, E), *_strides(Bs, E))
-    _kernels.call('ntt_elem_matrix', K, [Bt, K, Bs, out], scalars=(E, Q, A, B, I, J, strides))
-    elem_matrix.launches += 1
+    if E * I * J:
+        plan = _packed(*_plan_key(Bt, K, Bs))
+        _kernels.call('ntt_elem_matrix', K, [Bt, K, Bs, out], scalars=(E, Q, A, B, I, J, plan))
+        elem_matrix.launches += 1
     return out
 
 

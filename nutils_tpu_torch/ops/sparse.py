@@ -279,12 +279,40 @@ def _check_mask(name, m, x, active, **named):
     return n
 
 
+MASK_THREADS = 256  # csrc/masked.cu: threads a block
+
+
+def mask_plan(n, itemsize, offsets):
+    '''K14's split of ``[0, n)`` and its grid (a pure function): ``offsets``
+    are the operands' addresses modulo 16 bytes.  Where they agree, a scalar
+    head runs up to the first 16-byte boundary, then a body of ``nvec``
+    vectors of 16 bytes (``vec`` values each) and a scalar tail; where they
+    differ, every entry is in the head.  The grid gives each thread one
+    vector of the body (at least one block, enough for the scalar
+    entries).  Returns dict(vec, head, nvec, tail, grid, threads).'''
+    vec = 16 // itemsize
+    if len(set(offsets)) == 1 and offsets[0] % itemsize == 0:
+        head = min(n, (16 - offsets[0]) % 16 // itemsize)
+    else:
+        head = n
+    nvec = (n - head) // vec
+    tail = n - head - nvec * vec
+    grid = max(1, -(-nvec // MASK_THREADS), -(-(head + tail) // MASK_THREADS))
+    return dict(vec=vec, head=head, nvec=nvec, tail=tail, grid=grid, threads=MASK_THREADS)
+
+
+def _mask_scalars(n, *tensors):
+    plan = mask_plan(n, tensors[0].element_size(), tuple(t.data_ptr() % 16 for t in tensors))
+    return n, plan['head'], plan['nvec'], plan['grid']
+
+
 def mask_pre(m, x, active=None, out=None):
     '''``xm = m x`` for the free-dof mask ``m`` (1 free, 0 fixed, in
     ``x``'s dtype), the first pass of the masked operator ``m A(m x) +
     (1 - m) x`` of ``nutils_tpu.ops.sparse._make_matvec``: kernel K14
-    (``csrc/masked.cu``).  ``xm`` goes into ``out`` where given; it is left
-    unwritten while the int32 flag ``active`` (the CG loop's) is 0.
+    (``csrc/masked.cu``, 16 bytes of each operand at a time on the split
+    of :func:`mask_plan`).  ``xm`` goes into ``out`` where given; it is
+    left unwritten while the int32 flag ``active`` (the CG loop's) is 0.
     Tensors on the CPU take :func:`mask_pre_plain`; a CUDA tensor launches
     the kernel or raises.'''
     if x.device.type == 'cpu':
@@ -292,8 +320,9 @@ def mask_pre(m, x, active=None, out=None):
         return xm if out is None else out.copy_(xm)
     xm = torch.empty_like(x) if out is None else out
     n = _check_mask('mask_pre', m, x, active, out=xm)
-    _kernels.call('ntt_mask_pre', x, [m, x, xm, active], scalars=(n,))
-    mask_pre.launches += 1
+    if n:
+        _kernels.call('ntt_mask_pre', x, [m, x, xm, active], scalars=_mask_scalars(n, m, x, xm))
+        mask_pre.launches += 1
     return xm
 
 
@@ -303,17 +332,18 @@ _kernels.counted(mask_pre)
 def mask_post(m, y, x, active=None, out=None):
     '''``m y + (1 - m) x`` for the free-dof mask ``m`` and ``y = A(m x)``,
     the second pass of the masked operator: kernel K14
-    (``csrc/masked.cu``).  The result goes into ``out`` where given, which
-    may be ``y`` itself; it is left unwritten while the int32 flag
-    ``active`` is 0.  Tensors on the CPU take :func:`mask_post_plain`; a
-    CUDA tensor launches the kernel or raises.'''
+    (``csrc/masked.cu``, split as :func:`mask_pre`).  The result goes into
+    ``out`` where given, which may be ``y`` itself; it is left unwritten
+    while the int32 flag ``active`` is 0.  Tensors on the CPU take
+    :func:`mask_post_plain`; a CUDA tensor launches the kernel or raises.'''
     if x.device.type == 'cpu':
         z = mask_post_plain(m, y, x)
         return z if out is None else out.copy_(z)
     z = torch.empty_like(x) if out is None else out
     n = _check_mask('mask_post', m, x, active, y=y, out=z)
-    _kernels.call('ntt_mask_post', x, [m, y, x, z, active], scalars=(n,))
-    mask_post.launches += 1
+    if n:
+        _kernels.call('ntt_mask_post', x, [m, y, x, z, active], scalars=_mask_scalars(n, m, y, x, z))
+        mask_post.launches += 1
     return z
 
 

@@ -538,28 +538,53 @@ def test_cuda_triangle_residual_is_deterministic(cuda):
 
 
 # (Q, A, I, B, J, shared operators) of the factored assembly's element
-# contractions on the three paths: Navier-Stokes velocity-velocity,
+# contractions on the paths: Navier-Stokes velocity-velocity,
 # velocity-pressure and pressure-velocity blocks, the triangle step's
-# (operators the same for every element) and the Laplace slice's
+# (operators the same for every element), the Laplace slice's, the
+# elasticity example's (P2 vector triangles) and the Laplace example's
 CONTRACTIONS = {'ns_uu': (16, 6, 18, 6, 18, False), 'ns_up': (16, 6, 18, 1, 4, False),
                 'ns_pu': (16, 1, 4, 6, 18, False), 'tri_uu': (12, 6, 12, 6, 12, True),
-                'tri_pu': (12, 1, 3, 6, 12, True), 'laplace': (4, 3, 4, 3, 4, False)}
+                'tri_pu': (12, 1, 3, 6, 12, True), 'laplace': (4, 3, 4, 3, 4, False),
+                'elasticity': (6, 6, 12, 6, 12, True), 'example': (4, 2, 4, 2, 4, False)}
+# K11's operands: 'route' as the factored assembly hands them over (K a
+# permuted slice of the Hessian [B, E, Q, A_total], the seed axis first),
+# 'contiguous' (K contiguous); where test and trial shapes agree, 'one'
+# (Bs is Bt, staged once) and 'equal' (Bs a copy of Bt)
+OPERANDS = [(case, ops) for case, (_Q, A, I, B, J, _sh) in CONTRACTIONS.items()
+            for ops in ('route', 'contiguous') + (('one', 'equal') if (A, I) == (B, J) else ())]
 
 
+@pytest.mark.parametrize('size', ['1001', 'one element', 'ragged'])
 @pytest.mark.parametrize('dtype,tol', TOLS)
-@pytest.mark.parametrize('case', list(CONTRACTIONS))
-def test_assembly_contractions(cuda, case, dtype, tol):
+@pytest.mark.parametrize('case,ops', OPERANDS)
+def test_assembly_contractions(cuda, case, ops, dtype, tol, size):
     # K11 and K12 against their plain versions (one einsum each), on the
-    # scale of the terms' magnitudes; K strided as the route hands it over
-    # (the Hessian's seed axis first); two launches bitwise equal
+    # scale of the terms' magnitudes, at E = 1001, at E = 1 and at an E that
+    # is not a multiple of K11's group (plan); two launches bitwise equal;
+    # Bs as Bt itself and as a copy of it give the same bits
     Q, A, I, B, J, shared = CONTRACTIONS[case]
-    E = 1001
-    rng = numpy.random.default_rng(5)
-    Et = 1 if shared else E
-    Bt, Bs = (torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=cuda)
-              for s in ((Et, Q, A, I), (Et, Q, B, J)))
-    K = torch.as_tensor(rng.standard_normal((B, E, Q, A)), dtype=dtype, device=cuda).permute(1, 2, 3, 0)
-    g = torch.as_tensor(rng.standard_normal((E, Q, A + 2)), dtype=dtype, device=cuda)[..., 1:A + 1]
+
+    def operands(E):
+        rng = numpy.random.default_rng(5)
+        Et = 1 if shared else E
+        Bt = torch.as_tensor(rng.standard_normal((Et, Q, A, I)), dtype=dtype, device=cuda)
+        Bs = {'one': Bt, 'equal': Bt.clone()}.get(ops)
+        if Bs is None:
+            Bs = torch.as_tensor(rng.standard_normal((Et, Q, B, J)), dtype=dtype, device=cuda)
+        if ops == 'contiguous':
+            K = torch.as_tensor(rng.standard_normal((E, Q, A, B)), dtype=dtype, device=cuda)
+        else:
+            K = torch.as_tensor(rng.standard_normal((B, E, Q, A + 1)), dtype=dtype, device=cuda)[..., 1:]
+            K = K.permute(1, 2, 3, 0)
+        g = torch.as_tensor(rng.standard_normal((E, Q, A + 2)), dtype=dtype, device=cuda)[..., 1:A + 1]
+        return Bt, K, Bs, g
+    E = {'1001': 1001, 'one element': 1}.get(size)
+    if E is None:  # a ragged last group of the plan these very operands take
+        E = 3 * assembly.elem_matrix_plan(*operands(1001)[:3])['G'] + 1
+    Bt, K, Bs, g = operands(E)
+    if size == 'ragged':
+        G = assembly.elem_matrix_plan(Bt, K, Bs)['G']
+        assert E > G and (E % G or G == 1)  # a group of one element has no ragged end
     launches = assembly.elem_matrix.launches, assembly.elem_vector.launches
     V, V2 = assembly.elem_matrix(Bt, K, Bs), assembly.elem_matrix(Bt, K, Bs)
     r, r2 = assembly.elem_vector(Bt, g), assembly.elem_vector(Bt, g)
@@ -567,6 +592,10 @@ def test_assembly_contractions(cuda, case, dtype, tol):
     torch.cuda.synchronize()
     assert V.shape == (E, I, J) and r.shape == (E, I)
     assert torch.equal(V, V2) and torch.equal(r, r2)
+    assert assembly.elem_matrix_plan(Bt, K, Bs)['same'] == (ops == 'one')
+    if ops in ('one', 'equal'):
+        other = Bt.clone() if ops == 'one' else Bt
+        assert torch.equal(V, assembly.elem_matrix(Bt, K, other))
     scale = assembly.elem_matrix_plain(Bt.abs(), K.abs(), Bs.abs()).max()
     assert float((V - assembly.elem_matrix_plain(Bt, K, Bs)).abs().max() / scale) <= tol
     scale = assembly.elem_vector_plain(Bt.abs(), g.abs()).max()
@@ -707,28 +736,40 @@ def test_block_apply_refuses(cuda):
         precon.block_apply(torch.zeros((5, 2, 2), dtype=torch.float64, device=cuda), r)
 
 
+@pytest.mark.parametrize('offset', range(4))
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('n', APPLY_ROWS)
-def test_mask_passes(cuda, n, dtype):
+def test_mask_passes(cuda, n, dtype, offset):
     # products by 0 and 1 are exact: the kernels give the plain versions'
-    # values (a zero's sign aside)
+    # values (a zero's sign aside), on views ``offset`` entries into their
+    # buffers (a scalar head, 16-byte vectors, a scalar tail), and with x
+    # and the output at another offset than m (scalar throughout); the
+    # loop's flag at 0 writes nothing
     rng = numpy.random.default_rng(n)
-    m = torch.as_tensor(rng.random(n) > 0.25, device=cuda).to(dtype)
-    x, y = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda) for _ in range(2))
+
+    def view(a, at=offset):
+        buf = torch.empty(n + 4, dtype=dtype, device=cuda)
+        buf[at:at + n] = torch.as_tensor(a, dtype=dtype, device=cuda)
+        return buf[at:at + n]
+    m = view(rng.random(n) > 0.25)
+    x, y = (view(rng.standard_normal(n)) for _ in range(2))
     launches = sparse.mask_pre.launches, sparse.mask_post.launches
-    xm, z = sparse.mask_pre(m, x), sparse.mask_post(m, y, x)
+    xm, z = sparse.mask_pre(m, x, out=view(numpy.zeros(n))), sparse.mask_post(m, y, x, out=view(numpy.zeros(n)))
     assert (sparse.mask_pre.launches, sparse.mask_post.launches) == (launches[0] + 1, launches[1] + 1)
     assert bool((xm == sparse.mask_pre_plain(m, x)).all()) and bool((z == sparse.mask_post_plain(m, y, x)).all())
     y2 = y.clone()
     assert sparse.mask_post(m, y2, x, out=y2) is y2 and bool((y2 == z).all())
+    xs, ys = view(x.cpu(), (offset + 1) % 4), view(y.cpu(), (offset + 1) % 4)
+    assert bool((sparse.mask_pre(m, xs) == xm).all()) and bool((sparse.mask_post(m, ys, xs) == z).all())
     flag = torch.zeros(1, dtype=torch.int32, device=cuda)
-    out = torch.full_like(x, 7.0)
+    out = view(numpy.full(n, 7.0))
     sparse.mask_pre(m, x, active=flag, out=out)
     sparse.mask_post(m, y, x, active=flag, out=out)
     torch.cuda.synchronize()
     assert bool((out == 7.0).all())
     flag.fill_(1)
     assert bool((sparse.mask_post(m, y, x, active=flag, out=out) == z).all())
+    assert bool((sparse.mask_pre(m, x, active=flag, out=out) == xm).all())
 
 
 def test_cuda_elasticity_goes_through_the_block_and_mask_kernels(cuda):
