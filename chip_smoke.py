@@ -6,6 +6,7 @@ the GPU.
     python3 chip_smoke.py
     python3 chip_smoke.py --only kernels   # K11-K14's rows alone, no solves
     python3 chip_smoke.py --only assemble  # warm assemblies alone, no solves
+    python3 chip_smoke.py --only finitestrain  # the finite-strain phases alone
 
 Phases, each printing JSON lines (``--only kernels``: device, build, the
 ``assembly_kernels`` rows of the slice, NS, triangles and elasticity, the
@@ -17,7 +18,7 @@ two checkouts the same way):
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; fails without a CUDA card.
-2. build    — builds the CUDA kernels K1-K5, K7-K9 and K11-K14 from
+2. build    — builds the CUDA kernels K1-K5, K7-K9 and K11-K15 from
    ``nutils_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, in
    parallel) and compiles the Triton kernels of K6 and K10.
 3. kernel   — K1-K4 against their plain PyTorch versions on the card, at
@@ -127,6 +128,29 @@ two checkouts the same way):
    CG graphs hold K13 beside the 3-D K1.
 21. elasticity_parity — the example at 16 elements a side, triangles and
    squares, on the card and on the CPU: u and t agree to 1e-10 relative.
+22. finitestrain — examples/finitestrain.py untrimmed on 720^2 squares at
+   degree 1 (1,039,682 dofs) in float64 through the port's entry points:
+   ``solve_constraints``, the linear ``System.solve(constrain=cons)``, then
+   ``System.solve(arguments=args0, constrain=cons, method=Minimize(),
+   tol=1e-10)`` on the finite-strain energy; per Minimize iteration the
+   residual norm, the energies and relaxations of its trials, the inner
+   solve's record, ``t_assemble``, ``t_value`` and the constrained solve's
+   set-up and Krylov times (the methods are wrapped and timed, the log
+   lines read); K15 in every value assembly, K11/K12 launched, no plain
+   version run, the residual at 1e-10.
+23. finitestrain_kernels — K15 (``elem_value``, ``elem_value_sum``)
+   against its plain version on the converged energy's integrand (518,400
+   elements of 4 points) in float32 and float64: the error, two launches
+   the same bits, chunks of a multiple of the span the same partials as
+   one piece, and the System's chunked value (``config.assembly_chunk``)
+   the same bits as one piece; times beside ``torch.sum``.
+24. finitestrain_parity — the example at 16 elements a side on the card and
+   on the CPU: u0 and u1 agree to 1e-10 relative, the values to 1e-12.
+25. mg_setup — every multigrid set-up of the run, by phase: how many, the
+   K1 launches their levels' power-step estimates made (set-up, not solve;
+   the slice's are also in ``slice_setup``), and each level shape's
+   Gershgorin bounds and estimates and how often its diagonals were
+   raised (``ops/mg.py``).
 
 Each path's assembly line also gives ``t_assemble_generic``: the same
 System with every chunk on the generic ``vmap(jvp)`` route, in the same
@@ -179,6 +203,8 @@ KERNELS = {
     'block_apply': ('cuda', 'nutils_tpu_torch/csrc/block_jacobi.cu', 'nutils_tpu/ops/sparse.py:122'),
     'mask_pre': ('cuda', 'nutils_tpu_torch/csrc/masked.cu', 'nutils_tpu/ops/sparse.py:274'),
     'mask_post': ('cuda', 'nutils_tpu_torch/csrc/masked.cu', 'nutils_tpu/ops/sparse.py:274'),
+    'elem_value': ('cuda', 'nutils_tpu_torch/csrc/value.cu', 'nutils_tpu/solver.py:985'),
+    'elem_value_sum': ('cuda', 'nutils_tpu_torch/csrc/value.cu', 'nutils_tpu/solver.py:985'),
 }
 # the factored assembly's element contractions run on all three paths
 ASSEMBLY_KERNELS = ('elem_matrix', 'elem_vector')
@@ -206,6 +232,11 @@ MASKED_KERNELS = ('mask_pre', 'mask_post', 'block_apply', 'csr_matvec', 'cg_dot'
 SQUARE_NELEMS = 256
 SQUARE_KERNELS = ('block_apply', 'stencil_matvec', 'cg_dot', 'cg_step', 'cg_xpby') + ASSEMBLY_KERNELS
 BLOCK_CG = {'solver': 'cg', 'precon': 'block', 'preconargs': {'blocksize': 2}}
+# the finite-strain example's energy minimization: the value through K15 on
+# every line-search trial, the jacobian and residual through K11 and K12
+FINITESTRAIN_NELEMS = 720
+VALUE_KERNELS = ('elem_value', 'elem_value_sum')
+FINITESTRAIN_KERNELS = VALUE_KERNELS + ASSEMBLY_KERNELS
 # kernel vs plain: float32 sums in another order (and with fused multiply-
 # adds) differ by a few ulps, float64 ones by a few ulps of float64
 TOL = {'float32': 1e-6, 'float64': 1e-14}
@@ -234,6 +265,7 @@ def wrappers():
     from nutils_tpu_torch.ops import (_triton_bicgstab, _triton_gmres, assembly, blockgrid, cg, mg, precon, sparse,
                                       stencil)
     return {'elem_matrix': assembly.elem_matrix, 'elem_vector': assembly.elem_vector,
+            'elem_value': assembly.elem_value, 'elem_value_sum': assembly.elem_value_sum,
             'block_apply': precon.block_apply, 'mask_pre': sparse.mask_pre, 'mask_post': sparse.mask_post,
             'stencil_matvec': stencil.stencil_matvec, 'jacobi_smooth': mg.jacobi_smooth,
             'jacobi_pre': mg.jacobi_pre, 'jacobi_post': mg.jacobi_post,
@@ -671,12 +703,17 @@ def phase_slice(nelems=1024, device='cuda'):
         jac._pattern_src.get()
         t_pattern = time.perf_counter() - t0
         t0 = time.perf_counter()
+        k1_before = read_launches(('stencil_matvec',))['stencil_matvec']
         jac._mg()
         torch.cuda.synchronize()
         t_setup = time.perf_counter() - t0
         # host set-up, not solve: the CSR pattern sort that the multigrid
-        # set-up forces, then the Galerkin hierarchy
-        emit('slice_setup', t_pattern=t_pattern, t_setup=t_setup)
+        # set-up forces, then the Galerkin hierarchy (K1 launches there are
+        # its levels' power-step estimates, none where a level's Gershgorin
+        # bound makes them needless)
+        emit('slice_setup', t_pattern=t_pattern, t_setup=t_setup,
+             k1_setup_launches=read_launches(('stencil_matvec',))['stencil_matvec'] - k1_before,
+             smoothing=smoothing_records(jac._mg()))
         t0 = time.perf_counter()
         x = jac.solve(res, solver='cg', rtol=1e-10)
         torch.cuda.synchronize()
@@ -1797,16 +1834,15 @@ def phase_ns_newton(nelems=330):
 
 @contextlib.contextmanager
 def plain_calls():
-    """Count, while the block is open, the calls of the plain versions that
-    the elasticity paths' kernels fall back to on the CPU: {name: calls}
-    (none may come from a path on the card)."""
-    from nutils_tpu_torch.ops import precon, sparse
+    """Count, while the block is open, the calls of every kernel's plain
+    version in the port's ops modules (the functions named ``*_plain``):
+    {name: calls}; none may come from a path on the card."""
+    from nutils_tpu_torch.ops import assembly, blockgrid, cg, mg, precon, sparse, stencil
     counts = {}
-    saved = [(mod, name, getattr(mod, name)) for mod, name in (
-        (precon, 'block_apply_plain'), (sparse, 'mask_pre_plain'), (sparse, 'mask_post_plain'),
-        (sparse, 'csr_matvec_plain'))]
+    saved = [(mod, name, getattr(mod, name)) for mod in (assembly, blockgrid, cg, mg, precon, sparse, stencil)
+             for name in dir(mod) if name.endswith('_plain') and callable(getattr(mod, name))]
     for mod, name, fn in saved:
-        def counting(*args, _fn=fn, _name=name, **kwargs):
+        def counting(*args, _fn=fn, _name=f'{mod.__name__.rsplit(".", 1)[-1]}.{name}', **kwargs):
             counts[_name] = counts.get(_name, 0) + 1
             return _fn(*args, **kwargs)
         setattr(mod, name, counting)
@@ -2095,6 +2131,402 @@ def phase_elasticity_parity(nelems=16, devices=('cuda', 'cpu')):
             raise AssertionError(f'card and CPU elasticity ({etype}) differ: u {ru:.3e}, t {rt:.3e}')
 
 
+ITER_LINE = r'\biter \d+: residual norm'
+
+
+def smoothing_records(hierarchy):
+    """Each smoothed level of a multigrid hierarchy (``ops/mg.MGData``, or
+    None): its shape, Gershgorin bound, power-step estimate (None where the
+    bound made it needless) and whether its diagonals were raised."""
+    if hierarchy is None:
+        return []
+    return [{'shape': list(shape), 'bound': bound, 'estimate': lam, 'raised': raised}
+            for shape, bound, lam, raised in hierarchy.smoothing]
+
+
+def track_mg():
+    """From here on, record every multigrid set-up: the ``phase_`` function
+    that made it, its levels' smoothing records and the K1 launches it made
+    (the power-step estimates', set-up and not solve); returns the list it
+    fills.  Wraps ``ops/mg.setup``; nothing of the package changes."""
+    from nutils_tpu_torch.ops import mg, stencil
+    made = []
+    setup = mg.setup
+
+    def wrapper(*args, **kwargs):
+        before = stencil.stencil_matvec.launches
+        out = setup(*args, **kwargs)
+        frame = sys._getframe(1)
+        while frame is not None and not frame.f_code.co_name.startswith('phase_'):
+            frame = frame.f_back
+        made.append({'phase': frame and frame.f_code.co_name, 'levels': smoothing_records(out),
+                     'k1_launches': stencil.stencil_matvec.launches - before})
+        return out
+    mg.setup = wrapper
+    return made
+
+
+def mg_summary(made):
+    """The multigrid set-ups of a run by phase: their number, the K1
+    launches their estimates made, and each level shape's Gershgorin
+    bounds and estimates (least and most) and how many set-ups raised its
+    diagonals."""
+    out = {}
+    for rec in made:
+        phase = out.setdefault(rec['phase'], {'setups': 0, 'k1_launches': 0, 'levels': {}})
+        phase['setups'] += 1
+        phase['k1_launches'] += rec['k1_launches']
+        for level in rec['levels']:
+            agg = phase['levels'].setdefault(str(level['shape']), {'bound': [], 'estimate': [], 'estimated': 0,
+                                                                    'raised': 0})
+            if level['bound'] is not None:
+                agg['bound'].append(level['bound'])
+            if level['estimate'] is not None:
+                agg['estimate'].append(level['estimate'])
+                agg['estimated'] += 1
+            agg['raised'] += bool(level['raised'])
+    for phase in out.values():
+        for agg in phase['levels'].values():
+            for key in ('bound', 'estimate'):
+                agg[key] = [min(agg[key]), max(agg[key])] if agg[key] else None
+    return out
+
+
+@contextlib.contextmanager
+def solve_events(on_iter=None):
+    """Record, while the block is open, what a nonlinear solve does, in
+    order: each assembly of the jacobian and residual (its time and the
+    residual's norm), each value assembly (time, value, K15's launches),
+    the constrained solve's parts (the host masked operator, its operator
+    form, the multigrid hierarchy and its levels' smoothing records, the
+    preconditioner, the device Krylov solve and its record, the whole
+    solve), the submatrix products, and the solver's log lines.
+    Yields the list of events (dicts, ``ev`` the
+    kind, ``t`` seconds); ``on_iter`` (where given) is called with the
+    events of each iteration as the solver logs its end.  Wraps the
+    methods; nothing of the package changes."""
+    import logging
+    import re
+    import numpy
+    import torch
+    from nutils_tpu_torch import matrix, solver
+    from nutils_tpu_torch.ops import assembly
+    events = []
+
+    def timed(cls, name, kind, extra=None):
+        fn = getattr(cls, name)
+
+        def wrapper(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            event = {'ev': kind, 't': time.perf_counter() - t0}
+            if extra is not None:
+                event.update(extra(self, out))
+            events.append(event)
+            return out
+        return cls, name, fn, wrapper
+
+    def value_extra(_self, out):
+        return {'value': out, 'k15': [assembly.elem_value.launches, assembly.elem_value_sum.launches]}
+    patches = [
+        timed(solver.System, 'assemble_jacobian_residual', 'jacres',
+              lambda _s, out: {'resnorm': float(numpy.linalg.norm(out[1]))}),
+        timed(solver.System, 'assemble_value', 'value', value_extra),
+        timed(matrix.Matrix, '_masked', 'mask'),
+        timed(matrix.Matrix, '_device_op', 'op_form'),
+        timed(matrix.Matrix, '_mg', 'mg', lambda _m, out: {'smoothing': smoothing_records(out)}),
+        timed(matrix.Matrix, '_device_precon', 'precon'),
+        timed(matrix.Matrix, '_device_krylov', 'krylov', lambda m, _out: {'stats': dict(m._solve_stats)}),
+        timed(matrix._SubMatrix, 'solve', 'solve', lambda m, _out: {'stats': dict(m._solve_stats or {})}),
+        timed(matrix._SubMatrix, '__matmul__', 'matvec'),
+    ]
+
+    cut = [0]
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            events.append({'ev': 'log', 't': 0., 'msg': record.getMessage()})
+            if on_iter is not None and re.search(ITER_LINE, events[-1]['msg']):
+                on_iter(events[cut[0]:])
+                cut[0] = len(events)
+    logger = logging.getLogger('nutils_tpu_torch')
+    handler, level = Handler(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.DEBUG)
+    for cls, name, _fn, wrapper in patches:
+        setattr(cls, name, wrapper)
+    try:
+        yield events
+    finally:
+        for cls, name, fn, _wrapper in patches:
+            setattr(cls, name, fn)
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def iteration_summary(k, evs):
+    """The events of Minimize iteration ``k`` (iteration 0: the first
+    assembly) summed up: its trials' relaxations, energies and residual
+    norms, K15's launches in each value assembly, the times of its parts
+    and its inner solve's record."""
+    import re
+
+    def total(kind):
+        return sum(e['t'] for e in evs if e['ev'] == kind)
+    values = [e for e in evs if e['ev'] == 'value']
+    krylov = [e['stats'] for e in evs if e['ev'] == 'krylov']
+    trials = [m['msg'] for m in evs if m['ev'] == 'log' and ' / e' in m['msg']]
+    norms = [e['resnorm'] for e in evs if e['ev'] == 'jacres']
+    return dict(
+        iteration=k, resnorm=norms[-1] if norms else None, trial_resnorms=norms,
+        energies=[e['value'] for e in values], trials=len(values),
+        relaxations=[float(re.search(r'/ e([-+][0-9.]+)', m).group(1)) for m in trials],
+        t_assemble=total('jacres'), t_value=total('value'), t_mask=total('mask'), t_op_form=total('op_form'),
+        t_mg=total('mg'), t_precon=total('precon'), t_krylov=total('krylov'), t_solve=total('solve'),
+        t_matvec=total('matvec'), solve_stats=krylov[-1] if krylov else None,
+        solve_record=next((e['stats'] for e in reversed(evs) if e['ev'] == 'solve'), None),
+        smoothing=[level for e in evs if e['ev'] == 'mg' for level in e['smoothing']],
+        spectrum=[m['msg'].split('> ')[-1] for m in evs if m['ev'] == 'log' and 'spectrum' in m['msg']],
+        k15_per_value=[e.get('k15_delta') for e in values])
+
+
+def check_planned_galerkin(masked):
+    """The finest Galerkin product of a masked operator as the multigrid
+    set-up takes it (``ops/mg.galerkin``) at a pattern's first meeting
+    (this machine's scipy), its second (the plan made on the card, then
+    used) and its third (the plan used), the last bit for bit the first
+    (the zeros that scipy drops left out); emits the three times and
+    returns whether they are equal."""
+    import numpy
+    from nutils_tpu_torch.ops import mg
+    shape = masked._mg().levels[0][1]
+    P = next(P for key, P in masked._pattern_of()._mg_plans.items() if key[0] == 'P' and key[1] == shape)
+    A = masked._scipy()
+    plans, device = {}, masked._device_op()[1][0].device
+    t_scipy, want = _sync_time(lambda: mg.galerkin(plans, 0, A, P, device))
+    t_plan = _sync_time(lambda: mg.galerkin(plans, 0, A, P, device))[0]
+    t_planned, got = _sync_time(lambda: mg.galerkin(plans, 0, A, P, device))
+    got.eliminate_zeros()
+    equal = bool(numpy.array_equal(got.indptr, want.indptr) and numpy.array_equal(got.indices, want.indices)
+                 and got.data.tobytes() == want.data.tobytes())
+    emit('finitestrain_galerkin', shape=list(shape), nnz=int(A.nnz), coarse_nnz=int(want.nnz), t_scipy=t_scipy,
+         t_plan_and_values=t_plan, t_planned=t_planned, bitwise_equal=equal)
+    del plans
+    return equal
+
+
+def phase_finitestrain(nelems=FINITESTRAIN_NELEMS):
+    """examples/finitestrain.py on ``unitsquare(nelems, 'square')`` at degree
+    1, untrimmed (518,400 elements at 720, 1,039,682 dofs), in float64,
+    through the port's entry points: ``solve_constraints`` (the left and
+    right edges clamped), the linear solve ``System.solve(constrain=cons)``,
+    then ``System.solve(arguments=args0, constrain=cons,
+    method=Minimize(), tol=1e-10)`` on the finite-strain energy, whose
+    every line-search trial assembles the jacobian, the residual and the
+    value (K15).  Per Minimize iteration: the residual norm, the energies,
+    the relaxations, the inner solve's record, ``t_assemble``, ``t_value``,
+    the set-up of the constrained solve (host masked operator, its operator
+    form, the multigrid hierarchy, the preconditioner) and the Krylov
+    solve.  K15 must launch in every value assembly, no plain version may
+    run, and the residual must reach 1e-10.  Returns (launch counts, the
+    System, its converged arguments, its value there)."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch.ops import assembly
+    from nutils_tpu_torch.solver import Minimize, System
+    from nutils_tpu_torch.utils import config
+    with config.floatx(numpy.float64), config.device('cuda'):
+        t_forms, (_domain, _ns, sqr, energy, energy1) = _sync_time(
+            lambda: tp.finitestrain_forms('nutils_tpu_torch', nelems, 'square', 'std', 1, .25, 20.))
+        t_system, (scons, linear, system) = _sync_time(
+            lambda: (System(sqr, trial='u'), System(energy, trial='u'), System(energy1, trial='u')))
+        ndofs = int(numpy.prod(system.trial_shapes[0]))
+        emit('finitestrain_system', nelems=nelems * nelems, ndofs=ndofs, t_forms=t_forms, t_system=t_system,
+             jacobian_form=(system._jac_layout[2] or {'form': 'csr'})['form'])
+        check_routes('finitestrain', system)
+        t_cons, cons = _sync_time(lambda: scons.solve_constraints(droptol=1e-15))
+        constrained = int(numpy.isfinite(cons['u']).sum())
+        emit('finitestrain_cons', t_cons=t_cons, constrained=constrained,
+             solve_stats=scons._cache['jacmat']._solve_stats)
+        if constrained != 4 * (nelems + 1):
+            raise AssertionError(f'solve_constraints constrained {constrained} dofs, expected {4 * (nelems + 1)}')
+        with solve_events() as lin_events:
+            t_linear, args0 = _sync_time(lambda: linear.solve(constrain=cons))
+        emit('finitestrain_linear', t_solve_entry=t_linear, parts=iteration_summary(0, lin_events))
+        reset_launches()
+        iterations = []
+        k15 = [[assembly.elem_value.launches, assembly.elem_value_sum.launches]]
+
+        def on_iter(evs):
+            for e in evs:
+                if e['ev'] == 'value':  # K15's launches in each value assembly
+                    e['k15_delta'] = [b - a for a, b in zip(k15[0], e['k15'])]
+                    k15[0] = e['k15']
+            iterations.append(iteration_summary(len(iterations), evs))
+            emit('finitestrain_iter', **iterations[-1])
+        with plain_calls() as plain, solve_events(on_iter) as events:
+            t_minimize, args1 = _sync_time(lambda: system.solve(arguments=args0, constrain=cons, method=Minimize(),
+                                                                tol=1e-10))
+            launches = read_launches(tuple(wrappers()))
+        values = [e for e in events if e['ev'] == 'value']
+        arguments, x = system.deconstruct(args1, cons)
+        jac, res = system.assemble_jacobian_residual(arguments, x)
+        resnorm = float(numpy.linalg.norm(res))
+        value = system.assemble_value(args1)
+        u0, u1 = args0['u'], args1['u']
+        # the line searches' jac @ dx: through the parent's device operator,
+        # beside the scipy submatrix's product (what it replaced)
+        v = numpy.random.default_rng(43).standard_normal(len(x))
+        t_device_first, y = _sync_time(lambda: jac @ v)
+        t_device = _sync_time(lambda: jac @ v)[0]
+        t_scipy, y_scipy = _sync_time(lambda: jac._parent._scipy()[jac._mask][:, jac._mask] @ v)
+        rel_matvec = tp.rel(y, y_scipy)
+        emit('finitestrain_matvec', t_device_first=t_device_first, t_device=t_device, t_scipy_submatrix=t_scipy,
+             rel=rel_matvec, tol=1e-12)
+        galerkin_equal = check_planned_galerkin(jac._parent._masked(jac._mask))
+        del jac
+    setup = sum(it['t_mask'] + it['t_op_form'] + it['t_mg'] + it['t_precon'] for it in iterations)
+    emit('finitestrain', nelems=nelems * nelems, ndofs=ndofs, t_system=t_system, t_cons=t_cons,
+         t_linear=t_linear, t_minimize=t_minimize, iterations=len(iterations) - 1,
+         trials=sum(it['trials'] for it in iterations), resnorm=resnorm, tol=1e-10, value=value,
+         t_assemble=sum(it['t_assemble'] for it in iterations), t_value=sum(it['t_value'] for it in iterations),
+         t_setup=setup, t_krylov=sum(it['t_krylov'] for it in iterations),
+         t_matvec=sum(it['t_matvec'] for it in iterations), launches={k: v for k, v in launches.items() if v},
+         plain_calls=plain, u0_max=float(numpy.abs(u0).max()), u1_max=float(numpy.abs(u1).max()))
+    if u1.shape != tuple(system.trial_shapes[0]) or not (numpy.isfinite(u0).all() and numpy.isfinite(u1).all()):
+        raise AssertionError('finitestrain: the displacements are not finite arrays of the field\'s shape')
+    if not resnorm <= 1e-10:
+        raise AssertionError(f'finitestrain: residual norm {resnorm:.3e} above 1e-10')
+    if not rel_matvec <= 1e-12:
+        raise AssertionError(f'finitestrain: jac @ v through the device operator {rel_matvec:.3e} from scipy\'s')
+    if not galerkin_equal:
+        raise AssertionError('finitestrain: the planned Galerkin product differs from scipy\'s')
+    short = [it['iteration'] for it in iterations if any(d[0] < 1 or d[1] != 1 for d in it['k15_per_value'])]
+    missing = [name for name in FINITESTRAIN_KERNELS if launches[name] <= 0]
+    if short or missing or plain or not values:
+        raise AssertionError(f'finitestrain: K15 missing from a value assembly in iterations {short}, kernels not '
+                             f'launched {missing}, plain versions run {plain}')
+    return launches, system, args1, value
+
+
+def phase_finitestrain_kernels(system, args, value):
+    """K15 against its plain version at the finite-strain path's shape (the
+    integrand of its converged energy, 518,400 elements of 4 points), in
+    float32 and float64: the error, two launches the same bits, the
+    partials of element chunks (multiples of the span) written into their
+    rows equal to one piece's, and the same through the System
+    (``config.assembly_chunk``); the time (a CUDA graph of 10 calls), the
+    bound and ``torch.sum``'s time.  Returns {name: row} in float64, the
+    path's dtype."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import assembly
+    from nutils_tpu_torch.utils import config
+    with config.floatx(numpy.float64), config.device('cuda'):
+        dargs = system._device_args(system._clean(args))
+        leaves = system._bound_leaves(dargs, {}, system._tables())
+        form = next(part[1] for part in system._value_parts() if part[0] == 'form')
+        f64 = form.integrand(dargs, leaves).contiguous()
+        E, P = f64.shape
+        span = assembly.value_span(P)
+        # chunks of a multiple of the span: the largest divisor of the
+        # blocks up to half of them (one block where there is one)
+        ce = span * next((d for d in range(E // span // 2, 0, -1) if (E // span) % d == 0), 1)
+        with config.assembly_chunk(ce):
+            plan = system._chunk_plan()
+            chunked_value = system.assemble_value(args)
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split('.')[1]
+        isz = 4 if dtype == torch.float32 else 8
+        peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
+        f = f64.to(dtype)
+        nb = assembly.value_blocks(E, P)
+        parts = torch.empty(nb, dtype=dtype, device='cuda')
+        out = torch.empty(1, dtype=dtype, device='cuda')
+        got = assembly.elem_value(f).clone()
+        again = assembly.elem_value(f)
+        total = assembly.elem_value_sum(got, [0, nb]).clone()
+        total_again = assembly.elem_value_sum(got, [0, nb])
+        want = assembly.elem_value_plain(f)
+        want_total = assembly.elem_value_sum_plain(want, [0, nb])
+        chunked = torch.empty_like(got)
+        nbc = ce // span
+        for c, lo in enumerate(range(0, E, ce)):
+            assembly.elem_value(f[lo:lo + ce], out=chunked[c * nbc:(c + 1) * nbc])
+        torch.cuda.synchronize()
+        repeat = bool(torch.equal(got, again) and torch.equal(total, total_again))
+        chunk_equal = bool(torch.equal(chunked, got))
+        err, relerr = _compare(got, want, f.double().abs().sum() / nb)
+        terr, trelerr = _compare(total, want_total, f.double().abs().sum())
+        cases = {'elem_value': (lambda: assembly.elem_value(f, out=parts), lambda: assembly.elem_value_plain(f),
+                                lambda: torch.sum(f), E * P * isz + nb * isz, E * P, err, relerr),
+                 'elem_value_sum': (lambda: assembly.elem_value_sum(got, [0, nb], out=out),
+                                    lambda: assembly.elem_value_sum_plain(got, [0, nb]), lambda: torch.sum(got),
+                                    nb * isz + isz, nb, terr, trelerr)}
+        for name, (kernel, plain, library, nbytes, flops, e, rel) in cases.items():
+            (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
+            fields = row(e, ms, plain_ms, nbytes, flops, time_ms(library)[0], peak)
+            check_row(name, 'finitestrain', dname, rel, dict(
+                fields, E=E, P=P, span=span, blocks=nb, call_ms=call_ms, bitwise_repeat=repeat,
+                chunks_bitwise_equal=chunk_equal, chunk=ce, same_bits_as_plain=bool(torch.equal(got, want))
+                if name == 'elem_value' else bool(torch.equal(total, want_total))))
+            if dtype == torch.float64:
+                results[name] = fields
+        if not (repeat and chunk_equal):
+            raise AssertionError(f'K15 ({dname}): two launches the same bits {repeat}, chunks equal {chunk_equal}')
+    emit('finitestrain_chunked_value', chunk=ce, chunks=plan['nc'] if plan else 1, value=value,
+         chunked_value=chunked_value, bitwise_equal=chunked_value == value)
+    if plan is None or chunked_value != value:
+        raise AssertionError(f'finitestrain: the value in chunks of {ce} ({chunked_value!r}) is not one piece\'s '
+                             f'({value!r})')
+    return results
+
+
+def phase_finitestrain_parity(nelems=16, devices=('cuda', 'cpu')):
+    """The finite-strain example at ``nelems`` elements a side in float64 on
+    the card and through the port's CPU path: u0 and u1 agree to 1e-10
+    relative, and the values of the finite-strain energy at the CPU's u1 to
+    1e-12."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch.utils import config
+    out = {}
+    with config.floatx(numpy.float64):
+        for device in devices:
+            with config.device(device):
+                out[device] = tp.finitestrain('nutils_tpu_torch', nelems, angle=20.)
+        at = {'u': out[devices[1]][2]}
+        values = []
+        for device in devices:
+            with config.device(device):
+                values.append(out[device][3].assemble_value(at))
+    ru0 = tp.rel(out[devices[0]][1], out[devices[1]][1])
+    ru1 = tp.rel(out[devices[0]][2], out[devices[1]][2])
+    rv = abs(values[0] - values[1]) / abs(values[1])
+    emit('finitestrain_parity', nelems=nelems, ndofs=int(out[devices[0]][2].size), rel_u0=ru0, rel_u1=ru1,
+         rel_value=rv, values=values, tol_u=1e-10, tol_value=1e-12, devices=list(devices))
+    if not (ru0 <= 1e-10 and ru1 <= 1e-10 and rv <= 1e-12):
+        raise AssertionError(f'card and CPU finite strain differ: u0 {ru0:.3e}, u1 {ru1:.3e}, value {rv:.3e}')
+
+
+def finitestrain_only():
+    """``--only finitestrain``: device, build and the three finite-strain
+    phases alone."""
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    made = track_mg()
+    _launches, system, args, value = phase_finitestrain()
+    phase_finitestrain_kernels(system, args, value)
+    del system
+    phase_finitestrain_parity()
+    emit('mg_setup', phases=mg_summary(made))
+    emit('done', seconds=time.perf_counter() - t0)
+
+
 def kernels_only():
     """``--only kernels``: the kernel rows of K11-K14 alone, without the
     solves: K11 and K12 at every block of the slice, the NS step, the
@@ -2197,11 +2629,15 @@ def main():
         return kernels_only()
     if sys.argv[1:] == ['--only', 'assemble']:
         return assemble_only()
+    if sys.argv[1:] == ['--only', 'finitestrain']:
+        return finitestrain_only()
     if sys.argv[1:]:
-        raise SystemExit(f'chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --only kernels or --only assemble)')
+        raise SystemExit(f'chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --only kernels, --only assemble or '
+                         '--only finitestrain)')
     t0 = time.perf_counter()
     phase_device()
     phase_build()
+    made = track_mg()
     measured = phase_kernels()
     launches, system, clean, jac, res = phase_slice()
     phase_slice_driver(jac, res)
@@ -2258,6 +2694,13 @@ def main():
     phase_elasticity_parity()
     by_path['elasticity'] = {name: elasticity_launches[name] for name in ASSEMBLY_KERNELS}
     launches.update({name: elasticity_launches[name] for name in ('block_apply', 'mask_pre', 'mask_post')})
+    finitestrain_launches, system, args, value = phase_finitestrain()
+    measured.update(phase_finitestrain_kernels(system, args, value))
+    del system
+    torch.cuda.empty_cache()
+    phase_finitestrain_parity()
+    by_path['finitestrain'] = {name: finitestrain_launches[name] for name in ASSEMBLY_KERNELS}
+    launches.update({name: finitestrain_launches[name] for name in VALUE_KERNELS})
     # K11 and K12: launches summed over the paths' runs, each path's beside
     # them; their float64 measurements on one of the example's element
     # chunks, written in place, and on the elasticity example's block,
@@ -2266,6 +2709,7 @@ def main():
         launches[name] = sum(counts[name] for counts in by_path.values())
         measured[name] = dict(measured[name], launches_by_path={path: counts[name] for path, counts in by_path.items()},
                               float64_chunk=chunk_rows[name], elasticity_block=elasticity_rows[name])
+    emit('mg_setup', phases=mg_summary(made))
     emit('done', seconds=time.perf_counter() - t0)
     print(json.dumps({'kernels': [
         {'name': name, 'route': route, 'source': source, 'replaces': replaces, 'launches': launches[name],

@@ -3,8 +3,8 @@
 K1 (``csrc/stencil.cu``), K2 and K3 (``csrc/mg.cu``), K4 (``csrc/cg.cu``),
 K5 (``csrc/blockgrid.cu``), K7 (``csrc/schur.cu``), K8
 (``csrc/csr_scatter.cu``), K9 (``csrc/csr_spmv.cu``), K11 and K12
-(``csrc/assembly.cu``), K13 (``csrc/block_jacobi.cu``) and K14
-(``csrc/masked.cu``) compile with
+(``csrc/assembly.cu``), K13 (``csrc/block_jacobi.cu``), K14
+(``csrc/masked.cu``) and K15 (``csrc/value.cu``) compile with
 ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together, and
 link into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at first use, into
@@ -63,6 +63,8 @@ _SIG = {
     'ntt_block_apply': (_I, _P, _P, _P, _P, _I, _I, _P),
     'ntt_mask_pre': (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     'ntt_mask_post': (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'ntt_elem_value': (_I, _P, _P, ctypes.c_int64, _I, _I, _P),
+    'ntt_elem_value_sum': (_I, _P, _P, _P, _I, _P),
 }
 
 

@@ -1450,6 +1450,69 @@ def separable(root, sources, npt, allow_grad=False):
     return root not in pos or all(x is None for x in pos[root])
 
 
+def point_integrand(root, sources, npt, allow_grad=False):
+    '''The scalar ``root``, a sum over the ``npt`` leading (element and
+    point) axes of the leaves ``sources`` of terms that each depend on one
+    point (:func:`separable`), without that outer sum: a node of shape
+    ``sources[0].shape[:npt]`` whose entries sum to ``root``.  The sums over
+    the point axes lose those axes; the linear maps above them (sums of the
+    terms, broadcasts, transposes, negation, products with a factor that
+    depends on no source) act on each point.  None where ``root`` is not
+    such a sum: a point axis summed in two steps, or an addend or a whole
+    that depends on no source.  ``allow_grad`` as for :func:`_point_axes`.'''
+    if not sources:
+        return None
+    lead = tuple(sources[0].shape[:npt])
+    if any(tuple(s.shape[:npt]) != lead for s in sources):
+        return None
+    try:
+        pos = _point_axes(root, sources, npt, allow_grad)
+    except _Coupled:
+        return None
+    if root not in pos or any(x is not None for x in pos[root]):
+        return None
+
+    def broadcast(node):
+        for ax, n in enumerate(lead):
+            node = InsertAxis(node, ax, n)
+        return node
+
+    def lift(node):
+        '''``lead + node.shape``, summing over ``lead`` to ``node``, whose
+        point axes are all summed.'''
+        if isinstance(node, Sum):
+            p = pos[node.func]
+            if all(x is None for x in p):
+                return Sum(lift(node.func), tuple(a + npt for a in node.axes))
+            if any(x is None for x in p):
+                raise _Coupled(node)
+            rest = tuple(a for a in node.axes if a not in p)
+            inner = Sum(node.func, rest) if rest else node.func
+            at = [x - sum(a < x for a in rest) for x in p]
+            return transpose(inner, tuple(at) + tuple(i for i in range(inner.ndim) if i not in at))
+        if isinstance(node, Add):
+            a, b = node.children
+            if a not in pos or b not in pos:
+                raise _Coupled(node)
+            return Add(lift(a), lift(b))
+        if isinstance(node, Multiply):
+            a, b = node.children
+            if a in pos and b in pos:
+                raise _Coupled(node)
+            return Multiply(lift(a), broadcast(b)) if a in pos else Multiply(broadcast(a), lift(b))
+        if isinstance(node, Pointwise) and node.op == 'negative':
+            return Pointwise('negative', lift(node.children[0]))
+        if isinstance(node, InsertAxis):
+            return InsertAxis(lift(node.func), node.axis + npt, node.length)
+        if isinstance(node, Transpose):
+            return transpose(lift(node.func), tuple(range(npt)) + tuple(a + npt for a in node.axes))
+        raise _Coupled(node)
+    try:
+        return lift(root)
+    except _Coupled:
+        return None
+
+
 _feature_counter = itertools.count()
 
 

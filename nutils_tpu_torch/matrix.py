@@ -133,6 +133,33 @@ def device_csr_tables(pattern, csr_map, device):
     return (cmap,) + idx
 
 
+def _masked_csr(data, indices, indptr, isfree):
+    '''(indptr, indices, data) of ``M A M + (I - M)``, ``M`` the diagonal of
+    the free mask ``isfree``, for a square CSR matrix ``A`` with sorted,
+    distinct columns in each row: the entries of A in free rows and
+    columns whose value is not zero, and a 1 on the diagonal of each fixed
+    row.  Bit for bit what scipy's products give (``diags(m) @ A @ diags(m)
+    + diags(1 - m)``, which drop the zeros they make), in O(nnz) vectorized
+    host work.'''
+    n = len(indptr) - 1
+    rows = numpy.repeat(numpy.arange(n, dtype=indices.dtype), numpy.diff(indptr))
+    keep = isfree[rows] & isfree[indices] & (data != 0)
+    fixed = numpy.flatnonzero(~isfree)
+    cnt = numpy.bincount(rows[keep], minlength=n)
+    cnt[fixed] += 1
+    idt = numpy.int32 if cnt.sum() < 2**31 else numpy.int64
+    mptr = numpy.concatenate([[0], numpy.cumsum(cnt)]).astype(idt)
+    # a fixed row keeps no entry of A: its diagonal alone; the kept entries
+    # fill the other slots in their order
+    diag = numpy.zeros(int(mptr[-1]), dtype=bool)
+    diag[mptr[fixed]] = True
+    mind = numpy.empty(int(mptr[-1]), dtype=idt)
+    mdat = numpy.empty(int(mptr[-1]), dtype=data.dtype)
+    mind[diag], mdat[diag] = fixed, 1.
+    mind[~diag], mdat[~diag] = indices[keep], data[keep]
+    return mptr, mind, mdat
+
+
 def blockgrid_plan(pattern, meta, woff, csr_map):
     '''The compact plan of kernel K5 (``ops/blockgrid.compact_plan``) for
     the block-grid layout (meta, woff) of ``pattern``, whose CSR value k
@@ -232,8 +259,14 @@ class Matrix:
             eff = ('cg' if symmetric else 'gmres') if self.shape[0] >= config.device_solve_min.value else 'direct'
         if eff in ('cg', 'gmres', 'bicgstab') and self.shape[0] == self.shape[1]:
             Mm = self._masked(isfree)
-            b = numpy.where(isfree, rhs - (self @ xfix), 0.0)
-            y = Mm._solve_free(b, solver, atol, rtol, symmetric, precon, **kwargs)
+            # a zero xfix (a boolean mask, a submatrix's solve) needs no
+            # product: rhs - A 0 is rhs
+            b = numpy.where(isfree, rhs - (self @ xfix) if xfix.any() else rhs, 0.0)
+            try:
+                y = Mm._solve_free(b, solver, atol, rtol, symmetric, precon, **kwargs)
+            except ToleranceNotReached as e:  # the best iterate, constrained as the solution would be
+                self._solve_stats = getattr(Mm, '_solve_stats', None)
+                raise ToleranceNotReached(numpy.where(isfree, e.best, xfix)) from e
             self._solve_stats = Mm._solve_stats
             return numpy.where(isfree, y, xfix)
         sub = self.submatrix(isfree, isfree)
@@ -248,23 +281,44 @@ class Matrix:
     def _masked(self, isfree):
         '''The masked operator ``M A M + (I - M)`` of free mask ``isfree``
         as a fresh :class:`Matrix` with this matrix's field hints, built on
-        the host with scipy and cached per mask, so repeated solves (Newton
-        steps on one jacobian, a submatrix view) reuse its operator form and
-        preconditioner.'''
+        the host (:func:`_masked_csr`) and cached per mask, so repeated
+        solves (Newton steps on one jacobian, a submatrix view) reuse its
+        operator form and preconditioner.  A later matrix of this pattern
+        under the same mask whose zeros lie where they lay refills the
+        masked pattern's values (:meth:`_MaskedPattern.refill`).'''
         key = isfree.tobytes()
         cached = getattr(self, '_masked_solve_cache', None)
         if cached is not None and cached[0] == key:
             return cached[1]
-        import scipy.sparse
-        mf = isfree.astype(float)
-        Dm = scipy.sparse.diags(mf)
         A = self._scipy()
-        Am = (Dm @ A @ Dm + scipy.sparse.diags(1.0 - mf)).tocsr()
-        Am.sum_duplicates()
-        Mm = Matrix(Am.indptr, Am.indices, Am.data.astype(A.dtype), Am.shape)
+        if not A.has_canonical_format:  # sorted distinct columns (assembled patterns have them)
+            A = A.copy()
+            A.sum_duplicates()
+        src = self._pattern_of()
+        held = getattr(src, '_masked_pattern', None) if src is not self else None
+        values = held[1].refill(A.data) if held is not None and held[0] == key else None
+        if values is not None:
+            Mm = Matrix(held[1].indptr, held[1].indices, values, self.shape)
+        else:
+            Mm = Matrix(*_masked_csr(A.data, A.indices, A.indptr, isfree), self.shape)
         for name in ('_field_offsets', '_field_grids'):
             if getattr(self, name, None) is not None:
                 setattr(Mm, name, getattr(self, name))
+        if getattr(self, '_grid', None) is not None and getattr(Mm, '_field_grids', None) is None:
+            # a stencil-form matrix's masked operator lies on its grid: the
+            # operator form and the multigrid hierarchy start from it, not
+            # from an inferred one (which may merge the component axis of a
+            # vector field into a spatial one and stop coarsening early)
+            Mm._field_grids = ((self._grid, self._periodic),)
+        # the masked pattern's plans (its operator form's slot map, kept by
+        # _device_op, and the multigrid's, kept by _mg) depend on that
+        # pattern alone: a later matrix of this pattern (a fresh jacobian of
+        # the same System) under the same mask that refills it reuses them
+        if src is not self:
+            if values is None:
+                held = src._masked_pattern = (key, _MaskedPattern(Mm.indptr, Mm.indices, Mm.shape, A.indptr,
+                                                                  A.indices, A.data, isfree))
+            Mm._pattern_src = held[1]
         self._masked_solve_cache = (key, Mm)
         return Mm
 
@@ -543,28 +597,24 @@ class Matrix:
         return cached[2:]
 
     def _mg(self):
-        '''Cached geometric-multigrid hierarchy for stencil-form matrices
-        (None when the grid cannot coarsen); see ops/mg.py.'''
+        '''Cached geometric-multigrid hierarchy for a matrix whose device
+        operator (:meth:`_device_op`) is a grid stencil, on that stencil's
+        grid (None for another operator form, or when the grid cannot
+        coarsen); see ops/mg.py.'''
         cached = getattr(self, '_mg_cache', '?')
         if cached != '?':
             return cached
         from .ops import mg as _mg
         from .ops import stencil as _stencil
-        out = form = None
-        if getattr(self, '_ks', None) is not None:
-            # stencil-form assembled matrix: exact metadata, zero inference
-            W = int(numpy.prod([2 * k + 1 for k in self._ks]))
-            form = _stencil.StencilForm(_host(self._w).reshape((W,) + self._grid), self._ks, self._grid, None,
-                                        None, self._periodic)
-        elif self.shape[0] == self.shape[1]:
-            grids = getattr(self, '_field_grids', None)
-            if grids is not None and len(grids) == 1 and grids[0] is not None:
-                form = _stencil.from_csr_grid(_host(self.data), self.indices, self.indptr, grids[0][0])
-            if form is None:
-                form = _stencil.from_csr(_host(self.data), self.indices, self.indptr, self.shape[0])
-        if form is not None:
-            out = _mg.setup(form, _host(self.data), self.indices, self.indptr, dtype=_host(self.data).dtype,
-                            device=self._weights().device)
+        out = None
+        mv_kind, op = self._device_op()
+        if mv_kind[0] == 'stencil':
+            _kind, ks, gshape, per = mv_kind
+            # the hierarchy's pattern-only plans are kept with the pattern
+            plans = self._pattern_of().__dict__.setdefault('_mg_plans', {})
+            data = _host(self.data)
+            out = _mg.setup(_stencil.StencilForm(None, ks, gshape, periodic=per), data, self.indices, self.indptr,
+                            dtype=data.dtype, device=op[0].device, plans=plans)
         self._mg_cache = out
         return out
 
@@ -736,6 +786,40 @@ class Matrix:
                                    precon=precon, preconargs=preconargs, _isfree=_isfree)
 
 
+class _MaskedPattern:
+    '''The pattern of a masked operator ``M A M + (I - M)`` (``indptr``,
+    ``indices``, as :func:`_masked_csr` made it from the CSR matrix
+    ``aindptr``, ``aindices``, ``adata`` and the free mask ``isfree``),
+    shared by the masked operators of the matrices of one pattern under one
+    mask (:meth:`Matrix._masked`): their device tables and operator-form
+    and multigrid plans cache here, and their values refill it.'''
+
+    def __init__(self, indptr, indices, shape, aindptr, aindices, adata, isfree):
+        self.indptr = indptr
+        self.indices = indices
+        self.shape = tuple(shape)
+        rows = numpy.repeat(numpy.arange(len(aindptr) - 1), numpy.diff(aindptr))
+        self._free = isfree[rows] & isfree[aindices]
+        self._keep = self._free & (adata != 0)
+        self._kept = numpy.flatnonzero(self._keep)
+        fixed = numpy.zeros(len(indices), dtype=bool)
+        fixed[numpy.asarray(indptr)[numpy.flatnonzero(~isfree)]] = True
+        self._fixed, self._slots = numpy.flatnonzero(fixed), numpy.flatnonzero(~fixed)
+
+    def refill(self, data):
+        '''The masked operator's values for the values ``data`` of a
+        matrix of the source pattern, the bits :func:`_masked_csr` gives;
+        None where ``data``'s zeros in the free rows and columns lie
+        elsewhere (then the masked pattern is another).'''
+        keep = self._free & (data != 0)
+        if not numpy.array_equal(keep, self._keep):
+            return None
+        values = numpy.empty(len(self.indices), dtype=data.dtype)
+        values[self._fixed] = 1.
+        values[self._slots] = data[self._kept]
+        return values
+
+
 class _Precon:
     '''Preconditioner handle (reference: ``nutils_tpu/matrix.py:1062``):
     the device kinds ``'diag'`` and ``'block'`` carry ``minv`` (an ``[n]``
@@ -787,12 +871,35 @@ class _SubMatrix(Matrix):
             return getattr(self, name)
         raise AttributeError(name)
 
+    def __matmul__(self, vec):
+        '''The product with the free rows and columns, through the parent's
+        device operator in float64: ``(A e(v))[mask]``, ``e(v)`` the vector
+        embedded with zeros on the other rows.  The scipy submatrix is not
+        built (it took seconds a fresh jacobian at a million dofs).'''
+        from .ops.sparse import _make_matvec, widen
+        parent = self._parent
+        mv_kind, op = parent._device_op()
+        op64 = getattr(parent, '_op64_cache', None)
+        if op64 is None:
+            op64 = parent._op64_cache = widen(op)
+        v = numpy.asarray(vec)
+        mask = getattr(self, '_mask_device', None)
+        if mask is None or mask.device != op[0].device:
+            mask = self._mask_device = torch.as_tensor(self._mask, device=op[0].device)
+        full = torch.zeros(parent.shape[1], dtype=torch.float64, device=op[0].device)
+        full[mask] = torch.as_tensor(v, dtype=torch.float64, device=op[0].device)
+        return _host(_make_matvec(mv_kind)(op64, full)[mask])
+
     def solve(self, rhs=None, *, constrain=None, **kwargs):
         if constrain is None:
             full = numpy.zeros(self._parent.shape[0])
             if rhs is not None:
                 full[self._mask] = numpy.asarray(rhs, dtype=float)
-            x = self._parent.solve(full, constrain=~self._mask, **kwargs)
+            try:
+                x = self._parent.solve(full, constrain=~self._mask, **kwargs)
+            except ToleranceNotReached as e:  # the best iterate of the free rows
+                self._solve_stats = getattr(self._parent, '_solve_stats', None)
+                raise ToleranceNotReached(e.best[self._mask]) from e
             self._solve_stats = getattr(self._parent, '_solve_stats', None)
             return x[self._mask]
         return super().solve(rhs, constrain=constrain, **kwargs)

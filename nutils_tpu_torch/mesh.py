@@ -69,7 +69,7 @@ def unitsquare(nelems, etype='square'):
     mixed triangle/square mesh (reference: mesh.py:686; the triangle/mixed
     vertex and element numbering is the JAX package's, so dof orderings and
     sparsity patterns match).  The multipatch variant needs multipatch
-    topologies (ROADMAP A11).'''
+    topologies (ROADMAP A6).'''
     from . import element
     from .unstructured import UnstructuredTopology
 
@@ -77,7 +77,7 @@ def unitsquare(nelems, etype='square'):
         topo, geom = rectilinear([nelems, nelems])
         return topo, geom / nelems
     if etype == 'multipatch':
-        raise NotImplementedError('unitsquare etype \'multipatch\' is not ported yet (ROADMAP A11)')
+        raise NotImplementedError('unitsquare etype \'multipatch\' is not ported yet (ROADMAP A6)')
     if etype not in ('triangle', 'mixed'):
         raise ValueError(f'invalid element type {etype!r}')
 

@@ -1,4 +1,5 @@
-'''Element contractions of the factored assembly: kernels K11 and K12.
+'''Element contractions of the factored assembly (kernels K11 and K12) and
+the value of a functional (kernel K15).
 
 A functional of the factored assembly (``solver._FactoredForm``) reaches its
 localized dofs only through point-level features ``z`` (a field's value and
@@ -23,6 +24,14 @@ operands.  Tensors on the CPU take it; a CUDA tensor launches the kernel
 given: an element chunk's rows of a batch's value buffer, which the kernel
 fills in place.  K11 launches on a plan that :func:`matrix_plan`, a pure
 function of the shapes, strides and alignment, chooses on the host.
+
+K15 sums a functional's integrand at the points, ``f[E, P]`` (the
+quadrature weights and jacobians folded in), to its value: the value
+``System._value_trace`` (solver.py:985) computes as the compiled scalar.
+:func:`elem_value` writes one partial sum a block of :func:`value_span`
+elements, :func:`elem_value_sum` reduces segments of partials and adds the
+segments' values in order, both in a fixed order of sums
+(``csrc/value.cu``) that their plain versions take too, bit for bit.
 '''
 
 import ctypes
@@ -312,3 +321,129 @@ def elem_vector(Bt, g, out=None):
 
 _kernels.counted(elem_matrix)
 _kernels.counted(elem_vector)
+
+
+# ------------------------------------------------------------ K15
+
+VALUE_THREADS = 256  # lanes of a K15 block (csrc/value.cu THREADS)
+VALUE_SPAN = 1024  # values a block of elem_value sums, at most
+
+
+def value_span(P):
+    '''Elements a block of :func:`elem_value` sums at ``P`` values an
+    element: the largest power of two whose values fit in VALUE_SPAN (at
+    least 1), so that an element chunk of a power-of-two size gives its
+    blocks' partials.'''
+    span = 1
+    while 2 * span * P <= VALUE_SPAN:
+        span *= 2
+    return span
+
+
+def value_blocks(E, P):
+    '''The partials :func:`elem_value` writes for ``E`` elements of ``P``
+    values.'''
+    return -(-E // value_span(P))
+
+
+def _lane_sums(x, rounds):
+    '''K15's sum of each row of ``x`` [rows, rounds * VALUE_THREADS]: lane
+    t adds the values t, t + T, ... in rounds, then the lanes add pairwise,
+    lane t + h into lane t for h = T/2, ..., 1.'''
+    x = x.view(x.shape[0], rounds, VALUE_THREADS)
+    acc = torch.zeros((x.shape[0], VALUE_THREADS), dtype=x.dtype, device=x.device)
+    for r in range(rounds):
+        acc = acc + x[:, r]
+    h = VALUE_THREADS // 2
+    while h:
+        acc = acc[:, :h] + acc[:, h:2 * h]
+        h //= 2
+    return acc[:, 0]
+
+
+def elem_value_plain(f, out=None):
+    '''Plain torch version of :func:`elem_value`, in the kernel's order of
+    sums.'''
+    E, P = f.shape
+    span = value_span(P) * P
+    nb = value_blocks(E, P)
+    rounds = -(-span // VALUE_THREADS)
+    x = f.new_zeros((nb, rounds * VALUE_THREADS))
+    flat = f.reshape(-1)
+    full = E // value_span(P)
+    x[:full, :span] = flat[:full * span].view(full, span)
+    if full < nb:
+        x[full, :E * P - full * span] = flat[full * span:]
+    parts = _lane_sums(x, rounds)
+    return parts if out is None else out.copy_(parts)
+
+
+def elem_value_sum_plain(partials, offsets, out=None):
+    '''Plain torch version of :func:`elem_value_sum`, in the kernel's order
+    of sums.'''
+    total = None
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        rounds = -(-(hi - lo) // VALUE_THREADS)
+        x = partials.new_zeros((1, rounds * VALUE_THREADS))
+        x[0, :hi - lo] = partials[lo:hi]
+        v = _lane_sums(x, rounds)
+        total = v if total is None else total + v
+    return total if out is None else out.copy_(total)
+
+
+def elem_value(f, out=None):
+    '''Partial sums of a functional's integrand ``f`` [E, P], kernel K15:
+    ``[value_blocks(E, P)]``, partial b the sum over the elements [b span,
+    (b + 1) span) (span :func:`value_span`), contiguous, in ``out`` where
+    given.  Each block sums its values in a fixed order: no atomics, bitwise
+    reproducible, the plain version's bits.'''
+    if f.device.type == 'cpu':
+        return elem_value_plain(f, out)
+    E, P = f.shape
+    _kernels.check_operands('elem_value', f, (E, P), f.dtype)
+    out = _output('elem_value', f, (value_blocks(E, P),), out)
+    if E * P:
+        span = value_span(P) * P
+        _kernels.call('ntt_elem_value', f, [f, out], scalars=(E * P, span, -(-span // VALUE_THREADS)))
+        elem_value.launches += 1
+    return out
+
+
+_SEGMENT_TABLES = {}
+
+
+def _segment_table(offsets, device):
+    '''``offsets`` as an int64 tensor on ``device``, made once for each
+    cut and device (a value assembly cuts its partials the same way on
+    every call), so that a call inside a CUDA graph's capture copies
+    nothing.'''
+    key = tuple(offsets), device
+    table = _SEGMENT_TABLES.get(key)
+    if table is None:
+        if len(_SEGMENT_TABLES) >= 64:
+            _SEGMENT_TABLES.clear()
+        table = _SEGMENT_TABLES[key] = torch.tensor(offsets, dtype=torch.int64, device=device)
+    return table
+
+
+def elem_value_sum(partials, offsets, out=None):
+    '''The sum of ``partials`` [N] in segments [offsets[s], offsets[s + 1])
+    (one or more), kernel K15: each segment reduced in a fixed order, the
+    segments' values added in order; ``[1]``, in ``out`` where given.'''
+    offsets = [int(o) for o in offsets]
+    if len(offsets) < 2 or offsets[0] != 0 or offsets[-1] != partials.shape[0] \
+            or any(b < a for a, b in zip(offsets[:-1], offsets[1:])):
+        raise ValueError(f'elem_value_sum: offsets {tuple(offsets)} do not cut {partials.shape[0]} partials into '
+                         'segments')
+    if partials.device.type == 'cpu':
+        return elem_value_sum_plain(partials, offsets, out)
+    _kernels.check_operands('elem_value_sum', partials, (offsets[-1],), partials.dtype)
+    out = _output('elem_value_sum', partials, (1,), out)
+    _kernels.call('ntt_elem_value_sum', partials, [partials, _segment_table(offsets, partials.device), out],
+                  scalars=(len(offsets) - 1,))
+    elem_value_sum.launches += 1
+    return out
+
+
+_kernels.counted(elem_value)
+_kernels.counted(elem_value_sum)

@@ -4,10 +4,11 @@ supports).
 
 Float32 Krylov on its own cannot solve large second-order problems; a
 geometric V-cycle over the stencil grid makes the preconditioned system O(1)
-conditioned.  Setup is host-side and matrix-algebraic (copied from
-``nutils_tpu.ops.mg``): coarse operators are Galerkin products A_c = P^T A P
-computed with scipy sparse and re-expressed as stencils over the KNOWN
-coarse grid; the coarsest level is inverted densely once.
+conditioned.  Setup is matrix-algebraic (copied from ``nutils_tpu.ops.mg``):
+coarse operators are Galerkin products A_c = P^T A P, scipy's (or, for a
+pattern met before, the same sums from a plan, on the device:
+:func:`galerkin`), re-expressed as stencils over the KNOWN coarse grid on
+the host; the coarsest level is inverted densely once.
 
 The V(2,2) cycle (:func:`apply_vcycle`) runs on the device through
 hand-written kernels: K2 smooths a level in two launches, :func:`jacobi_pre`
@@ -30,20 +31,48 @@ from ..utils import config
 from . import stencil as _st
 
 OMEGA = 0.8
+# A level's weighted Jacobi sweep x += OMEGA D^-1 (r - A x) converges while
+# OMEGA times the largest eigenvalue of D^-1 A stays below 2.  A Laplacian's
+# is near 1.5 (2.1 on the coarse levels of a degree-2 one); the couplings of
+# a vector field can lift it far past 2.5 (the finite-strain jacobian at
+# 720^2: some 8.6, from rows whose off-diagonal sum is several times their
+# diagonal), where the sweep amplifies the top modes and the V-cycle stops
+# being a preconditioner for CG; so it does where a diagonal entry is not
+# positive (compressed elements of a St. Venant-Kirchhoff energy).  On a
+# level whose estimate puts OMEGA times it above SMOOTHING_BOUND, or whose
+# diagonal is not positive, each row's diagonal is raised to OMEGA /
+# SMOOTHING_BOUND times the row's absolute sum where it is below that (l1
+# Jacobi on the rows that need it), so that OMEGA times every Gershgorin
+# row sum of D^-1 A is at most SMOOTHING_BOUND; the other rows, and other
+# levels, keep their bits.  The estimate runs only where the largest of
+# those row sums (:func:`gershgorin_bound`, which bounds the eigenvalue
+# from above) is past SMOOTHING_BOUND / OMEGA: a Laplacian of degree 1 has
+# 2 on every level and keeps its bits without one.
+SMOOTHING_BOUND = 1.8
+POWER_STEPS = 20
+# The coarsest level is inverted densely, on the host (as the JAX package
+# does) below DEVICE_INVERSE_MIN unknowns and on the hierarchy's device, in
+# float64, from there on: a vector field's grid whose axes stop coarsening
+# at an even size keeps thousands of unknowns there (4,232 on the
+# finite-strain path at 720^2), whose n^3 inverse takes the host seconds.
+DEVICE_INVERSE_MIN = 2048
 
 
 class MGData:
     '''Per-matrix multigrid hierarchy: stencil weights per level, inverse
-    diagonals, the dense coarsest inverse, and static per-level
-    (ks, shape) metadata.'''
+    diagonals, the dense coarsest inverse, static per-level
+    (ks, shape) metadata, and what each smoothed level's smoother was made
+    from (``smoothing``: (shape, Gershgorin bound or None, power-step
+    estimate or None, whether diagonals were raised) a level).'''
 
-    __slots__ = ('ws', 'dinvs', 'coarse_inv', 'levels')
+    __slots__ = ('ws', 'dinvs', 'coarse_inv', 'levels', 'smoothing')
 
-    def __init__(self, ws, dinvs, coarse_inv, levels):
+    def __init__(self, ws, dinvs, coarse_inv, levels, smoothing=()):
         self.ws = ws                  # list of [W, *shape] device arrays
         self.dinvs = dinvs            # list of [*shape] device arrays
         self.coarse_inv = coarse_inv  # [nc, nc] dense inverse (device)
         self.levels = levels          # static ((ks, shape, periodic), ...) incl. coarsest
+        self.smoothing = smoothing
 
 
 def _prolong_1d(n_fine):
@@ -75,12 +104,17 @@ def _coarsen_flags(shape, periodic, min_coarse):
 
 
 def setup(form, data, indices, indptr, *, dtype=numpy.float32, min_coarse=1024, max_levels=12,
-          device=None):
+          device=None, plans=None):
     '''Build the hierarchy for a StencilForm (ops/stencil.py) whose CSR
     arrays are given; returns MGData or None when the grid cannot coarsen
     (even pitch or too small).  Host work (scipy Galerkin products, dense
     coarsest inverse); the level operands become tensors of ``dtype`` on
-    ``device`` (default: config.device).'''
+    ``device`` (default: config.device).  ``plans`` (a dict, kept by the
+    caller with the matrix's pattern) keeps what depends on the patterns
+    alone, the prolongations and each level's stencil plan, for the next
+    matrix of that pattern: a level whose Galerkin pattern is the same
+    refills its plan with its values, the same form as a fresh inference.'''
+    plans = {} if plans is None else plans
     dev = config.torch_device() if device is None else torch.device(device)
     tdt = config.torch_dtype(dtype)
 
@@ -98,30 +132,166 @@ def setup(form, data, indices, indptr, *, dtype=numpy.float32, min_coarse=1024, 
         flags = _coarsen_flags(shapes[-1], form.periodic, min_coarse)
         if flags is None:
             break
-        P = None
-        for s, f in zip(shapes[-1], flags):
-            P1 = _prolong_1d(s) if f else scipy.sparse.eye(s, format='csr')
-            P = P1 if P is None else scipy.sparse.kron(P, P1)
-        P = P.tocsr()
-        Ac = (P.T @ ops[-1] @ P).tocsr()
-        Ac.sum_duplicates()
+        P = plans.get(('P', shapes[-1], flags))
+        if P is None:
+            for s, f in zip(shapes[-1], flags):
+                P1 = _prolong_1d(s) if f else scipy.sparse.eye(s, format='csr')
+                P = P1 if P is None else scipy.sparse.kron(P, P1)
+            P = plans['P', shapes[-1], flags] = P.tocsr()
+        Ac = galerkin(plans, len(ops) - 1, ops[-1], P, dev)
         shapes.append(tuple((s + 1) // 2 if f else s for s, f in zip(shapes[-1], flags)))
         ops.append(Ac)
     if len(ops) == 1:
         return None
-    ws, dinvs, levels = [], [], []
-    for shape, Al in zip(shapes[:-1], ops[:-1]):
-        fl = _st.from_csr_grid(Al.data, Al.indices, Al.indptr, shape)
+    ws, dinvs, levels, smoothing = [], [], [], []
+    for level, (shape, Al) in enumerate(zip(shapes[:-1], ops[:-1])):
+        held = plans.get(('level', level, shape))
+        if held is not None and numpy.array_equal(held[0], Al.indptr) and numpy.array_equal(held[1], Al.indices):
+            fl = held[2] and _st.StencilForm(_st.refill(held[2][0], shape, *held[2][1:3], Al.data), held[2][0], shape,
+                                             *held[2][1:])
+        else:
+            fl = _st.from_csr_grid(Al.data, Al.indices, Al.indptr, shape)
+            plans['level', level, shape] = Al.indptr, Al.indices, fl and (fl.ks, fl.slot, fl.rows, fl.periodic)
         if fl is None:
             return None  # Galerkin operator left the window: bail out
         ws.append(put(fl.w))
         d = Al.diagonal()
         d[d == 0] = 1.0
         dinvs.append(put((1.0 / d).reshape(shape)))
+        bound = gershgorin_bound(ws[-1], dinvs[-1])
+        lam = None
+        if bound is not None and OMEGA * bound > SMOOTHING_BOUND:
+            lam = smoothing_estimate(ws[-1], dinvs[-1], fl.ks, shape, fl.periodic)
+        raised = bound is None or lam is not None and OMEGA * lam > SMOOTHING_BOUND
+        if raised:
+            rows = numpy.asarray(abs(Al).sum(axis=1)).ravel()
+            dinvs[-1] = put((1.0 / numpy.maximum(d, OMEGA / SMOOTHING_BOUND * rows)).reshape(shape))
+        smoothing.append((shape, bound, lam, raised))
         levels.append((fl.ks, fl.shape, fl.periodic))
     levels.append(((0,) * len(shapes[-1]), shapes[-1], form.periodic))
-    coarse_inv = put(numpy.linalg.inv(ops[-1].toarray()))
-    return MGData(tuple(ws), tuple(dinvs), coarse_inv, tuple(levels))
+    coarse = ops[-1].toarray()
+    if len(coarse) < DEVICE_INVERSE_MIN:
+        coarse_inv = put(numpy.linalg.inv(coarse))
+    else:
+        coarse_inv = torch.linalg.inv(torch.as_tensor(coarse, device=dev)).to(tdt)
+    return MGData(tuple(ws), tuple(dinvs), coarse_inv, tuple(levels), tuple(smoothing))
+
+
+def galerkin(plans, level, A, P, device):
+    '''The Galerkin product ``(P.T @ A @ P).tocsr()`` of a level, bit for
+    bit scipy's: by scipy where the level meets a pattern of ``A`` for the
+    first time; where it met the same pattern before (a fresh jacobian of
+    one System), from a plan of scipy's sums (:func:`galerkin_plan`, made
+    at the second meeting and kept in ``plans``) whose products and sums
+    run on ``device``.  A plan holds index arrays of a few times A's size
+    and takes a sort of them, so a hierarchy built once does not make one.
+    The planned product keeps
+    the entries that come out zero, which scipy drops: the same operator,
+    and the same bits wherever it is read.'''
+    import scipy.sparse
+    key = 'galerkin', level, P.shape
+    held = plans.get(key)
+    if held is None or not (numpy.array_equal(held[0], A.indptr) and numpy.array_equal(held[1], A.indices)):
+        plans[key] = A.indptr, A.indices, None
+        Ac = (P.T @ A @ P).tocsr()
+        Ac.sum_duplicates()
+        return Ac
+    plan = held[2]
+    if plan is None:
+        plan = galerkin_plan(A.indptr, A.indices, P, device)
+        plans[key] = A.indptr, A.indices, plan
+    at, e_plan, pv, ptv, d_plan, dperm, indptr, indices = plan
+    a = torch.as_tensor(numpy.asarray(A.data, dtype=numpy.float64), device=device)
+    dt = _pair_values(d_plan, ptv, _pair_values(e_plan, a[at], pv))
+    return scipy.sparse.csr_matrix((dt[dperm].cpu().numpy(), indices, indptr), shape=(P.shape[1],) * 2)
+
+
+def galerkin_plan(indptr, indices, P, device):
+    '''The sums of scipy's ``P.T @ A @ P`` for a CSR pattern (``indptr``,
+    ``indices``) of A, as :func:`galerkin` reads them, made on ``device``.
+    scipy takes ``P.T @ A`` (a CSC matrix times a CSR one) as
+    ``csr_matmat`` of A's CSC arrays and P's CSR arrays, which is
+    E = A^T P in CSR, and ``E @ P`` (CSC times CSR) as ``csr_matmat`` of
+    P's CSC arrays and E, which is P^T E = (P^T A P)^T in CSR; ``tocsr``
+    then transposes it.  Each product adds its terms in the order of its
+    left operand's row, from 0 (:func:`_pair_plan`).'''
+    n, nc = P.shape
+
+    def put(a):
+        return torch.as_tensor(numpy.asarray(a, dtype=numpy.int64), device=device)
+
+    def transposed(ptr, idx, ncols):
+        # CSR arrays of the transpose, its entries in the order of
+        # csr_tocsc's stable counting sort, and that order
+        perm = torch.argsort(idx, stable=True)
+        tptr = torch.cat([idx.new_zeros(1), torch.cumsum(torch.bincount(idx, minlength=ncols), 0)])
+        rows = torch.repeat_interleave(torch.arange(len(ptr) - 1, device=device), ptr[1:] - ptr[:-1])
+        return tptr, rows[perm], perm
+    atptr, atidx, at = transposed(put(indptr), put(indices), n)
+    pptr, pidx = put(P.indptr), put(P.indices)
+    e_plan = _pair_plan(atptr, atidx, pptr, pidx, nc)
+    ptptr, ptidx, pt = transposed(pptr, pidx, nc)
+    d_plan = _pair_plan(ptptr, ptidx, e_plan[0], e_plan[1], nc)
+    dptr, drow, dperm = transposed(d_plan[0], d_plan[1], nc)
+    pv = torch.as_tensor(numpy.asarray(P.data, dtype=numpy.float64), device=device)
+    return at, e_plan, pv, pv[pt], d_plan, dperm, dptr.cpu().numpy(), drow.cpu().numpy()
+
+
+def _pair_plan(lptr, lidx, rptr, ridx, ncols):
+    '''The sums of scipy's ``csr_matmat`` of L and R (CSR index arrays,
+    int64 tensors on one device, R with ``ncols`` columns): (indptr,
+    indices, groups), the pattern of L R in CSR with sorted columns (every
+    product kept) and its products L[q] R[s] in groups (out, q, s) of index
+    tensors, group p the products of the p-th entry of each row of L.
+    ``csr_matmat`` adds an output's products from 0 in the order of the
+    left row's entries, so the groups in order give its sums, and no group
+    adds twice into an output.'''
+    device = lptr.device
+    # every product: entry q of L (row i, column k) times entry s of row k of R
+    width = (rptr[1:] - rptr[:-1])[lidx]
+    q = torch.repeat_interleave(torch.arange(len(lidx), device=device), width)
+    s = torch.arange(len(q), device=device) + torch.repeat_interleave(rptr[lidx] - (torch.cumsum(width, 0) - width),
+                                                                      width)
+    row = torch.repeat_interleave(torch.arange(len(lptr) - 1, device=device), lptr[1:] - lptr[:-1])
+    keys, out = torch.unique(row[q] * ncols + ridx[s], sorted=True, return_inverse=True)
+    indptr = torch.cat([keys.new_zeros(1), torch.cumsum(torch.bincount(keys // ncols, minlength=len(lptr) - 1), 0)])
+    p = (torch.arange(len(lidx), device=device) - lptr[row])[q]
+    order = torch.argsort(p)
+    out, q, s = out[order], q[order], s[order]
+    bounds = [0, *torch.cumsum(torch.bincount(p), 0).tolist()]
+    return indptr, keys % ncols, [(out[lo:hi], q[lo:hi], s[lo:hi]) for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def _pair_values(plan, lv, rv):
+    '''The values of a :func:`_pair_plan` product of the values ``lv``
+    (L's, in its order) and ``rv`` (R's).'''
+    _indptr, indices, groups = plan
+    acc = torch.zeros(len(indices), dtype=lv.dtype, device=lv.device)
+    for out, q, s in groups:
+        acc[out] += lv[q] * rv[s]
+    return acc
+
+
+def gershgorin_bound(w, dinv):
+    '''The largest row sum of |D^-1 A| of a level (stencil ``w``, inverse
+    diagonal ``dinv``), which bounds the largest eigenvalue of D^-1 A from
+    above; None where D is not positive.  One host read.'''
+    bound, positive = torch.stack([(w.abs().sum(0) * dinv).amax(), (dinv > 0).all().to(w.dtype)]).tolist()
+    return bound if positive else None
+
+
+def smoothing_estimate(w, dinv, ks, shape, periodic):
+    '''The largest eigenvalue of D^-1 A of a level (stencil ``w``, inverse
+    diagonal ``dinv``) as POWER_STEPS power steps from a fixed start
+    estimate it: the Rayleigh quotient x.Ax / x.Dx, which lies below it
+    (A symmetric, D positive).  None where D is not positive.'''
+    if not bool((dinv > 0).all()):
+        return None
+    x = torch.as_tensor(numpy.random.default_rng(0).standard_normal(shape), dtype=w.dtype, device=w.device)
+    for _ in range(POWER_STEPS):
+        x = dinv * _st.stencil_matvec(w, x, ks, shape, periodic)
+        x = x / torch.linalg.norm(x)
+    return float((x * _st.stencil_matvec(w, x, ks, shape, periodic)).sum() / (x * x / dinv).sum())
 
 
 # ------------------------------------------------------------ plain versions

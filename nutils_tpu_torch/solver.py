@@ -28,15 +28,19 @@ the pattern's value scatter (kernel K8, ``SparsePattern.scatter``).
 ``fused_step_op`` is the assemble + Schur diagonal + refined GMRES step of
 block-grid systems as a plain composition.  A batch of more than
 ``config.assembly_chunk`` elements is assembled a chunk of elements at a time
-(``System._chunk_plan``).  ``System.solve`` (with :class:`Direct` or
-:class:`Newton`) and ``System.solve_constraints`` are the reference's; the
-other solution methods (``step``, ``ReuseNewton``, ``Minimize`` ...) and the
-value assembly are ROADMAP A5.
+(``System._chunk_plan``).  The functional's value (``assemble_value``) is
+its integrand at the points summed by kernel K15.  ``System.solve`` (with
+:class:`Direct`, :class:`Newton`, :class:`ReuseNewton`,
+:class:`LinesearchNewton` under :class:`NormBased` or
+:class:`MedianBased`, and :class:`Minimize`) and
+``System.solve_constraints`` are the reference's; ``Arnoldi``,
+``Pseudotime``, ``System.step`` and the legacy wrappers are ROADMAP A5.
 '''
 
 import contextlib
 import copy
 import functools
+import math
 
 import numpy
 import torch
@@ -50,6 +54,86 @@ from .utils import config
 
 class SolverError(Exception):
     pass
+
+
+# ------------------------------------------------------------ line search
+
+class NormBased:
+    '''Line-search strategy minimizing a cubic model of the squared residual
+    norm (reference: ``nutils_tpu/solver.py:45``).
+
+    Given the residual and directional derivative at relaxation 0 and at the
+    candidate point, fit |res(x + r dx)|^2 ~ A + B r + C r^2 + D r^3 and pick
+    the relaxation scale at which the model is minimal.  Returns ``(scale,
+    accept)``: the multiplicative update for the relaxation value, and
+    whether the candidate point is acceptable.'''
+
+    def __init__(self, minscale=.01, acceptscale=2/3., maxscale=2.):
+        assert 0 < minscale < acceptscale < 1 < maxscale
+        self.minscale = minscale
+        self.acceptscale = acceptscale
+        self.maxscale = maxscale
+
+    def __call__(self, res0, dres0, res1, dres1):
+        if not numpy.isfinite(res1).all():
+            return self.minscale, False
+        # squared-norm samples and slopes at r=0 and r=1
+        p0 = float(res0 @ res0)
+        q0 = 2 * float(res0 @ dres0)
+        p1 = float(res1 @ res1)
+        q1 = 2 * float(res1 @ dres1)
+        if q0 >= 0:
+            raise SolverError('search vector does not reduce the residual')
+        # cubic fit P(r) = p0 + q0 r + c r^2 + d r^3 through both samples
+        c = math.fsum([-3 * p0, 3 * p1, -2 * q0, -q1])
+        d = math.fsum([2 * p0, -2 * p1, q0, q1])
+        # stationary points of P solve q0 + 2 c r + 3 d r^2 = 0; the
+        # numerically stable (Citardauq) root, since q0 < 0
+        disc = c**2 - 3 * q0 * d
+        scale = -q0 / (c + math.sqrt(disc)) if disc > 0 and (c > 0 or d > 0) else math.inf
+        if scale >= 1 and p1 > p0:
+            return self.minscale, False
+        return min(max(scale, self.minscale), self.maxscale), scale >= self.acceptscale and p1 < p0
+
+
+class MedianBased:
+    '''Line-search strategy placing the chosen quantile of per-entry optimal
+    relaxations beyond the current one (reference:
+    ``nutils_tpu/solver.py:87``).  Invariant to per-equation scaling of the
+    residual, unlike :class:`NormBased`.'''
+
+    def __init__(self, minscale=.01, acceptscale=2/3., maxscale=2., quantile=.5):
+        assert 0 < minscale < acceptscale < 1 < maxscale
+        assert 0 < quantile < 1
+        self.minscale = minscale
+        self.acceptscale = acceptscale
+        self.maxscale = maxscale
+        self.quantile = quantile
+
+    def __call__(self, res0, dres0, res1, dres1):
+        if not numpy.isfinite(res1).all():
+            return self.minscale, False
+        # per-entry cubic models of the squared residual components
+        dp = res1**2 - res0**2
+        q0 = 2 * res0 * dres0
+        q1 = 2 * res1 * dres1
+        decreasing = q0 <= 0  # entries whose model decreases at r=0
+        n = round(len(res0) * self.quantile) - int((~decreasing).sum())
+        if n < 0:
+            raise SolverError(f'search vector fails to reduce more than the {self.quantile}-quantile of the residual')
+        c = 3 * dp - 2 * q0 - q1
+        d = -2 * dp + q0 + q1
+        disc = c**2 - 3 * q0 * d
+        ok = decreasing & (disc > 0)
+        numer = -q0[ok]
+        denom = c[ok] + numpy.sqrt(disc[ok])
+        pos = denom > 0
+        if n < int(pos.sum()):
+            scales = numpy.sort(numer[pos] / denom[pos])
+            scale = float(scales[n])
+        else:
+            scale = numpy.inf
+        return min(max(scale, self.minscale), self.maxscale), scale >= self.acceptscale
 
 
 # ------------------------------------------------------------ localization
@@ -766,8 +850,9 @@ def _leaf_grad(comp, key, args, leaves):
 
 class _Chunk:
     '''One additive contribution to a residual block: its functional
-    ``comp`` (the terms its test leaf appears in, compiled from ``expr``;
-    its values are the gradient in the test leaf, :func:`_leaf_grad`),
+    ``comp`` (the terms its test leaf appears in, compiled from ``expr``,
+    their indices ``terms``; its values are the gradient in the test leaf,
+    :func:`_leaf_grad`),
     constant broadcastable flat row indices, the trial localizations the
     values can depend on, its test leaf's key, and its point-level form (a
     _FactoredForm) where its assembly takes the factored route.'''
@@ -780,6 +865,7 @@ class _Chunk:
         self.expr = expr
         self.comp = comp
         self.factored = None
+        self.terms = ()  # the indices of its additive terms in the System's functional
 
 
 class _FactoredForm:
@@ -820,6 +906,9 @@ class _FactoredForm:
         self.layout = {}
         self._fixed = None
         self._chunks = None
+        self._base, self._rw = self, None  # a chunked form's unchunked one and its rewriter
+        self._lifted = None  # (the rest's point integrand or None,), made at first use
+        self._vcomp = None
         off = 0
         for key in self.locs:
             entries = [(feats[n], n.shape, int(numpy.prod(n.shape[npt:], dtype=numpy.int64))) for n in cuts[key]]
@@ -837,6 +926,7 @@ class _FactoredForm:
         made a chunk at a time (:meth:`operator` slices them).'''
         form = copy.copy(self)
         form._chunks, form._fixed = (E, ce, keys), None
+        form._rw, form._vcomp = rw, None
         form.comp = {key: ev.compile([rw(n) for n in cut]) for key, cut in self.cuts.items()}
         form.fixed = {rw(n): rw(leaf) for n, leaf in self.fixed.items()}
         form.rest = ev.compile(rw(self._rest))
@@ -896,14 +986,7 @@ class _FactoredForm:
         S unit seeds of the trial features.  ``rows`` names the element
         chunk that ``leaves`` hold (a slice, on a :meth:`chunked` form; None
         for the whole batch): the call-invariant parts are kept for each.'''
-        tag = (str(config.torch_device()), config.float_dtype())
-        if self._fixed is None or self._fixed[0] != tag:
-            self._fixed = tag, {}
-        start = None if rows is None else rows.start
-        fixed = self._fixed[1].get(start)
-        if fixed is None:
-            vals = ev.compile(list(self.fixed)).trace(args, leaves)
-            fixed = self._fixed[1][start] = {leaf.key: v for leaf, v in zip(self.fixed.values(), vals)}
+        fixed = self._fixed_values(args, leaves, rows)
         z0 = torch.cat([self.features(key, args, leaves, leaves[key]) for key in self.locs], dim=-1)
 
         def functional(z):
@@ -921,6 +1004,49 @@ class _FactoredForm:
         seeds = torch.eye(n, dtype=z0.dtype, device=z0.device)[:S].reshape((S,) + (1,) * (z0.ndim - 1) + (n,))
         g, K = torch.func.vmap(lambda seed: torch.func.jvp(grad, (z0,), (seed.expand(z0.shape).contiguous(),)))(seeds)
         return g[0], K
+
+    def _fixed_values(self, args, leaves, rows=None):
+        '''The call-invariant parts' values {leaf key: tensor} on the
+        element chunk ``rows`` whose leaves ``leaves`` holds (None: the
+        whole batch), kept for each.'''
+        tag = (str(config.torch_device()), config.float_dtype())
+        if self._fixed is None or self._fixed[0] != tag:
+            self._fixed = tag, {}
+        start = None if rows is None else rows.start
+        fixed = self._fixed[1].get(start)
+        if fixed is None:
+            vals = ev.compile(list(self.fixed)).trace(args, leaves)
+            fixed = self._fixed[1][start] = {leaf.key: v for leaf, v in zip(self.fixed.values(), vals)}
+        return fixed
+
+    def _value_comp(self):
+        '''The rest's point integrand (:func:`evaluable.point_integrand`
+        over the features), compiled on this form's shapes (a chunk's on a
+        :meth:`chunked` form), or None where the rest has none.'''
+        base = self._base
+        if base._lifted is None:
+            feats = [leaf for _sl, entries in base.layout.values() for leaf, _shape, _a in entries]
+            base._lifted = (ev.point_integrand(base._rest, feats, base.npt),)
+        if self._vcomp is None and base._lifted[0] is not None:
+            self._vcomp = ev.compile(base._lifted[0] if self._rw is None else self._rw(base._lifted[0]))
+        return self._vcomp
+
+    def integrand(self, args, leaves, rows=None):
+        '''The functional at its points, ``[E, P]`` (the elements of
+        ``leaves``, the chunk ``rows`` where given, as :meth:`point_terms`),
+        the weights and jacobians folded in: its value is their sum (kernel
+        K15).  The rest's features bound as :meth:`point_terms` binds them,
+        without the rest's outer sum.  None where it has no point integrand.'''
+        comp = self._value_comp()
+        if comp is None:
+            return None
+        lv = {**leaves, **self._fixed_values(args, leaves, rows)}
+        for key in self.locs:
+            vals = self.comp[key].trace(args, leaves)
+            for (leaf, shape, _a), v in zip(self.layout[key][1], vals):
+                lv[leaf.key] = v.reshape(shape)
+        f = comp.trace(args, lv)
+        return f.reshape(f.shape[0], -1)
 
     def residual(self, test, g, args, leaves, rows=None, out=None):
         '''The values ``[E, L_t]`` of test leaf ``test`` (kernel K12),
@@ -971,9 +1097,10 @@ class System:
     the trial space) or a residual with explicit trial/test argument names:
 
     The port carries assembly (``assemble_jacobian_residual`` and friends)
-    in stencil, block-grid and CSR form, ``solve`` with :class:`Direct` and
-    :class:`Newton`, and ``solve_constraints``; the other methods and the
-    value assembly are ROADMAP A5.
+    in stencil, block-grid and CSR form, the value (``assemble_value``),
+    ``solve`` with :class:`Direct`, the Newton family and :class:`Minimize`,
+    and ``solve_constraints``; ``step`` and the other methods are ROADMAP
+    A5.
     '''
 
     def __init__(self, residual, /, trial, test=None):
@@ -1076,12 +1203,13 @@ class System:
                 # evaluate only the terms this test localization appears in:
                 # the gradient is identical (other terms are constant in the
                 # leaf) and the evaluated graph is much smaller
-                dep_terms = [tm for tm, tk in zip(terms, term_lockeys) if loc.leaf.key in tk]
-                expr_dep = dep_terms[0] if dep_terms else E_loc
-                for tm in dep_terms[1:]:
-                    expr_dep = ev.add(expr_dep, tm)
+                dep = [i for i, tk in enumerate(term_lockeys) if loc.leaf.key in tk]
+                expr_dep = terms[dep[0]] if dep else E_loc
+                for i in dep[1:]:
+                    expr_dep = ev.add(expr_dep, terms[i])
                 made.append((t, len(chunks), _Chunk(loc.argidx, trial_keys, loc.leaf.shape, loc.leaf.key, expr_dep,
                                                     ev.compile(expr_dep)), expr_dep, loc))
+                made[-1][2].terms = tuple(dep) if dep else tuple(range(len(terms)))
                 chunks.append(made[-1][2])
             self._blocks.append(chunks)
 
@@ -1600,19 +1728,101 @@ class System:
             res = torch.cat(parts) if len(parts) > 1 else parts[0]
         return jac, res
 
+    def _value_parts(self):
+        '''The parts of the functional's value, in the order of its
+        additive terms (:func:`_additive_terms`): ``('form', form)`` for the
+        terms of a factored form that has a point integrand
+        (:meth:`_FactoredForm.integrand`), where no earlier part took one
+        of them; ``('term', comp, lead)`` for each other term, ``comp`` its
+        point integrand over its localized dof leaves compiled (of shape
+        ``lead``), or the term itself (``lead`` None).  Planned once for
+        each choice of routes.'''
+        key = tuple(c.factored is None for cs in self._blocks for c in cs)
+        cached = self._cache.get('valueparts')
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        terms = _additive_terms(self._expr)
+        locs = {loc.leaf.key: loc for ll in self._locs.values() for loc in ll}
+        owner = [None] * len(terms)
+        for c in (c for cs in self._blocks for c in cs):
+            form = c.factored
+            if form is not None and all(owner[i] is None for i in c.terms) and form._value_comp() is not None:
+                for i in c.terms:
+                    owner[i] = form
+        parts, seen = [], set()
+        for i, term in enumerate(terms):
+            if owner[i] is not None:
+                if id(owner[i]) not in seen:
+                    seen.add(id(owner[i]))
+                    parts.append(('form', owner[i]))
+                continue
+            srcs = [leaf for leaf in term.leafdeps if leaf.key in locs and not locs[leaf.key].dense]
+            npts = {leaf.ndim - len(locs[leaf.key].seed_axes) for leaf in srcs}
+            lifted = ev.point_integrand(term, srcs, npts.pop(), allow_grad=True) if len(npts) == 1 else None
+            parts.append(('term', ev.compile(term), None) if lifted is None
+                         else ('term', ev.compile(lifted), lifted.shape))
+        self._cache['valueparts'] = key, parts
+        return parts
+
+    def _assemble_value(self, args, tables):
+        '''The functional's value, a ``[1]`` tensor: each part's integrand
+        at the points summed to block partials by kernel K15, the partials
+        of all parts reduced once, each part's in a fixed order and the
+        parts' values added in order.  A factored form on the element chunks
+        of :meth:`_chunk_plan` is evaluated a chunk at a time, each chunk's
+        partials written into its rows of the form's buffer: where the chunk
+        size is a multiple of K15's span, the same bits as one piece.  A
+        term with no point integrand adds its value as one partial; terms
+        off the factored route are evaluated in one piece.'''
+        plan = self._chunk_plan()
+        if plan is not None and plan['consts']:
+            tables = {**tables, **_device_tables(plan['consts'], plan)}
+        leaves = self._bound_leaves(args, {}, tables)
+        bufs = []
+        for part in self._value_parts():
+            if part[0] == 'term':
+                _kind, comp, lead = part
+                f = comp.trace(args, leaves)
+                bufs.append(assembly.elem_value(f.reshape(1, 1) if lead is None else f.reshape(lead[0], -1)))
+                continue
+            form = part[1]
+            chunked = plan is not None and id(form) in plan['forms']
+            if not chunked:
+                bufs.append(assembly.elem_value(form.integrand(args, leaves)))
+                continue
+            E, ce = plan['E'], plan['ce']
+            buf = None
+            for c, lo in enumerate(range(0, E, ce)):
+                rows = slice(lo, lo + ce)
+                f = plan['forms'][id(form)].integrand(args, _chunk_leaves(leaves, plan['keys'], rows), rows)
+                nbc = assembly.value_blocks(*f.shape)
+                if buf is None:
+                    buf = f.new_empty(plan['nc'] * nbc)
+                assembly.elem_value(f, out=buf[c * nbc:(c + 1) * nbc])
+                del f
+            bufs.append(buf)
+        if not bufs:
+            return torch.zeros(1, dtype=config.torch_dtype(float), device=config.torch_device())
+        offsets = numpy.cumsum([0] + [len(b) for b in bufs]).tolist()
+        return assembly.elem_value_sum(torch.cat(bufs) if len(bufs) > 1 else bufs[0], offsets)
+
     # -------------------------------------------------------- public assembly
 
     def _compiled(self, which):
         '''Assembly function ``clean numpy arguments -> tensors`` for
-        ``which`` in residual/jacobian/jacres (no compilation: the name
-        follows the JAX package).'''
+        ``which`` in residual/jacobian/jacres, and ``value`` (a ``[1]``
+        tensor; no compilation: the name follows the JAX package).'''
         fn = self._cache.get(which)
         if fn is None:
-            want = {'residual': (False, True), 'jacobian': (True, False), 'jacres': (True, True)}[which]
+            if which == 'value':
+                def fn(clean):
+                    return self._assemble_value(self._device_args(clean), self._tables())
+            else:
+                want = {'residual': (False, True), 'jacobian': (True, False), 'jacres': (True, True)}[which]
 
-            def fn(clean):
-                jac, res = self._assemble(self._device_args(clean), self._tables(), *want)
-                return res if jac is None else jac if res is None else (jac, res)
+                def fn(clean):
+                    jac, res = self._assemble(self._device_args(clean), self._tables(), *want)
+                    return res if jac is None else jac if res is None else (jac, res)
             self._cache[which] = fn
         return fn
 
@@ -1692,14 +1902,21 @@ class System:
         return jac
 
     def assemble(self, arguments, x=None):
-        '''(jacobian, residual, value): the value needs the functional's own
-        assembly, ROADMAP A5.'''
-        raise NotImplementedError('System.assemble needs the value assembly (_value_trace), which is not ported '
-                                  'yet (ROADMAP A5)')
+        '''(jacobian, residual, value), the value None for an unsymmetric
+        system (reference: ``nutils_tpu/solver.py:1890``).'''
+        jac, res = self.assemble_jacobian_residual(arguments, x)
+        val = self.assemble_value(arguments, x) if self.is_symmetric else None
+        return jac, res, val
 
+    @log.withcontext
     def assemble_value(self, arguments, x=None):
-        '''The functional's value: ROADMAP A5.'''
-        raise NotImplementedError('System.assemble_value (_value_trace) is not ported yet (ROADMAP A5)')
+        '''The functional's value, a float (reference:
+        ``nutils_tpu/solver.py:1896``): its integrand at the points summed on
+        the device by kernel K15 (:meth:`_assemble_value`), read once.'''
+        if not self.is_symmetric:
+            raise SolverError('value is not defined for unsymmetric systems')
+        arguments = self.construct(arguments, x)
+        return float(self._compiled('value')(self._clean(arguments)))
 
     @log.withcontext
     def assemble_jacobian_residual(self, arguments, x=None):
@@ -1900,3 +2117,160 @@ class Newton:
             prev = resnorm
             dx = jac.solve_leniently(res, symmetric=system.is_symmetric, **linargs)
             x = x - dx
+
+
+class ReuseNewton:
+    '''Newton reusing the previous jacobian for as long as the residual
+    norm keeps shrinking by the ``require`` factor (reference:
+    ``nutils_tpu/solver.py:2134``).'''
+
+    def __init__(self, require=.5, **linargs):
+        self.require = require
+        self.linargs = dict(linargs)
+        self.linargs.setdefault('rtol', 1e-3)
+
+    def __str__(self):
+        return 'reuse-newton'
+
+    def __call__(self, system, *, arguments, constrain):
+        arguments, x = system.deconstruct(arguments, constrain)
+        res = system.assemble_residual(arguments, x)
+        resnorm = float(numpy.linalg.norm(res))
+        yield system.construct(arguments, x), resnorm
+        fresh = True
+        jac = None
+        while True:
+            if fresh:
+                log.info('updating jacobian matrix')
+                jac = system.assemble_jacobian(arguments, x)
+            newx = x - jac.solve_leniently(res, symmetric=system.is_symmetric, **self.linargs)
+            newres = system.assemble_residual(arguments, newx)
+            newresnorm = float(numpy.linalg.norm(newres))
+            if fresh or newresnorm < self.require * resnorm:
+                x, res, resnorm = newx, newres, newresnorm
+                yield system.construct(arguments, x), resnorm
+                fresh = False
+            else:
+                fresh = True
+
+
+class LinesearchNewton:
+    '''Newton with strategy-driven relaxation (reference:
+    ``nutils_tpu/solver.py:2168``).
+
+    Iterates ``x <- x - relax J(x)^-1 r(x)``; the relaxation value starts at
+    ``relax0`` and is updated by ``strategy`` (default :class:`NormBased`)
+    from the residuals and directional derivatives before and after each
+    trial step.  Raises SolverError when relaxation falls below
+    ``failrelax``.'''
+
+    def __init__(self, strategy=None, failrelax=1e-6, relax0=1., **linargs):
+        self.strategy = strategy if strategy is not None else NormBased()
+        assert callable(self.strategy)
+        self.failrelax = failrelax
+        self.relax0 = relax0
+        self.linargs = dict(linargs)
+        self.linargs.setdefault('rtol', 1e-3)
+
+    def __str__(self):
+        return 'linesearch-newton'
+
+    def __call__(self, system, *, arguments, constrain):
+        arguments, x = system.deconstruct(arguments, constrain)
+        jac, res = system.assemble_jacobian_residual(arguments, x)
+        relax = self.relax0
+        while True:
+            yield system.construct(arguments, x), float(numpy.linalg.norm(res))
+            dx = -jac.solve_leniently(res, symmetric=system.is_symmetric, **self.linargs)
+            res0 = res
+            jac0dx = jac @ dx  # equals -res0 up to the linear solver's tolerance
+            while True:
+                newx = x + dx * relax
+                jac, res = system.assemble_jacobian_residual(arguments, newx)
+                scale, accept = self.strategy(res0, jac0dx * relax, res, (jac @ dx) * relax)
+                if accept:
+                    log.debug(f'update accepted at relaxation {relax:.5f}')
+                    relax = min(relax * scale, 1.)
+                    break
+                assert scale < 1
+                relax *= scale
+                if relax <= self.failrelax:
+                    raise SolverError('stuck in local minimum')
+            x = newx
+
+
+class Minimize:
+    '''Energy minimization for symmetric systems (reference:
+    ``nutils_tpu/solver.py:2211``).
+
+    Starting from the Newton update, the two leading Ritz values of the
+    jacobian on span{dx, res} define an approximate steepest-descent curve
+    x(r) = x_newton - V exp(-r L); the relaxation exponent ramps up while the
+    energy decreases along the curve and down otherwise.  Every trial point
+    assembles the jacobian, the residual and the value (kernel K15).'''
+
+    def __init__(self, rampup=.5, rampdown=-1., failrelax=-10., **linargs):
+        self.rampup = rampup
+        self.rampdown = rampdown
+        self.failrelax = failrelax
+        self.linargs = dict(linargs)
+        self.linargs.setdefault('rtol', 1e-3)
+
+    def __str__(self):
+        return 'minimize'
+
+    def __call__(self, system, *, arguments, constrain):
+        if not system.is_symmetric:
+            raise SolverError('minimize requires a symmetric system')
+        arguments, x = system.deconstruct(arguments, constrain)
+        jac, res = system.assemble_jacobian_residual(arguments, x)
+        val = system.assemble_value(arguments, x)
+        relax = 0.
+        while True:
+            yield system.construct(arguments, x), float(numpy.linalg.norm(res))
+            dx = -jac.solve_leniently(res, symmetric=True, **self.linargs)
+            x = x + dx  # vanilla Newton baseline
+            # two-dimensional Lanczos on span{dx, jac dx}: the Ritz pair gives
+            # the local spectrum that shapes the descent curve
+            dxnorm = numpy.linalg.norm(dx)
+            if dxnorm == 0:
+                jac, res = system.assemble_jacobian_residual(arguments, x)
+                val = system.assemble_value(arguments, x)
+                continue
+            k0 = dx / dxnorm
+            k1 = -res / dxnorm  # = jac @ k0 up to the solver's tolerance
+            a = float(k1 @ k0)
+            k1 = k1 - k0 * a
+            c = float(numpy.linalg.norm(k1))
+            if c == 0:
+                jac, res = system.assemble_jacobian_residual(arguments, x)
+                val = system.assemble_value(arguments, x)
+                continue
+            k1 = k1 / c
+            b = float(k1 @ (jac @ k1))
+            D = numpy.hypot(b - a, 2 * c)
+            L = numpy.array([a + b - D, a + b + D]) / 2  # Ritz values
+            v0, v1 = res + dx * L[:, numpy.newaxis]
+            V = numpy.stack([v1, -v0], axis=1) / D  # satisfies V @ L = -res, V.sum(1) = dx
+            log.debug('spectrum: {:.1e}..{:.1e} ({}definite)'.format(
+                L[0], L[1], 'positive ' if L[0] > 0 else 'negative ' if L[-1] < 0 else 'in'))
+            val0 = val
+            while True:  # line search along the descent curve
+                r = numpy.exp(relax) / D
+                eL = numpy.exp(-r * L)
+                newx = x - V @ eL
+                jac, res = system.assemble_jacobian_residual(arguments, newx)
+                val = system.assemble_value(arguments, newx)
+                slope = float(res @ (V @ (eL * L)))
+                log.debug(f'energy {val - val0:+.2e} / e{relax:+.1f} and {"in" if slope > 0 else "de"}creasing')
+                # epsilon slack keeps the acceptance test meaningful once the
+                # energy decrement falls below float64 resolution near
+                # convergence
+                tiny = 1e-14 * (1 + abs(val0))
+                if numpy.isfinite(val) and numpy.isfinite(res).all() and val <= val0 + tiny and slope <= tiny:
+                    relax += self.rampup
+                    break
+                relax += self.rampdown
+                if relax <= self.failrelax:
+                    raise SolverError('stuck in local minimum')
+            x = newx

@@ -4,7 +4,7 @@ The structured part of ``nutils_tpu.topology`` (copied): a topology produces
 batched sample *tables* (root coordinates, parent indices, affine maps,
 normals) host-side, in numpy.  Unstructured topologies are in
 ``unstructured.py``; hierarchical, trimmed and tensor-product topologies are
-not ported yet (ROADMAP A6, A11).
+not ported yet (ROADMAP A6).
 '''
 
 import functools
@@ -82,7 +82,7 @@ class Topology:
         raise KeyError(item)
 
     def __mul__(self, other):
-        raise NotImplementedError('tensor-product topologies are not ported yet (ROADMAP A11)')
+        raise NotImplementedError('tensor-product topologies are not ported yet (ROADMAP A6)')
 
 
 class StructuredTopology(Topology):
@@ -163,7 +163,7 @@ class StructuredTopology(Topology):
 
     @property
     def interfaces(self):
-        raise NotImplementedError('structured interfaces are not ported yet (ROADMAP A11)')
+        raise NotImplementedError('structured interfaces are not ported yet (ROADMAP A6)')
 
     # ---------------------------------------------------------- bases
 

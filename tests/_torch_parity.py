@@ -114,6 +114,49 @@ def elasticity(pkg, nelems=8, etype='square', btype='std', degree=2, poisson=.3,
     return cons['u'], args['u'], args['t'], numpy.asarray(F), system
 
 
+def finitestrain_forms(pkg, nelems=4, etype='square', btype='std', degree=1, poisson=.25, angle=10.):
+    '''``examples/finitestrain.py``'s domain, namespace and functionals
+    through package ``pkg``, untrimmed: the constraints' ``sqr``, the
+    linear ``energy`` and the finite-strain ``energy1`` (the namespace left
+    at the latter's strain).'''
+    _function, mesh, _solver, _config = modules(pkg)
+    Namespace = importlib.import_module(f'{pkg}.expression').Namespace
+    domain, geom = mesh.unitsquare(nelems, etype)
+    ns = Namespace()
+    ns.X = geom
+    ns.define_for('X', gradient='∇', normal='n', jacobians=('dV', 'dS'))
+    ns.angle = angle * numpy.pi / 180
+    ns.λ = 2 * poisson
+    ns.μ = 1 - 2 * poisson
+    ns.u = domain.field('u', btype=btype, degree=degree, shape=[2])
+    ns.x_i = 'X_i + u_i'
+    ns.ε_ij = '.5 (∇_j(u_i) + ∇_i(u_j))'
+    ns.energy = '.5 λ ε_ii ε_jj + μ ε_ij ε_ij'
+    sqr = domain.boundary['left'].integral('u_k u_k dS' @ ns, degree=degree * 2)
+    sqr += domain.boundary['right'].integral('((u_0 - X_1 sin(2 angle) - cos(angle) + 1)^2 + (u_1 - X_1 '
+                                             '(cos(2 angle) - 1) + sin(angle))^2) dS' @ ns, degree=degree * 2)
+    energy = domain.integral('energy dV' @ ns, degree=degree * 2)
+    ns.ε_ij = '.5 (∇_j(u_i) + ∇_i(u_j) + ∇_i(u_k) ∇_j(u_k))'
+    ns.energy = 'λ ε_ii ε_jj + 2 μ ε_ij ε_ij'
+    energy1 = domain.integral('energy dV' @ ns, degree=degree * 2)
+    return domain, ns, sqr, energy, energy1
+
+
+def finitestrain(pkg, nelems=4, etype='square', btype='std', degree=1, poisson=.25, angle=10., restol=1e-10,
+                 **linargs):
+    '''``examples/finitestrain.py``'s ``main`` through package ``pkg``,
+    untrimmed and without its figures: the linear solve, then the finite-
+    strain energy minimized under ``Minimize(**linargs)`` to ``restol``:
+    (cons, u0, u1, the finite-strain System).'''
+    solver = modules(pkg)[2]
+    _domain, _ns, sqr, energy, energy1 = finitestrain_forms(pkg, nelems, etype, btype, degree, poisson, angle)
+    cons = solver.System(sqr, trial='u').solve_constraints(droptol=1e-15)
+    args0 = solver.System(energy, trial='u').solve(constrain=cons)
+    system = solver.System(energy1, trial='u')
+    args1 = system.solve(arguments=args0, constrain=cons, method=solver.Minimize(**linargs), tol=restol)
+    return cons['u'], args0['u'], args1['u'], system
+
+
 def spd_jacobian(pkg, form):
     '''The jacobian and residual at zero of a symmetric positive definite
     system whose matrix in the port has the given form: the Laplace slice

@@ -1,4 +1,4 @@
-'''The hand kernels of nutils_tpu_torch (K1-K14) against their plain PyTorch
+'''The hand kernels of nutils_tpu_torch (K1-K15) against their plain PyTorch
 versions, on a CUDA card.  This file imports no jax, so it runs where the
 card is:
 
@@ -799,3 +799,70 @@ def test_cuda_elasticity_goes_through_the_block_and_mask_kernels(cuda):
     assert numpy.abs(F - [0., 1.]).max() <= 1e-10
     for a, b in ((u, uc), (t, tc), (dx, dxc)):
         assert numpy.linalg.norm(a - b) <= 1e-8 * numpy.linalg.norm(b)
+
+
+VALUE_SHAPES = [(518, 4), (1, 1), (300, 9), (1024, 6), (4096, 4), (0, 4)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('E,P', VALUE_SHAPES)
+def test_elem_value(cuda, E, P, dtype):
+    # K15's partials and their sum: the plain version's bits (the same
+    # order of sums), two launches the same, chunks of a multiple of the
+    # span into their rows of one buffer the same as one piece
+    rng = numpy.random.default_rng(E * 10 + P)
+    f = torch.as_tensor(rng.standard_normal((E, P)), dtype=dtype, device=cuda)
+    launches = assembly.elem_value.launches, assembly.elem_value_sum.launches
+    got = assembly.elem_value(f)
+    again = assembly.elem_value(f)
+    nb = assembly.value_blocks(E, P)
+    total = assembly.elem_value_sum(got, [0, nb])
+    torch.cuda.synchronize()
+    assert assembly.elem_value.launches == launches[0] + (2 if E else 0)
+    assert assembly.elem_value_sum.launches == launches[1] + 1
+    assert torch.equal(got, assembly.elem_value_plain(f)) and torch.equal(got, again)
+    assert torch.equal(total, assembly.elem_value_sum_plain(got, [0, nb]))
+    if E:
+        assert abs(float(total) - float(f.double().sum())) <= 1e-5 * float(f.double().abs().sum())
+    span = assembly.value_span(P)
+    if E >= 2 * span and E % (2 * span) == 0:
+        buf = torch.empty_like(got)
+        half = E // 2
+        for c in range(2):
+            assembly.elem_value(f[c * half:(c + 1) * half], out=buf[c * (nb // 2):(c + 1) * (nb // 2)])
+        assert torch.equal(buf, got)
+
+
+def test_elem_value_sum_segments(cuda):
+    # segments reduced each in the fixed order, their values added in order
+    rng = numpy.random.default_rng(31)
+    for dtype in (torch.float32, torch.float64):
+        parts = torch.as_tensor(rng.standard_normal(1000), dtype=dtype, device=cuda)
+        # a few segments, one empty, and 40 segments (a functional of that
+        # many additive terms)
+        for offsets in ([0, 0, 7, 300, 1000], [0, *range(25, 1001, 25)]):
+            assert torch.equal(assembly.elem_value_sum(parts, offsets), assembly.elem_value_sum_plain(parts, offsets))
+
+
+def test_cuda_value_goes_through_k15(cuda):
+    # the finite-strain energy at 8 elements a side: assemble_value through
+    # K15 on the card equals the CPU's (plain versions) to 1e-12, and a
+    # Minimize solve on the card launches K15 on every trial
+    import _torch_parity as tp
+    from nutils_tpu_torch import solver
+    from nutils_tpu_torch.utils import config
+    values = {}
+    for device in ('cuda', 'cpu'):
+        with config.device(device), config.floatx(numpy.float64):
+            system = solver.System(tp.finitestrain_forms('nutils_tpu_torch', 8, 'mixed')[4], trial='u')
+            args = {'u': 0.1 * numpy.random.default_rng(37).standard_normal(system.trial_shapes[0])}
+            before = assembly.elem_value.launches
+            values[device] = system.assemble_value(args)
+            if device == 'cuda':
+                assert assembly.elem_value.launches > before
+    assert abs(values['cuda'] - values['cpu']) <= 1e-12 * abs(values['cpu'])
+    with config.device('cuda'), config.floatx(numpy.float64):
+        before = assembly.elem_value_sum.launches
+        _cons, _u0, u1, system = tp.finitestrain('nutils_tpu_torch', 8)
+        assert assembly.elem_value_sum.launches > before + 1
+        assert numpy.isfinite(u1).all()

@@ -104,5 +104,5 @@ def test_unported_parts_name_their_roadmap_item():
                     lambda: topo.locate(None, numpy.zeros((1, 2)))):
         with pytest.raises(NotImplementedError, match='A6'):
             attempt()
-    with pytest.raises(NotImplementedError, match='A11'):
+    with pytest.raises(NotImplementedError, match='A6'):
         mesh_torch.unitsquare(2, 'multipatch')
