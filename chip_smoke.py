@@ -4,15 +4,18 @@ CUDA card and check it: the quickest proof that the port still starts on
 the GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only kernels   # K11-K14's rows alone, no solves
+    python3 chip_smoke.py --only kernels   # K1-K3, K7, K11-K14's rows alone, no solves
     python3 chip_smoke.py --only assemble  # warm assemblies alone, no solves
     python3 chip_smoke.py --only finitestrain  # the finite-strain phases alone
 
-Phases, each printing JSON lines (``--only kernels``: device, build, the
-``assembly_kernels`` rows of the slice, NS, triangles and elasticity, the
-example's chunk rows and ``elasticity_kernels``; run from another
-checkout's root, with this script copied there, it measures that
-checkout's kernels at the same shapes; ``--only assemble``: device, build
+Phases, each printing JSON lines (``--only kernels``: device, build, K3's
+rows at the slice's, the example's and the finite-strain grids and K1 and
+K2's there, the ``assembly_kernels`` rows of the slice, NS, triangles and
+elasticity, K7's rows on the NS and triangle jacobians, the example's
+chunk rows and ``elasticity_kernels``; run from another checkout's root,
+with this script copied there, it measures that checkout's kernels at the
+same shapes and inputs, K3's and K7's outputs' sha1 digests among them;
+``--only assemble``: device, build
 and ``assemble_only``, many warm assemblies of each path, for comparing
 two checkouts the same way):
 
@@ -29,7 +32,12 @@ two checkouts the same way):
    K2's fused launches (jacobi_pre, jacobi_post) also at the example's
    2049^2 grid in float64, each the same bits as the single sweeps it
    replaces; K2's single sweeps also at the degree-2 example's fine grid
-   (k = 2); K4's entries also at grids of 1-8 blocks a multiprocessor.
+   (k = 2); K1, K2's fused launches and K3 also at the finite-strain grid
+   (721, 721, 2) in float64, K3 also at the example's; K3 at each grid in
+   the form it takes there (``ops/mg.transfer_form``), the same bits as
+   the generic kernel launched directly and timed beside it, the sha1 of
+   its outputs, prolong-add adding into a scratch x made outside the timed
+   graph; K4's entries also at grids of 1-8 blocks a multiprocessor.
 4. slice    — the bench's Laplace slice at 1,050,625 dofs in float32:
    System (every assembly chunk on the factored route), assembly through
    K11/K12, multigrid set-up and the refined CG solve to rtol 1e-10,
@@ -55,8 +63,9 @@ two checkouts the same way):
    rtol 1e-3 and the fused step, through the kernels (launch counts read
    around the run); then K5-K7 against their plain versions at the step's
    shapes (K5 also against the literal port on the weight buffer, and
-   cuSPARSE in float32 and float64), and a profile of one warm assembly and
-   one warm solve.
+   cuSPARSE in float32 and float64; K7 twice, the same bits, with the sha1
+   of minv and the floor of its two passes beside its bound), and a
+   profile of one warm assembly and one warm solve.
 9. ns_parity — the step at 6x6 elements in float64 on the card and on the
    CPU: the solutions agree to 1e-8 relative, in as many iterations.
 10. ns_tri  — the same Newton step on ``unitsquare(330, 'triangle')``
@@ -136,8 +145,8 @@ two checkouts the same way):
    residual norm, the energies and relaxations of its trials, the inner
    solve's record, ``t_assemble``, ``t_value`` and the constrained solve's
    set-up and Krylov times (the methods are wrapped and timed, the log
-   lines read); K15 in every value assembly, K11/K12 launched, no plain
-   version run, the residual at 1e-10.
+   lines read); K15 in every value assembly, K11/K12 and the inner MG-CG's
+   K1-K4 launched, no plain version run, the residual at 1e-10.
 23. finitestrain_kernels — K15 (``elem_value``, ``elem_value_sum``)
    against its plain version on the converged energy's integrand (518,400
    elements of 4 points) in float32 and float64: the error, two launches
@@ -154,7 +163,10 @@ two checkouts the same way):
 
 Each path's assembly line also gives ``t_assemble_generic``: the same
 System with every chunk on the generic ``vmap(jvp)`` route, in the same
-call.
+call.  The kernels line gives K1-K4's launches summed over the paths that
+run them (the slice, the example, the degree-2 example, finite strain)
+with each path's beside them (``launches_by_path``), as K11/K12's, and
+K1-K3's rows at the other paths' grids (``rows``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
@@ -236,7 +248,14 @@ BLOCK_CG = {'solver': 'cg', 'precon': 'block', 'preconargs': {'blocksize': 2}}
 # every line-search trial, the jacobian and residual through K11 and K12
 FINITESTRAIN_NELEMS = 720
 VALUE_KERNELS = ('elem_value', 'elem_value_sum')
-FINITESTRAIN_KERNELS = VALUE_KERNELS + ASSEMBLY_KERNELS
+# the inner solves: CG from CUDA graphs (K4) with the V-cycle (K1-K3) on the
+# masked stencil operator of the vector field's grid
+FINITESTRAIN_KERNELS = VALUE_KERNELS + ASSEMBLY_KERNELS + ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict',
+                                                           'mg_prolong_add', 'cg_dot', 'cg_step', 'cg_xpby')
+# K1-K4: their launches are summed over the paths that run the V-cycle or
+# CG on a stencil operator, each path's beside them
+MG_KERNELS = ('stencil_matvec', 'jacobi_smooth', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add', 'cg_dot',
+              'cg_step', 'cg_xpby')
 # kernel vs plain: float32 sums in another order (and with fused multiply-
 # adds) differ by a few ulps, float64 ones by a few ulps of float64
 TOL = {'float32': 1e-6, 'float64': 1e-14}
@@ -509,33 +528,126 @@ def phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak, nu=2):
     return results
 
 
-def phase_kernels(device='cuda'):
-    """K1-K4 against their plain versions, on the card; returns {name: row}
-    at the Laplace slice's float32 shapes."""
+def digest(t):
+    """sha1 of a tensor's bits (to compare outputs between packages or calls)."""
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def transfer_rows(label, f, x, per, dname, peak, rng):
+    """K3 (``mg_restrict``, ``mg_prolong_add``) at one grid and the coarse
+    grid the hierarchy's rule makes of it (``ops/mg._coarsen_flags``: a
+    vector field's component axis is kept), against its plain version: the
+    form it takes (``ops/mg.transfer_form``), the same bits as the generic
+    kernel (launched directly), the sha1 of its outputs (to compare with
+    another package's at the same inputs), its time beside the generic
+    kernel's and a strided convolution's (full weighting and linear
+    interpolation as ``F.conv2d`` / ``F.conv_transpose2d``, or their 3-D
+    forms with the component axis kept; the transposed convolution does not
+    add into x, so it computes less than prolong-add).  Prolong-add adds
+    into a scratch x made outside the timed graph (its values drift, its
+    time does not).  Returns {name: row}."""
     import numpy
     import torch
     import torch.nn.functional as F
+    from nutils_tpu_torch import _kernels
+    from nutils_tpu_torch.ops import mg
+    shape = tuple(f.shape)
+    dtype, dev, isz = f.dtype, f.device, f.element_size()
+    flags = mg._coarsen_flags(shape, per, 1)
+    cshape = tuple((s + 1) // 2 if fl else s for s, fl in zip(shape, flags))
+    n, nc = int(numpy.prod(shape)), int(numpy.prod(cshape))
+    form = mg.transfer_form(shape, cshape) if hasattr(mg, 'transfer_form') else 'generic'
+    xc = torch.as_tensor(rng.standard_normal(cshape), dtype=dtype, device=dev)
+    rc_generic = torch.empty(cshape, dtype=dtype, device=dev)
+    scratch = x.clone()
+    generic = {'mg_restrict': lambda: _kernels.launch('ntt_restrict', f, [f, rc_generic, None], shape, cshape=cshape),
+               'mg_prolong_add': lambda: _kernels.launch('ntt_prolong_add', scratch, [scratch, xc, None], shape,
+                                                         cshape=cshape)}
+    t1 = torch.tensor([0.5, 1.0, 0.5], dtype=dtype, device=dev)
+    if len(shape) == 2:
+        k = torch.outer(t1, t1).reshape(1, 1, 3, 3)
+        fk, xck = f.reshape(1, 1, *shape), xc.reshape(1, 1, *cshape)
+        library = {'mg_restrict': lambda: F.conv2d(fk, k, stride=2, padding=1),
+                   'mg_prolong_add': lambda: F.conv_transpose2d(xck, k, stride=2, padding=1)}
+    else:
+        k = torch.outer(t1, t1).reshape(1, 1, 3, 3, 1)
+        fk, xck = f.reshape(1, 1, *shape), xc.reshape(1, 1, *cshape)
+        library = {'mg_restrict': lambda: F.conv3d(fk, k, stride=(2, 2, 1), padding=(1, 1, 0)),
+                   'mg_prolong_add': lambda: F.conv_transpose3d(xck, k, stride=(2, 2, 1), padding=(1, 1, 0))}
+    checks = {'mg_restrict': (lambda: mg.mg_restrict(f, cshape), lambda: mg.mg_restrict(f, cshape),
+                              lambda: mg.restrict_plain(f, cshape), (n + nc) * isz, 8 * nc),
+              'mg_prolong_add': (lambda: mg.mg_prolong_add(x.clone(), xc), lambda: mg.mg_prolong_add(scratch, xc),
+                                 lambda: x + mg.prolong_plain(xc, shape), (2 * n + nc) * isz, 4 * n)}
+    results = {}
+    for name, (check, kernel, plain, nbytes, flops) in checks.items():
+        got, want = check(), plain()
+        scratch.copy_(x)
+        generic[name]()
+        ref = rc_generic if name == 'mg_restrict' else scratch
+        torch.cuda.synchronize()
+        same_bits = digest(got) == digest(ref)
+        err, relerr = _compare(got, want)
+        (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
+        generic_ms = time_ms(generic[name])[0]
+        fields = dict(row(err, ms, plain_ms, nbytes, flops, time_ms(library[name])[0], peak), generic_ms=generic_ms,
+                      form=form, sha1=digest(got))
+        check_row(name, label, dname, relerr, dict(fields, shape=list(shape), cshape=list(cshape), call_ms=call_ms,
+                                                   same_bits_as_generic=same_bits))
+        if not same_bits:
+            raise AssertionError(f'{name} ({label}, {dname}): the {form} form differs from the generic kernel')
+        results[name] = fields
+    return results
+
+
+# (label, shape, ks, periodic, dtypes, what) of phase_kernels: the Laplace
+# slice's grid; a periodic 2-D and a 3-D grid; the example's fine grid (K2
+# fused and K3, its float64); the degree-2 example's fine grid (K2 single
+# sweeps, k = 2); the finite-strain grid (a vector field: K1, K2 fused and
+# K3 with the component axis kept, float64)
+_BOTH = ('float32', 'float64')
+KERNEL_CASES = [('slice', (1025, 1025), (1, 1), (False, False), _BOTH, ('stencil', 'sweeps', 'fused', 'transfers')),
+                ('periodic', (1024, 1025), (1, 1), (True, False), _BOTH, ('stencil', 'fused')),
+                ('3d', (129, 129, 65), (1, 1, 1), (False, False, False), _BOTH, ('stencil', 'fused')),
+                ('example', (2049, 2049), (1, 1), (False, False), ('float64',), ('fused', 'transfers')),
+                ('p2', (2 * P2_NELEMS + 1,) * 2, (2, 2), (False, False), ('float64',), ('sweeps',)),
+                ('finitestrain', (FINITESTRAIN_NELEMS + 1,) * 2 + (2,), (1, 1, 1), (False, False, False),
+                 ('float64',), ('stencil', 'fused', 'transfers'))]
+# the rows of K1-K3 kept beside each kernel's main row (the slice's, float32)
+EXTRA_ROWS = {('slice', 'float64'), ('example', 'float64'), ('finitestrain', 'float64')}
+
+
+def kernel_cases(what):
+    '''The cases of :data:`KERNEL_CASES` named in ``what`` (label -> what
+    to run there).'''
+    return [case[:5] + (what[case[0]],) for case in KERNEL_CASES if case[0] in what]
+
+
+def phase_kernels(device='cuda', cases=KERNEL_CASES, k4=True):
+    """K1-K4 against their plain versions, on the card, at ``cases``
+    (K4: at the slice's length, unless ``k4`` is false); returns {name:
+    row} at the Laplace slice's float32 shapes, each of K1-K3's with its
+    rows at the other paths' shapes (``rows``, keyed by case and dtype)."""
+    import numpy
+    import torch
     from nutils_tpu_torch import _kernels, carry
     from nutils_tpu_torch.ops import cg, mg, stencil
     dev = torch.device(device)
-    rng = numpy.random.default_rng(0)
     results = {}
-    # (label, shape, ks, periodic, dtypes, what): the Laplace slice's grid;
-    # a periodic 2-D and a 3-D grid; the example's fine grid (K2 fused, its
-    # float64); the degree-2 example's fine grid (K2 single sweeps, k = 2)
-    both = (torch.float32, torch.float64)
-    cases = [('slice', (1025, 1025), (1, 1), (False, False), both, ('stencil', 'sweeps', 'fused', 'transfers')),
-             ('periodic', (1024, 1025), (1, 1), (True, False), both, ('stencil', 'fused')),
-             ('3d', (129, 129, 65), (1, 1, 1), (False, False, False), both, ('stencil', 'fused')),
-             ('example', (2049, 2049), (1, 1), (False, False), (torch.float64,), ('fused',)),
-             ('p2', (2 * P2_NELEMS + 1,) * 2, (2, 2), (False, False), (torch.float64,), ('sweeps',))]
+    extra = {}
+
+    def keep(name, label, dname, fields):
+        if label == 'slice' and dname == 'float32':
+            results[name] = fields
+        elif (label, dname) in EXTRA_ROWS:
+            extra.setdefault(name, {})[f'{label} {dname}'] = fields
     for label, shape, ks, per, dtypes, what in cases:
+        rng = numpy.random.default_rng(list(label.encode()))  # a case's inputs whatever cases run
         W = int(numpy.prod([2 * k + 1 for k in ks]))
         w_np = rng.standard_normal((W,) + shape)
         x_np = rng.standard_normal(shape)
         n = int(numpy.prod(shape))
-        for dtype in dtypes:
-            dname = str(dtype).split('.')[1]
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
             isz = 4 if dtype == torch.float32 else 8
             peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
             w = torch.as_tensor(w_np, dtype=dtype, device=dev)
@@ -562,25 +674,6 @@ def phase_kernels(device='cuda'):
                         lambda mode=mode: mg.jacobi_smooth(w, dinv, r, x, ks, shape, per, mode=mode),
                         lambda mode=mode: mg.jacobi_plain(w, dinv, r, x, ks, shape, per, mg.OMEGA, mode),
                         sweep[mode][0] * isz, sweep[mode][1])
-            if 'transfers' in what:
-                cshape = tuple((s + 1) // 2 for s in shape)
-                nc = int(numpy.prod(cshape))
-                xc = torch.as_tensor(rng.standard_normal(cshape), dtype=dtype, device=dev)
-                checks['mg_restrict'] = (lambda: mg.mg_restrict(r, cshape), lambda: mg.restrict_plain(r, cshape),
-                                         (n + nc) * isz, 8 * nc)
-                checks['mg_prolong_add'] = (lambda: mg.mg_prolong_add(x.clone(), xc),
-                                            lambda: x.clone().add_(mg.prolong_plain(xc, shape)),
-                                            (2 * n + nc) * isz, 4 * n)
-                if dtype == torch.float32:
-                    # full weighting and linear interpolation as strided
-                    # convolutions (non-periodic 2-D, both axes coarsened),
-                    # in full float32; the transposed convolution does not
-                    # add into x, so it computes less than K3's prolong-add
-                    t1 = torch.tensor([0.5, 1.0, 0.5], dtype=dtype, device=dev)
-                    k2 = torch.outer(t1, t1).reshape(1, 1, 3, 3)
-                    r4, xc4 = r.reshape(1, 1, *shape), xc.reshape(1, 1, *cshape)
-                    library['mg_restrict'] = lambda: F.conv2d(r4, k2, stride=2, padding=1)
-                    library['mg_prolong_add'] = lambda: F.conv_transpose2d(xc4, k2, stride=2, padding=1)
             for name, (kernel, plain, nbytes, flops) in checks.items():
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
@@ -591,21 +684,27 @@ def phase_kernels(device='cuda'):
                 check_row(name, label, dname, relerr, dict(fields, shape=list(shape), ks=list(ks),
                                                            periodic=list(per), call_ms=call_ms,
                                                            plain_call_ms=plain_call_ms))
-                if label == 'slice' and dtype == torch.float32 and name in ('stencil_matvec', 'mg_restrict',
-                                                                            'mg_prolong_add'):
-                    results[name] = fields
+                if name == 'stencil_matvec':
+                    keep(name, label, dname, fields)
                 if label == 'p2' and name == 'jacobi_smooth/mode1':
                     results['jacobi_smooth'] = fields
             if 'fused' in what:
-                fused = phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak)
-                if label == 'slice' and dtype == torch.float32:
-                    results.update(fused)
+                for name, fields in phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak).items():
+                    keep(name, label, dname, fields)
+            if 'transfers' in what:
+                for name, fields in transfer_rows(label, r, x, per, dname, peak, rng).items():
+                    keep(name, label, dname, fields)
+    for name, rows in extra.items():
+        results[name] = dict(results.get(name, {}), rows=rows)
+    if not k4:
+        return results
     # K4 on CG vectors of the slice's length and a state of the loop's: each
     # entry against its plain version on the same state; the sums on the
     # scale of their terms (the scale of any summation's rounding error).
     # Timed runs start from the same state (an untimed reset before each),
     # so cg_step never meets its refresh schedule and stays active.
     n = 1025 * 1025
+    rng = numpy.random.default_rng(0)
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[1]
         isz = 4 if dtype == torch.float32 else 8
@@ -982,6 +1081,43 @@ def phase_ns(nelems=330, device='cuda'):
     return launches, system, jac, res, clean, dict(t_k5_plan=t_k5_plan, t_pack=t_pack)
 
 
+def schur_row(label, w, cmap, indices, indptr, n):
+    """K7 (``schur_diag_inverse_device``) on the values ``w`` (through the
+    map ``cmap``, or the CSR values themselves where it is None) against
+    its plain version: the error, two launches the same bits, the sha1 of
+    minv (to compare with another package's at the same inputs), the time,
+    the bound (each input read once) and the floor of a two-pass design
+    (the nonzeros read twice, the mapped values gathered once into a
+    scratch and read back).  Returns the row."""
+    import torch
+    from nutils_tpu_torch.ops import sparse
+    dname, isz = str(w.dtype).split('.')[1], w.element_size()
+    nnz = int(indices.shape[0])
+    got = sparse.schur_diag_inverse_device(w, cmap, indices, indptr, n).clone()
+    again = sparse.schur_diag_inverse_device(w, cmap, indices, indptr, n)
+    want = sparse.schur_diag_plain(w, cmap, indices, indptr, n)
+    torch.cuda.synchronize()
+    repeat = digest(got) == digest(again)
+    err, relerr = _compare(got, want)
+    (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: sparse.schur_diag_inverse_device(w, cmap, indices, indptr, n)), \
+        time_ms(lambda: sparse.schur_diag_plain(w, cmap, indices, indptr, n))
+    # each input read once: the value (gathered), the map entry and the
+    # column a nonzero, the row pointers; minv written once.  Two passes:
+    # (map, value, column, the scratch written) then (scratch, column), or
+    # (value, column) twice; the row pointers read and d, dsafe, strong
+    # written and read back once a pass
+    per_nnz = (isz + 4) if cmap is None else (isz + 8)
+    two_pass = (2 * (isz + 4) if cmap is None else 3 * isz + 12) * nnz + 2 * (n + 1) * 4 + 2 * n * (2 * isz + 1)
+    fields = dict(row(err, ms, plain_ms, nnz * per_nnz + (n + 1) * 4 + n * isz, 6 * nnz),
+                  two_pass_floor_ms=two_pass / HBM_BYTES_PER_S * 1e3 + n * isz / HBM_BYTES_PER_S * 1e3,
+                  sha1=digest(got))
+    check_row('schur_diag_inverse_device', label, dname, relerr,
+              dict(fields, n=n, nnz=nnz, call_ms=call_ms, bitwise_repeat=repeat))
+    if not repeat:
+        raise AssertionError(f'K7 ({label}, {dname}) differs between two launches')
+    return fields
+
+
 def phase_ns_kernels(jac, k5_setup):
     """K5-K7 against their plain versions at the Navier-Stokes step's shapes
     (its block-grid operator and K5's plan, whose host and pack times
@@ -990,7 +1126,7 @@ def phase_ns_kernels(jac, k5_setup):
     import numpy
     import torch
     from nutils_tpu_torch.ops import _triton_gmres as tgm
-    from nutils_tpu_torch.ops import blockgrid, sparse
+    from nutils_tpu_torch.ops import blockgrid
     rng = numpy.random.default_rng(1)
     results = {}
     (_kind, plan), _op = jac._device_op()
@@ -1041,16 +1177,7 @@ def phase_ns_kernels(jac, k5_setup):
                        rel_err_literal_plain=literal_relerr, pack_ms=pack_ms))
         if dtype == torch.float32:
             results['blockgrid_matvec'] = fields
-        got = sparse.schur_diag_inverse_device(w, cmap, indices, indptr, n)
-        want = sparse.schur_diag_plain(w, cmap, indices, indptr, n)
-        torch.cuda.synchronize()
-        err, relerr = _compare(got, want)
-        (ms, call_ms), (plain_ms, _pc) = time_ms(lambda: sparse.schur_diag_inverse_device(w, cmap, indices, indptr, n)), \
-            time_ms(lambda: sparse.schur_diag_plain(w, cmap, indices, indptr, n))
-        # each input read once: the gathered values, the map and the columns
-        # per nonzero, the row pointers; minv written once
-        fields = row(err, ms, plain_ms, nnz * (isz + 8) + (n + 1) * 4 + n * isz, 6 * nnz)
-        check_row('schur_diag_inverse_device', 'ns', dname, relerr, dict(fields, n=n, nnz=nnz, call_ms=call_ms))
+        fields = schur_row('ns', w, cmap, indices, indptr, n)
         if dtype == torch.float32:
             results['schur_diag_inverse_device'] = fields
     # K6 on GMRES(100) vectors of the step's length, float32
@@ -1402,18 +1529,7 @@ def phase_ns_tri_kernels(system, jac):
             results['csr_matvec'] = fields
         del Ad, again, idle
         # K7 with no map: the values are the CSR data
-        got = sparse.schur_diag_inverse_device(data, None, indices, indptr, n)
-        want = sparse.schur_diag_plain(data, None, indices, indptr, n)
-        torch.cuda.synchronize()
-        err, relerr = _compare(got, want)
-        (ms, call_ms), (plain_ms, _pc) = \
-            time_ms(lambda: sparse.schur_diag_inverse_device(data, None, indices, indptr, n)), \
-            time_ms(lambda: sparse.schur_diag_plain(data, None, indices, indptr, n))
-        # each input read once: value and column per nonzero, the row
-        # pointers; minv written once
-        fields = row(err, ms, plain_ms, nnz * (isz + 4) + (n + 1) * 4 + n * isz, 6 * nnz)
-        check_row('schur_diag_inverse_device', 'ns_tri csr', dname, relerr,
-                  dict(fields, n=n, nnz=nnz, call_ms=call_ms))
+        fields = schur_row('ns_tri csr', data, None, indices, indptr, n)
         if dtype == torch.float32:
             results['schur_diag_inverse_device[csr]'] = fields
         del data, values
@@ -1594,7 +1710,7 @@ def phase_laplace_example(nelems=2048):
         t_setup, mg = _sync_time(masked._mg)
         t_solve, dx = _sync_time(lambda: jac.solve(r, symmetric=system.is_symmetric))
         stats = dict(jac._solve_stats)
-        launches = read_launches(EXAMPLE_KERNELS)
+        launches = read_launches(EXAMPLE_KERNELS + ('cg_dot', 'cg_step', 'cg_xpby'))
         single_sweeps = read_launches(('jacobi_smooth',))['jacobi_smooth']
         t_solve_warm, dx_warm = _sync_time(lambda: jac.solve(r, symmetric=system.is_symmetric))
         wall, kernels, _full, _dx = profiled(lambda: jac.solve(r, symmetric=system.is_symmetric))
@@ -1632,7 +1748,7 @@ def phase_laplace_example(nelems=2048):
         raise AssertionError('Laplace example: System.solve and its parts give other solutions')
     if single_sweeps:
         raise AssertionError(f'the example\'s V-cycle ran {single_sweeps} single K2 sweeps, not only fused ones')
-    missing = [name for name, count in launches.items() if count <= 0]
+    missing = [name for name in EXAMPLE_KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the Laplace example path: {missing}')
     return launches, system, clean, w0, r0
@@ -1773,13 +1889,13 @@ def phase_laplace_example_p2(nelems=P2_NELEMS):
     with config.floatx(numpy.float64), config.device('cuda'):
         reset_launches()
         t, (cons, u, err) = _sync_time(lambda: tp.laplace_example('nutils_tpu_torch', nelems, degree=2))
-        launches = read_launches(P2_KERNELS)
+        launches = read_launches(P2_KERNELS + ('stencil_matvec', 'cg_dot', 'cg_step', 'cg_xpby'))
     limit = 4 * 8.0e-8 * (40 / nelems) ** 3
     emit('laplace_example_p2', nelems=nelems * nelems, ndofs=len(u), seconds=t, l2_error=err, limit=limit,
          constrained=int(numpy.isfinite(cons).sum()), launches=launches)
     if u.shape != ((2 * nelems + 1) ** 2,) or not numpy.isfinite(u).all() or not err < limit:
         raise AssertionError(f'degree-2 example: {u.shape} dofs, L2 error {err:.3e} (limit {limit:.2e})')
-    missing = [name for name, count in launches.items() if count <= 0]
+    missing = [name for name in P2_KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the degree-2 example: {missing}')
     return launches
@@ -2528,26 +2644,39 @@ def finitestrain_only():
 
 
 def kernels_only():
-    """``--only kernels``: the kernel rows of K11-K14 alone, without the
-    solves: K11 and K12 at every block of the slice, the NS step, the
-    triangle step and the elasticity example and on one of the Laplace
-    example's chunks; K13 and K14 at the elasticity path's shapes (its free
-    rows from ``solve_constraints``, random nodal blocks).  Run from
-    another checkout's root (a copy of this script beside its package), it
-    measures that checkout's kernels at the same shapes."""
+    """``--only kernels``: kernel rows alone, without the solves: K3 at the
+    slice's, the example's and the finite-strain grids, K1 and K2's fused
+    sweeps at the finite-strain grid; K11 and K12 at every block of the
+    slice, the NS step, the triangle step and the elasticity example and on
+    one of the Laplace example's chunks; K7 on the NS step's and the
+    triangle step's jacobians; K13 and K14 at the elasticity path's shapes
+    (its free rows from ``solve_constraints``, random nodal blocks).  K3's
+    and K7's rows carry the sha1 of their outputs.  Run from another
+    checkout's root (a copy of this script beside its package), it
+    measures that checkout's kernels at the same shapes and inputs."""
     import _torch_parity as tp
     import numpy
     from nutils_tpu_torch.solver import System
     from nutils_tpu_torch.utils import config
+    import torch
     t0 = time.perf_counter()
     phase_device()
     phase_build()
+    phase_kernels(cases=kernel_cases({'slice': ('transfers',), 'example': ('transfers',),
+                                      'finitestrain': ('stencil', 'fused', 'transfers')}), k4=False)
+    torch.cuda.empty_cache()
     with config.device('cuda'):
         system = build_laplace(1024, numpy.float32, reaction=True)
         phase_assembly_kernels(system, system._clean({'u': numpy.zeros(system.trial_shapes[0][0])}), 'slice')
         for etype, path in (('square', 'ns'), ('triangle', 'ns_tri')):
             system, args = build_ns(330, numpy.float32, etype)
             phase_assembly_kernels(system, system._clean(args), path)
+            jac, _res = system.assemble_jacobian_residual(args)
+            w, cmap, indices, indptr = jac._csr_tables()
+            for dtype in (torch.float32, torch.float64):
+                schur_row('ns' if cmap is not None else 'ns_tri csr', w.to(dtype), cmap, indices, indptr,
+                          jac.shape[0])
+            del jac, w, cmap, indices, indptr
         del system
         config.floatx.value = numpy.float64
         _domain, _ns, res, _sqr = tp.laplace_example_forms('nutils_tpu_torch', 2048)
@@ -2640,6 +2769,7 @@ def main():
     made = track_mg()
     measured = phase_kernels()
     launches, system, clean, jac, res = phase_slice()
+    mg_by_path = {'slice': dict(launches)}
     phase_slice_driver(jac, res)
     phase_slice_profile(jac, res)
     with config.floatx(numpy.float32):  # the slice's own precision
@@ -2678,8 +2808,8 @@ def main():
     del system, clean, w0, r0
     torch.cuda.empty_cache()
     phase_laplace_example_parity()
-    # K2's single sweeps: their launches come from the degree-2 example
-    launches['jacobi_smooth'] = phase_laplace_example_p2()['jacobi_smooth']
+    mg_by_path['laplace_example'] = example_launches
+    mg_by_path['laplace_example_p2'] = phase_laplace_example_p2()
     phase_ns_newton()
     torch.cuda.empty_cache()
     by_path['laplace_example'] = {name: example_launches[name] for name in ASSEMBLY_KERNELS}
@@ -2700,7 +2830,14 @@ def main():
     torch.cuda.empty_cache()
     phase_finitestrain_parity()
     by_path['finitestrain'] = {name: finitestrain_launches[name] for name in ASSEMBLY_KERNELS}
+    mg_by_path['finitestrain'] = finitestrain_launches
     launches.update({name: finitestrain_launches[name] for name in VALUE_KERNELS})
+    # K1-K4: launches summed over the paths that run them, each path's
+    # beside them
+    for name in MG_KERNELS:
+        by = {path: counts.get(name, 0) for path, counts in mg_by_path.items()}
+        launches[name] = sum(by.values())
+        measured[name] = dict(measured[name], launches_by_path=by)
     # K11 and K12: launches summed over the paths' runs, each path's beside
     # them; their float64 measurements on one of the example's element
     # chunks, written in place, and on the elasticity example's block,

@@ -51,11 +51,12 @@ _SIG = {
     'ntt_jacobi_fused': (_I, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _I, _PI64, _PI32, _PI32, _P),
     'ntt_restrict': (_I, _P, _P, _P, _I, _PI64, _PI64, _P),
     'ntt_prolong_add': (_I, _P, _P, _P, _I, _PI64, _PI64, _P),
+    'ntt_transfer_tile': (_I, _P, _P, _P, _I, _I, _I, _I, _P),
     'ntt_cg_dot': (_I, _P, _P, _P, _I, _I, _I, _I, _P),
     'ntt_cg_step': (_I, _P, _P, _P, _P, _P, _I, _I, _P),
     'ntt_cg_xpby': (_I, _P, _P, _P, _I, _I, _P),
     'ntt_blockgrid_matvec': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    'ntt_schur_diag': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_double, _P),
+    'ntt_schur_diag': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_double, _P),
     'ntt_csr_scatter': (_I, _P, _P, _P, _P, _I, _P),
     'ntt_csr_spmv': (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     'ntt_elem_matrix': (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _PI64, _P),

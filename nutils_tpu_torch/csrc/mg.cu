@@ -9,8 +9,7 @@
 // the update, so a sweep reads w, x, r and dinv once and writes one value a
 // dof instead of materialising A x; its first sweep (x = 0) reads no
 // stencil at all.  K3 applies the tensor-product transfer of all coarsened
-// axes in one pass, one thread per output point, instead of one pass per
-// axis.  Inside the CG loop's chunk graphs each kernel reads the loop's
+// axes in one pass instead of one pass per axis.  Inside the CG loop's chunk graphs each kernel reads the loop's
 // active flag first and does nothing once the loop has stopped (null:
 // always runs), so an iteration after the loop's exit costs empty launches,
 // not a V-cycle.
@@ -271,6 +270,40 @@ int fused(int ndim, int nu, const Box& b, const void* w, const void* dinv, const
   return fused_nu<T, 3, PRE>(nu, b, w, dinv, r, xin, xout, res, omega, active, s);
 }
 
+// ------------------------------------------------------------ transfers
+//
+// K3 comes in two forms too.  The generic one (restrict_kernel,
+// prolong_add_kernel) takes any pattern of coarsened axes on grids of up to
+// four axes, one thread per output point.  The tiled one (restrict_tile,
+// prolong_add_tile) takes the transfers every path runs: axes 0 and 1
+// coarsened (n = 2 nc - 1), and a trailing axis of V = 1, 2 or 3
+// components kept (V = 1: a 2-D grid); the host picks it by shape alone
+// (ops/mg.py transfer_form).  The generic kernels spend four integer
+// divisions a point on its coordinates and loop over the combinations of
+// offsets at run time, and the prolongation's warps diverge (an even fine
+// point reads one coarse value, an odd/odd one four), so at 5-19 MB a call
+// instructions, not DRAM, set their pace.  The tiled kernels launch on a
+// 2-D grid of blocks with the offsets unrolled and no division by a
+// run-time value:
+// - restrict_tile: a block owns TY x TX coarse points (x V) and stages the
+//   fine tile with its one-point halo, 2 TY + 1 rows of (2 TX + 1) V
+//   values, in shared memory with coalesced loads, so DRAM reads each fine
+//   value about once; each thread then computes TY / 8 rows of its V
+//   outputs from shared memory.  Points off the grid are staged as -0,
+//   which leaves any sum unchanged (x + -0 = x, also for x = +-0), so the
+//   sums skip them as the generic kernel does.
+// - prolong_add_tile: one thread per coarse value (a coarse point's
+//   component) adds into its 2 x 2 fine points (fewer on the last row and
+//   column); neighbouring threads share their coarse reads through L1, no
+//   warp diverges but at the grid's last row and column, and a warp writes
+//   two fine rows of 64 contiguous values.
+// The tiled kernels sum a point's terms in the generic kernel's order,
+// from zero, with its weights (1, 1/2, 1/4: each product exact), each term
+// one fma written out (the contraction nvcc makes of the generic kernel's
+// acc += wt * f): restrict with the offset of axis 0 fastest, then axis 1;
+// prolong-add the low, then the high neighbour of axis 0, then of axis 1,
+// then x[i] + acc.  The two forms give the same bits.
+
 // rc[j] = sum over coarsened axes of f[2 j + a] weighted (1/2, 1, 1/2) for
 // a = (-1, 0, 1), zero outside the fine grid (P^T of linear interpolation).
 template <typename T>
@@ -348,6 +381,105 @@ __global__ void prolong_add_kernel(Grid fine, Grid coarse, T* __restrict__ x,
   x[i] += acc;
 }
 
+// the tiled form: coarse points a tile along axis 1 (a warp's), threads
+// along axis 0 in a block, coarse rows a restrict tile (16 in float32, 8 in
+// float64: 33 or 17 staged fine rows, at most 26.5 KB at V = 3)
+constexpr int TX = 32;
+constexpr int TROWS = 8;
+template <typename T>
+struct RTile {
+  static constexpr int TY = 64 / (int)sizeof(T);
+};
+
+// the weight of offset o (0, 1, 2 for -1, 0, +1) on one axis
+template <typename T>
+__device__ __forceinline__ constexpr T wt1(int o) {
+  return o == 1 ? T(1) : T(0.5);
+}
+
+// rc = full weighting of f over axes 0 and 1: f is (n0, n1, V), rc (c0, c1, V)
+template <typename T, int V>
+__global__ void __launch_bounds__(TX * TROWS)
+    restrict_tile(int n0, int n1, int c0, int c1, const T* __restrict__ f, T* __restrict__ rc, const int* active) {
+  if (stopped(active)) return;
+  constexpr int TY = RTile<T>::TY, SR = 2 * TY + 1, SC = (2 * TX + 1) * V, TV = TX * V;
+  __shared__ T s[SR * SC];
+  const int j0 = blockIdx.y * TY, j1 = blockIdx.x * TX;
+  const int f0 = 2 * j0 - 1, e0 = (2 * j1 - 1) * V, rowlen = n1 * V;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  // the fine tile and its halo, each staged row one contiguous run of
+  // (2 TX + 1) V values on the grid
+  for (int p = tid; p < SR * SC; p += TX * TROWS) {
+    const int fr = f0 + p / SC, e = e0 + p % SC;
+    s[p] = fr >= 0 && fr < n0 && e >= 0 && e < rowlen ? f[fr * rowlen + e] : T(-0.0);
+  }
+  __syncthreads();
+  // outputs: TY rows of TX V values, neighbouring threads on neighbouring
+  // values (q = V x + v for the coarse point j1 + x, component v)
+  const int nq = min(TV, (c1 - j1) * V);
+  for (int p = tid; p < TY * TV; p += TX * TROWS) {
+    const int ly = p / TV, q = p % TV;
+    if (j0 + ly >= c0 || q >= nq) continue;
+    const int v = q % V, base = 2 * (q - v) + v;  // staged value of the fine point 2 x - 1, component v
+    T acc = T(0);
+#pragma unroll
+    for (int o1 = 0; o1 < 3; ++o1)
+#pragma unroll
+      for (int o0 = 0; o0 < 3; ++o0)
+        acc = fma_rn(wt1<T>(o0) * wt1<T>(o1), s[(2 * ly + o0) * SC + base + o1 * V], acc);
+    rc[(j0 + ly) * c1 * V + j1 * V + q] = acc;
+  }
+}
+
+// x += P xc over axes 0 and 1: x is (n0, n1, V), xc (c0, c1, V); one thread
+// per coarse value (q = V j1 + v: coarse point (j0, j1), component v)
+template <typename T, int V>
+__global__ void __launch_bounds__(TX * TROWS)
+    prolong_add_tile(int n0, int n1, int c0, int c1, T* __restrict__ x, const T* __restrict__ xc,
+                     const int* active) {
+  if (stopped(active)) return;
+  const int j0 = blockIdx.y * TROWS + threadIdx.y, q = blockIdx.x * TX + threadIdx.x;
+  if (j0 >= c0 || q >= c1 * V) return;
+  const int v = q % V, j1 = q / V;
+  const bool odd0 = 2 * j0 + 1 < n0, odd1 = 2 * j1 + 1 < n1;  // the fine point after it on each axis
+  const T* c = xc + j0 * c1 * V + q;
+  T* out = x + 2 * j0 * n1 * V + 2 * (q - v) + v;  // the fine point (2 j0, 2 j1), component v
+  const int crow = c1 * V, frow = n1 * V;
+  const T a00 = c[0], a01 = odd1 ? c[V] : T(0), a10 = odd0 ? c[crow] : T(0), a11 = odd0 && odd1 ? c[crow + V] : T(0);
+  out[0] = out[0] + fma_rn(T(1), a00, T(0));
+  if (odd1) out[V] = out[V] + fma_rn(T(0.5), a01, fma_rn(T(0.5), a00, T(0)));
+  if (odd0) out[frow] = out[frow] + fma_rn(T(0.5), a10, fma_rn(T(0.5), a00, T(0)));
+  if (odd0 && odd1)
+    out[frow + V] = out[frow + V] +
+                    fma_rn(T(0.25), a11, fma_rn(T(0.25), a01, fma_rn(T(0.25), a10, fma_rn(T(0.25), a00, T(0)))));
+}
+
+template <typename T, int V>
+int launch_tile(bool restrict_, int n0, int n1, const void* in, void* out, const int* active, cudaStream_t s) {
+  const int c0 = (n0 + 1) / 2, c1 = (n1 + 1) / 2;
+  const dim3 threads(TX, TROWS);
+  if (restrict_) {
+    const dim3 grid((c1 + TX - 1) / TX, (c0 + RTile<T>::TY - 1) / RTile<T>::TY);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+    restrict_tile<T, V><<<grid, threads, 0, s>>>(n0, n1, c0, c1, (const T*)in, (T*)out, active);
+  } else {
+    const dim3 grid((c1 * V + TX - 1) / TX, (c0 + TROWS - 1) / TROWS);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+    prolong_add_tile<T, V><<<grid, threads, 0, s>>>(n0, n1, c0, c1, (T*)out, (const T*)in, active);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int tile(bool restrict_, int V, int n0, int n1, const void* in, void* out, const int* active, cudaStream_t s) {
+  switch (V) {
+    case 1: return launch_tile<T, 1>(restrict_, n0, n1, in, out, active, s);
+    case 2: return launch_tile<T, 2>(restrict_, n0, n1, in, out, active, s);
+    case 3: return launch_tile<T, 3>(restrict_, n0, n1, in, out, active, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace ntt
 
 extern "C" {
@@ -423,6 +555,18 @@ int ntt_prolong_add(int dtype, void* x, const void* xc, const int* active, int n
     ntt::prolong_add_kernel<double><<<ntt::nblocks(fine.n), ntt::BLOCK, 0, s>>>(
         fine, coarse, (double*)x, (const double*)xc, active);
   return (int)cudaGetLastError();
+}
+
+// K3's tiled form (the generic kernels' bits): restrict (f fine, out
+// coarse) or prolong-add (f coarse, out the fine x, added to in place)
+// between a fine grid (n0, n1, V) and the coarse (c0, c1, V), c = (n + 1) /
+// 2 on axes 0 and 1, V 1-3 (else cudaErrorInvalidValue).
+int ntt_transfer_tile(int dtype, const void* f, void* out, const int* active, int restrict_, int n0, int n1, int V,
+                      void* stream) {
+  if (n0 < 1 || n1 < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return ntt::tile<float>(restrict_, V, n0, n1, f, out, active, s);
+  return ntt::tile<double>(restrict_, V, n0, n1, f, out, active, s);
 }
 
 }  // extern "C"

@@ -17,7 +17,9 @@ hand-written kernels: K2 smooths a level in two launches, :func:`jacobi_pre`
 3-D grids of half-width 1 (:func:`fused_shape`); other levels take K2's
 single sweeps, :func:`jacobi_smooth`, one launch a sweep.  K3
 :func:`mg_restrict` (full weighting) and :func:`mg_prolong_add` (x += P xc,
-linear interpolation) move between levels; the coarsest level is a plain
+linear interpolation) move between levels, tiled where axes 0 and 1
+coarsen beside at most a kept axis of components (:func:`transfer_form`),
+generic elsewhere, with the same bits; the coarsest level is a plain
 ``torch.matmul`` with the dense inverse.  Each kernel's plain torch version
 (the literal port of ``_vcycle_fn``'s updates, ``_restrict`` and
 ``_prolong``) runs for tensors on the CPU.
@@ -469,10 +471,53 @@ def jacobi_post(w, dinv, r, x, ks, shape, periodic, nu=2, omega=OMEGA, active=No
 _kernels.counted(jacobi_post)
 
 
+# K3's tiled form (``csrc/mg.cu``): components a kept trailing axis may have,
+# and the tiles of coarse points a launch's grid may hold along axis 0
+# (restrict: 8 or 16 rows a tile; prolong-add: 8)
+TILE_COMPONENTS = 3
+TILE_ROWS = 8
+MAX_GRID_Y = 65535
+
+
+def transfer_form(shape, cshape):
+    '''The form of K3 that moves between the grids ``shape`` and ``cshape``
+    (a pure function of the two): ``'tile'`` where axes 0 and 1 coarsen
+    (n = 2 nc - 1) and the grid has no other axis, or a trailing one of at
+    most :data:`TILE_COMPONENTS` components that is kept (the transfers of
+    the Laplace levels and of a vector field's, as ``_coarsen_flags``
+    makes them), within the launch grid's rows; ``'generic'`` for every
+    other pattern (semi-coarsening beside a periodic or short axis, 3-D and
+    4-D grids).'''
+    shape, cshape = tuple(int(s) for s in shape), tuple(int(s) for s in cshape)
+    if len(shape) != len(cshape) or len(shape) not in (2, 3):
+        return 'generic'
+    coarsened = all(n == 2 * c - 1 and c >= 2 for n, c in zip(shape[:2], cshape[:2]))
+    kept = len(shape) == 2 or shape[2] == cshape[2] and 1 <= shape[2] <= TILE_COMPONENTS
+    fits = -(-cshape[0] // TILE_ROWS) <= MAX_GRID_Y
+    return 'tile' if coarsened and kept and fits else 'generic'
+
+
+def _transfer(name, restrict_, fine, coarse_shape, src, out, active):
+    '''Launch K3 in its form for the grids (``transfer_form``): restrict
+    ``src`` (fine) into ``out`` (coarse), or add the prolongation of
+    ``src`` (coarse) into ``out`` (fine) in place.'''
+    shape = tuple(fine.shape)
+    if transfer_form(shape, coarse_shape) == 'tile':
+        if int(numpy.prod(shape)) >= 2**31:
+            raise ValueError(f'{name}: grid {shape} has 2^31 points or more: the kernels index in 32 bits')
+        V = shape[2] if len(shape) == 3 else 1
+        _kernels.call('ntt_transfer_tile', fine, [src, out, active], scalars=(int(restrict_), *shape[:2], V))
+    elif restrict_:
+        _kernels.launch('ntt_restrict', fine, [src, out, active], shape, cshape=coarse_shape)
+    else:
+        _kernels.launch('ntt_prolong_add', fine, [out, src, active], shape, cshape=coarse_shape)
+
+
 def mg_restrict(f, cshape, active=None):
     '''Full-weighting restriction [*shape] -> [*cshape] over the coarsened
-    axes (kernel K3, ``csrc/mg.cu``; replaces ``_restrict``/``_restrict_1d``
-    of ``nutils_tpu.ops.mg``); does nothing while ``active`` is 0.'''
+    axes (kernel K3, ``csrc/mg.cu``, in its form for the grids,
+    :func:`transfer_form`; replaces ``_restrict``/``_restrict_1d`` of
+    ``nutils_tpu.ops.mg``); does nothing while ``active`` is 0.'''
     cshape = tuple(int(s) for s in cshape)
     if f.device.type == 'cpu':
         return restrict_plain(f, cshape)
@@ -480,7 +525,7 @@ def mg_restrict(f, cshape, active=None):
     _kernels.check_operands('mg_restrict', f, shape, f.dtype)
     _kernels.check_flag('mg_restrict', active, f)
     rc = torch.empty(cshape, dtype=f.dtype, device=f.device)
-    _kernels.launch('ntt_restrict', f, [f, rc, active], shape, cshape=cshape)
+    _transfer('mg_restrict', True, f, cshape, f, rc, active)
     mg_restrict.launches += 1
     return rc
 
@@ -490,7 +535,8 @@ _kernels.counted(mg_restrict)
 
 def mg_prolong_add(x, xc, active=None):
     '''x += P xc, linear interpolation over the coarsened axes, in place
-    (kernel K3, ``csrc/mg.cu``; replaces ``x + _prolong(xc, shape)`` of
+    (kernel K3, ``csrc/mg.cu``, in its form for the grids,
+    :func:`transfer_form`; replaces ``x + _prolong(xc, shape)`` of
     ``nutils_tpu.ops.mg``); does nothing while ``active`` is 0.  Returns
     ``x``.'''
     if x.device.type == 'cpu':
@@ -499,7 +545,7 @@ def mg_prolong_add(x, xc, active=None):
     shape = tuple(x.shape)
     _kernels.check_operands('mg_prolong_add', x, shape, x.dtype, xc=(xc, tuple(xc.shape)))
     _kernels.check_flag('mg_prolong_add', active, x)
-    _kernels.launch('ntt_prolong_add', x, [x, xc, active], shape, cshape=tuple(xc.shape))
+    _transfer('mg_prolong_add', False, x, tuple(xc.shape), xc, x, active)
     mg_prolong_add.launches += 1
     return x
 

@@ -113,8 +113,12 @@ def schur_diag_inverse_device(w, csr_map, indices, indptr, n, weak_rel=1e-3):
     (``csrc/schur.cu``), replacing
     ``nutils_tpu.ops.sparse._schur_diag_kernel``.  ``csr_map``, ``indices``
     and ``indptr`` are int32 tables beside ``w``.  Memory-bound: two passes
-    over the nonzeros (map, value, column) and one over the rows; one warp
-    per row with a fixed-order shuffle reduction.  Tensors on the CPU take
+    over K9's row blocks (:func:`csr_plan_of`, kept on ``indptr``), each
+    staging a block's span in shared memory; the first gathers the values
+    through the map once (into a scratch of nnz values, which the second
+    reads).  A few threads sum each row in the order of a warp's butterfly
+    (the bits of the one-warp-a-row kernel it replaced), so the result does
+    not depend on scheduling.  Tensors on the CPU take
     :func:`schur_diag_plain`; a CUDA tensor launches the kernel or raises.'''
     n = int(n)
     if w.device.type == 'cpu':
@@ -133,9 +137,12 @@ def schur_diag_inverse_device(w, csr_map, indices, indptr, n, weak_rel=1e-3):
     dsafe = torch.empty_like(d)
     strong = torch.empty(n, dtype=torch.uint8, device=w.device)
     minv = torch.empty_like(d)
-    _kernels.call('ntt_schur_diag', w, [w, csr_map, indices, indptr, d, dsafe, strong, minv],
-                  scalars=(n, float(weak_rel)))
-    schur_diag_inverse_device.launches += 1
+    if n:
+        vals = None if csr_map is None else torch.empty(nnz, dtype=w.dtype, device=w.device)
+        plan = csr_plan_of(indptr)
+        _kernels.call('ntt_schur_diag', w, [w, csr_map, indices, indptr, plan, d, dsafe, strong, minv, vals],
+                      scalars=(int(plan.shape[0]) - 1, CSR_CAP, float(weak_rel)))
+        schur_diag_inverse_device.launches += 1
     return minv
 
 

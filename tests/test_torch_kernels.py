@@ -75,6 +75,70 @@ def test_multigrid_kernels(cuda, shape, cshape, ks, per, dtype, tol):
     assert _rel(got, x + mg.prolong_plain(xc, shape)) <= tol
 
 
+def _same_bits(a, b):
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+# K3's tiled form: odd sizes from 5 up, tiles that end mid-block (the
+# coarse rows are not multiples of the tile's 8 or 16 rows, nor its 32
+# columns), V = 1, 2, 3, and the three paths' transfers at reduced size
+# (the slice's and the example's 2-D grids, finite strain's two components)
+TILE_TRANSFERS = [(5, 5), (7, 9), (5, 67), (35, 67), (67, 131), (131, 65), (5, 5, 1), (5, 7, 2), (9, 71, 2),
+                  (37, 35, 3), (67, 5, 3), (257, 257), (129, 129), (81, 81, 2), (161, 161, 2)]
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('shape', TILE_TRANSFERS)
+def test_transfer_tile_is_the_generic_kernel(cuda, shape, dtype, tol):
+    # mg_restrict / mg_prolong_add take the tiled form here and give the
+    # generic kernel's bits (launched directly), zeros of either sign and
+    # the grid's edges included
+    cshape = tuple((s + 1) // 2 for s in shape[:2]) + tuple(shape[2:])
+    assert mg.transfer_form(shape, cshape) == 'tile'
+    rng = numpy.random.default_rng(13)
+    f, x = (rng.standard_normal(shape) for _ in range(2))
+    xc = rng.standard_normal(cshape)
+    f[0] = -0.0
+    f[:, -1] = 0.0
+    xc[0] = -0.0
+    f, x, xc = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (f, x, xc))
+    launches = mg.mg_restrict.launches, mg.mg_prolong_add.launches
+    got_r = mg.mg_restrict(f, cshape)
+    got_p = mg.mg_prolong_add(x.clone(), xc)
+    assert (mg.mg_restrict.launches, mg.mg_prolong_add.launches) == (launches[0] + 1, launches[1] + 1)
+    want_r = torch.full(cshape, 7.0, dtype=dtype, device=cuda)
+    _kernels.launch('ntt_restrict', f, [f, want_r, None], shape, cshape=cshape)
+    want_p = x.clone()
+    _kernels.launch('ntt_prolong_add', want_p, [want_p, xc, None], shape, cshape=cshape)
+    torch.cuda.synchronize()
+    assert _same_bits(got_r, want_r)
+    assert _same_bits(got_p, want_p)
+    assert _rel(got_r, mg.restrict_plain(f, cshape)) <= tol
+    assert _rel(got_p, x + mg.prolong_plain(xc, shape)) <= tol
+
+
+@pytest.mark.parametrize('shape,cshape', [((33, 65), (17, 33)), ((17, 17, 2), (9, 9, 2)), ((9, 7, 5), (5, 4, 3)),
+                                          ((9, 16), (5, 16))])
+def test_transfers_do_nothing_while_inactive(cuda, shape, cshape):
+    # both forms (tiled: the first two, generic: the others) read the CG
+    # loop's flag first: at 0 they write nothing, at 1 they run
+    rng = numpy.random.default_rng(14)
+    f, x = (torch.as_tensor(rng.standard_normal(shape), device=cuda) for _ in range(2))
+    xc = torch.as_tensor(rng.standard_normal(cshape), device=cuda)
+    for flag in (0, 1):
+        active = torch.full((1,), flag, dtype=torch.int32, device=cuda)
+        rc = torch.full(cshape, 7.0, dtype=f.dtype, device=cuda)
+        mg._transfer('mg_restrict', True, f, cshape, f, rc, active)
+        xp = mg.mg_prolong_add(x.clone(), xc, active)
+        torch.cuda.synchronize()
+        if flag:
+            assert _rel(rc, mg.restrict_plain(f, cshape)) <= 1e-14
+            assert _rel(xp, x + mg.prolong_plain(xc, shape)) <= 1e-14
+        else:
+            assert bool((rc == 7.0).all()) and torch.equal(xp, x)
+
+
 FUSED_CASES = [((1025, 1025), (1, 1), (True, False)),
                ((1024, 1025), (1, 1), (False, True)),
                ((3, 40), (1, 1), (True, True)),
@@ -354,6 +418,66 @@ def test_schur_diag(cuda, dtype, tol, mapped):
     got = sparse.schur_diag_inverse_device(*args, n)
     assert sparse.schur_diag_inverse_device.launches == launches + 1
     assert _rel(got, sparse.schur_diag_plain(*args, n)) <= tol
+
+
+def _schur_rows(n, seed):
+    '''A CSR operator (data, indices, indptr) of n rows for K7: rows longer
+    than its block (sparse.CSR_CAP), rows of more than half of it (a block
+    of their own), empty rows, weak rows (a near-zero diagonal) and short
+    ordinary ones.'''
+    rng = numpy.random.default_rng(seed)
+    cap = sparse.CSR_CAP
+    lens = rng.integers(1, 60, n)
+    lens[rng.random(n) < 0.03] = 0
+    lens[[3, n // 2, n - 1]] = [cap + 37, 2 * cap + 300, cap // 2 + 1]
+    lens[[4, 5]] = [cap // 2 + 200, 0]
+    cols = []
+    for i, k in enumerate(lens):
+        c = rng.choice(n, size=k, replace=False)
+        if k and i not in c and rng.random() < 0.9:
+            c[0] = i
+        cols.append(numpy.sort(c))
+    indptr = numpy.concatenate([[0], numpy.cumsum(lens)])
+    indices = numpy.concatenate(cols)
+    rows = numpy.repeat(numpy.arange(n), lens)
+    data = rng.standard_normal(len(indices))
+    data[(indices == rows) & numpy.repeat(rng.random(n) < 0.3, lens)] = 1e-9
+    return data, indices, indptr
+
+
+def _schur_args(cuda, dtype, mapped, n=6000, seed=8):
+    data, indices, indptr = _schur_rows(n, seed)
+    tabs = [torch.as_tensor(a.astype(numpy.int32), device=cuda) for a in (indices, indptr)]
+    if not mapped:
+        return [torch.as_tensor(data, dtype=dtype, device=cuda), None, *tabs, n]
+    cmap = numpy.random.default_rng(seed + 1).permutation(len(data) + 500)[:len(data)]
+    wbuf = numpy.zeros(len(data) + 500)
+    wbuf[cmap] = data
+    return [torch.as_tensor(wbuf, dtype=dtype, device=cuda), torch.as_tensor(cmap.astype(numpy.int32), device=cuda),
+            *tabs, n]
+
+
+@pytest.mark.parametrize('mapped', [True, False])
+@pytest.mark.parametrize('dtype,tol', TOLS)
+def test_schur_diag_long_short_and_empty_rows(cuda, dtype, tol, mapped):
+    # K7 on its row blocks: long rows staged a block at a time, rows alone
+    # in a block, empty rows (minv 1) and weak rows, against the plain version
+    args = _schur_args(cuda, dtype, mapped)
+    launches = sparse.schur_diag_inverse_device.launches
+    got = sparse.schur_diag_inverse_device(*args)
+    assert sparse.schur_diag_inverse_device.launches == launches + 1
+    assert _rel(got, sparse.schur_diag_plain(*args)) <= tol
+    empty = torch.diff(args[3]) == 0
+    assert bool(empty.any()) and bool((got[empty] == 1).all())
+
+
+@pytest.mark.parametrize('mapped', [True, False])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_schur_diag_is_deterministic(cuda, dtype, mapped):
+    # two K7 calls give the same bits (each row summed in a fixed order)
+    args = _schur_args(cuda, dtype, mapped, seed=9)
+    first = sparse.schur_diag_inverse_device(*args).clone()
+    assert _same_bits(sparse.schur_diag_inverse_device(*args), first)
 
 
 def test_cuda_ns_step_goes_through_the_kernels(cuda):

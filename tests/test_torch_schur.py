@@ -85,3 +85,40 @@ def test_schur_diag_random_csr(dtype):
                                              torch.as_tensor(A.indptr.astype(numpy.int32)), n).numpy()
     want = sp_jax.schur_diag_inverse(wbuf[cmap], A.indices, A.indptr, n)
     assert tp.rel(got, want) <= (1e-14 if dtype == numpy.float64 else 1e-6)
+
+
+@pytest.mark.parametrize('mapped', [True, False])
+def test_schur_diag_long_and_empty_rows(mapped):
+    # rows longer than K7's block (sparse.CSR_CAP), rows of more than half of
+    # it (a block of their own), empty rows and weak rows, against the JAX
+    # package's kernel at 1e-12
+    rng = numpy.random.default_rng(7)
+    n = 3000
+    lens = rng.integers(0, 40, n)
+    lens[rng.random(n) < 0.05] = 0
+    lens[[5, 1200, 2999]] = [sp_torch.CSR_CAP + 77, 3 * sp_torch.CSR_CAP + 5, sp_torch.CSR_CAP // 2 + 1]
+    lens[[6, 7]] = [sp_torch.CSR_CAP // 2 + 300, 0]
+    cols = [numpy.sort(rng.choice(n, size=min(k, n), replace=False)) for k in lens]
+    for i, c in enumerate(cols):
+        if len(c) and rng.random() < 0.8 and i not in c:
+            c[rng.integers(len(c))] = i  # a diagonal entry in most non-empty rows
+        cols[i] = numpy.sort(c)
+    indptr = numpy.concatenate([[0], numpy.cumsum([len(c) for c in cols])])
+    indices = numpy.concatenate(cols)
+    rows = numpy.repeat(numpy.arange(n), numpy.diff(indptr))
+    data = rng.standard_normal(len(indices))
+    data[(indices == rows) & numpy.repeat(rng.random(n) < 0.3, numpy.diff(indptr))] = 1e-9  # weak rows
+    cmap = rng.permutation(len(data) + 100)[:len(data)]
+    wbuf = numpy.zeros(len(data) + 100)
+    wbuf[cmap] = data
+    tabs = [torch.as_tensor(a.astype(numpy.int32)) for a in (indices, indptr)]
+    if mapped:
+        got = sp_torch.schur_diag_inverse_device(torch.as_tensor(wbuf), torch.as_tensor(cmap.astype(numpy.int32)),
+                                                 *tabs, n)
+    else:
+        got = sp_torch.schur_diag_inverse_device(torch.as_tensor(data), None, *tabs, n)
+    want = numpy.asarray(sp_jax._schur_diag_kernel(n, 1e-3)(jnp.asarray(data), jnp.asarray(indices),
+                                                             jnp.asarray(rows)))
+    assert want.dtype == numpy.float64
+    assert tp.rel(got.numpy(), want) <= 1e-12
+    assert numpy.all(got.numpy()[lens == 0] == 1)  # an empty row's minv is 1
