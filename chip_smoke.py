@@ -9,12 +9,14 @@ the GPU.
     python3 chip_smoke.py --only finitestrain  # the finite-strain phases alone
 
 Phases, each printing JSON lines (``--only kernels``: device, build, K3's
-rows at the slice's, the example's and the finite-strain grids and K1 and
-K2's there, the ``assembly_kernels`` rows of the slice, NS, triangles and
-elasticity, K7's rows on the NS and triangle jacobians, the example's
-chunk rows and ``elasticity_kernels``; run from another checkout's root,
-with this script copied there, it measures that checkout's kernels at the
-same shapes and inputs, K3's and K7's outputs' sha1 digests among them;
+rows at the slice's, the example's and the finite-strain grids, K1's at
+the slice's, a periodic, the example's grid and each smoothed level of
+the finite-strain hierarchy, K2's fused sweeps at those levels, the
+``assembly_kernels`` rows of the slice, NS, triangles and elasticity,
+K7's rows on the NS and triangle jacobians, the example's chunk rows and
+``elasticity_kernels``; run from another checkout's root, with this script
+copied there, it measures that checkout's kernels at the same shapes and
+inputs, K1's, K2's, K3's and K7's outputs' sha1 digests among them;
 ``--only assemble``: device, build
 and ``assemble_only``, many warm assemblies of each path, for comparing
 two checkouts the same way):
@@ -29,15 +31,22 @@ two checkouts the same way):
    on a periodic 2-D and a 3-D stencil: error, CUDA-event times, the bound
    and, where one PyTorch call computes the same function, its time
    (from a CUDA graph, as the kernels);
-   K2's fused launches (jacobi_pre, jacobi_post) also at the example's
-   2049^2 grid in float64, each the same bits as the single sweeps it
-   replaces; K2's single sweeps also at the degree-2 example's fine grid
-   (k = 2); K1, K2's fused launches and K3 also at the finite-strain grid
-   (721, 721, 2) in float64, K3 also at the example's; K3 at each grid in
-   the form it takes there (``ops/mg.transfer_form``), the same bits as
-   the generic kernel launched directly and timed beside it, the sha1 of
-   its outputs, prolong-add adding into a scratch x made outside the timed
-   graph; K4's entries also at grids of 1-8 blocks a multiprocessor.
+   K1 and K2's fused launches (jacobi_pre, jacobi_post) also at the
+   example's 2049^2 grid in float64, each of K2's the same bits as the
+   single sweeps it replaces; K2's single sweeps also at the degree-2
+   example's fine grid (k = 2); K1, K2's fused launches and K3 also at the
+   finite-strain grid (721, 721, 2) in float64, K1 and K2 at each coarser
+   smoothed level of its hierarchy ((361, 361, 2), (181, 181, 2),
+   (91, 91, 2)), K1 there beside cuSPARSE, K3 also at the example's; K1
+   and K2 in the form each grid takes (``ops/stencil.matvec_form``,
+   ``ops/mg.fused_form``), K1 the same bits as the generic kernel and K2's
+   component form the same bits as the 3-D box, launched directly and
+   timed beside them; K3 at each grid in the form it
+   takes there (``ops/mg.transfer_form``), the same bits as the generic
+   kernel launched directly and timed beside it, prolong-add adding into a
+   scratch x made outside the timed graph; K1-K3's rows with the sha1 of
+   their outputs; K4's entries also at grids of 1-8 blocks a
+   multiprocessor.
 4. slice    — the bench's Laplace slice at 1,050,625 dofs in float32:
    System (every assembly chunk on the factored route), assembly through
    K11/K12, multigrid set-up and the refined CG solve to rtol 1e-10,
@@ -146,7 +155,10 @@ two checkouts the same way):
    solve's record, ``t_assemble``, ``t_value`` and the constrained solve's
    set-up and Krylov times (the methods are wrapped and timed, the log
    lines read); K15 in every value assembly, K11/K12 and the inner MG-CG's
-   K1-K4 launched, no plain version run, the residual at 1e-10.
+   K1-K4 launched, K1 in its tiled form and K2 in its component form
+   alone, no single sweep and no plain version run, the residual at
+   1e-10; then one inner solve on the converged jacobian under the
+   profiler (wall, device-busy time, K1's and K2's device time).
 23. finitestrain_kernels — K15 (``elem_value``, ``elem_value_sum``)
    against its plain version on the converged energy's integrand (518,400
    elements of 4 points) in float32 and float64: the error, two launches
@@ -165,8 +177,12 @@ Each path's assembly line also gives ``t_assemble_generic``: the same
 System with every chunk on the generic ``vmap(jvp)`` route, in the same
 call.  The kernels line gives K1-K4's launches summed over the paths that
 run them (the slice, the example, the degree-2 example, finite strain)
-with each path's beside them (``launches_by_path``), as K11/K12's, and
-K1-K3's rows at the other paths' grids (``rows``).
+with each path's beside them (``launches_by_path``), as K11/K12's, K1's
+and K2's fused launches by form on each path (``launches_by_form``: the
+slice and the example tiled and 2-D, the degree-2 example 2-D, the
+elasticity squares generic, finite strain tiled and components; each
+phase asserts its own), and K1-K3's rows at the other paths' grids
+(``rows``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
@@ -302,11 +318,35 @@ def wrappers():
 def reset_launches():
     for wrapper in wrappers().values():
         wrapper.launches = 0
+        if getattr(wrapper, 'forms', None):
+            wrapper.forms = dict.fromkeys(wrapper.forms, 0)
 
 
 def read_launches(names):
     counters = wrappers()
     return {name: counters[name].launches for name in names}
+
+
+# the wrappers whose kernels come in forms chosen by shape (K1: tiled or
+# generic; K2's fused sweeps: 2-D, components or 3-D box), and their
+# launches by form on each path that runs them (filled by the phases)
+FORM_KERNELS = ('stencil_matvec', 'jacobi_pre', 'jacobi_post')
+FORMS_BY_PATH = {}
+
+
+def read_forms(path, only):
+    """The launches of K1 and K2's fused sweeps by form since the counts
+    were last reset (``_kernels.count``), {name: {form: launches}}, kept
+    as ``path``'s; raises unless every launch of each kernel named in
+    ``only`` took the form given there."""
+    counters = wrappers()
+    forms = FORMS_BY_PATH[path] = {name: {form: count for form, count in getattr(counters[name], 'forms', {}).items()
+                                          if count} for name in FORM_KERNELS}
+    for name, form in only.items():
+        # another checkout's package may count no forms
+        if hasattr(counters[name], 'forms') and set(forms[name]) != {form}:
+            raise AssertionError(f'{path}: {name} launched in the forms {forms[name]}, expected {form} alone')
+    return forms
 
 
 def _events(run, reps, setup=None):
@@ -478,8 +518,13 @@ def phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak, nu=2):
     """K2's fused launches (``jacobi_pre``, ``jacobi_post``) at one grid:
     the same bits as the single sweeps they replace (``jacobi_smooth``, its
     launches counted: none may come from the fused calls), against their
-    plain versions, timed beside those sweeps; returns {name: row}."""
+    plain versions, timed beside those sweeps; each row with the form the
+    grid takes and the sha1 of its outputs (to compare with another
+    package's at the same inputs), and, in the component form, the same
+    bits as the box form, launched directly and timed beside it
+    (``box_ms``); returns {name: row}."""
     import torch
+    from nutils_tpu_torch import _kernels
     from nutils_tpu_torch.ops import mg
     n = int(r.numel())
     W = int(w.shape[0])
@@ -504,6 +549,20 @@ def phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak, nu=2):
              'jacobi_post': (lambda: mg.jacobi_post(w, dinv, r, x, ks, shape, per, nu), post_sweeps,
                              lambda: mg.jacobi_post_plain(w, dinv, r, x, ks, shape, per, mg.OMEGA, nu),
                              nu * (2 * W + 4) * n)}
+    # the form the level takes (``ops/mg.fused_form``; a package without
+    # it has the 2-D and box forms alone), and beside the component form
+    # the box form, launched directly (``ntt_jacobi_fused``'s code 0)
+    if hasattr(mg, 'fused_form'):
+        form = mg.fused_form(ks, shape, per, nu)
+    else:
+        form = '2d' if len(shape) == 2 else 'box'
+
+    def box(pre):
+        out = torch.empty_like(r)
+        res = torch.empty_like(r) if pre else None
+        return (lambda: _kernels.launch('ntt_jacobi_fused', r, [w, dinv, r, None if pre else x, out, res, None],
+                                        shape, ks=ks, periodic=per, scalars=(mg.OMEGA, nu, int(pre), 0))), \
+            (out, res) if pre else (out,)
     results = {}
     for name, (kernel, sweeps, plain, flops) in cases.items():
         single = mg.jacobi_smooth.launches
@@ -518,7 +577,15 @@ def phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak, nu=2):
         err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
         (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
         sweeps_ms = time_ms(sweeps)[0]
-        fields = row(err, ms, plain_ms, (W + 4) * n * isz, flops, None, peak)
+        fields = dict(row(err, ms, plain_ms, (W + 4) * n * isz, flops, None, peak), form=form,
+                      sha1=digest(torch.cat([t.reshape(-1) for t in got])))
+        if form == 'components':
+            launch, outs = box(name == 'jacobi_pre')
+            launch()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, outs)):
+                raise AssertionError(f'{name} ({label}, {dname}): the component form differs from the box form')
+            fields['box_ms'] = time_ms(launch)[0]
         check_row(name, label, dname, relerr, dict(fields, shape=list(shape), ks=list(ks), periodic=list(per), nu=nu,
                                                    bitwise_equal_single_sweeps=bitwise, single_sweeps_ms=sweeps_ms,
                                                    single_sweeps_launches=2 * nu, call_ms=call_ms))
@@ -531,6 +598,26 @@ def phase_fused_rows(label, w, dinv, r, x, ks, shape, per, dname, peak, nu=2):
 def digest(t):
     """sha1 of a tensor's bits (to compare outputs between packages or calls)."""
     return hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def stencil_forms(w, x, ks, shape, per, got):
+    """K1's form at a grid (``ops/stencil.matvec_form``; a package without
+    it has the generic form alone), the sha1 of its output ``got`` (to
+    compare with another package's at the same inputs), and the generic
+    kernel launched directly: the same bits, its time beside the form's."""
+    import torch
+    from nutils_tpu_torch import _kernels
+    from nutils_tpu_torch.ops import stencil
+    form = stencil.matvec_form(ks, shape, per) if hasattr(stencil, 'matvec_form') else 'generic'
+    y = torch.empty_like(x)
+
+    def generic():
+        _kernels.launch('ntt_stencil_matvec', x, [w, x, y, None], shape, ks=ks, periodic=per)
+    generic()
+    torch.cuda.synchronize()
+    if digest(got) != digest(y):
+        raise AssertionError(f'stencil_matvec at {shape}: the {form} form differs from the generic kernel')
+    return dict(form=form, sha1=digest(got), generic_ms=time_ms(generic)[0])
 
 
 def transfer_rows(label, f, x, per, dname, peak, rng):
@@ -600,20 +687,26 @@ def transfer_rows(label, f, x, per, dname, peak, rng):
 
 
 # (label, shape, ks, periodic, dtypes, what) of phase_kernels: the Laplace
-# slice's grid; a periodic 2-D and a 3-D grid; the example's fine grid (K2
-# fused and K3, its float64); the degree-2 example's fine grid (K2 single
+# slice's grid; a periodic 2-D and a 3-D grid; the example's fine grid (K1,
+# K2 fused and K3, its float64); the degree-2 example's fine grid (K2 single
 # sweeps, k = 2); the finite-strain grid (a vector field: K1, K2 fused and
-# K3 with the component axis kept, float64)
+# K3 with the component axis kept, float64) and the hierarchy's three
+# coarser smoothed levels (K1, K2 fused)
 _BOTH = ('float32', 'float64')
+_FS = (FINITESTRAIN_NELEMS + 1,) * 2 + (2,)
+FINITESTRAIN_LEVELS = [(f'finitestrain_l{level}', tuple((s - 1) // 2 ** level + 1 for s in _FS[:2]) + (2,))
+                       for level in (1, 2, 3)]
 KERNEL_CASES = [('slice', (1025, 1025), (1, 1), (False, False), _BOTH, ('stencil', 'sweeps', 'fused', 'transfers')),
                 ('periodic', (1024, 1025), (1, 1), (True, False), _BOTH, ('stencil', 'fused')),
                 ('3d', (129, 129, 65), (1, 1, 1), (False, False, False), _BOTH, ('stencil', 'fused')),
-                ('example', (2049, 2049), (1, 1), (False, False), ('float64',), ('fused', 'transfers')),
+                ('example', (2049, 2049), (1, 1), (False, False), ('float64',), ('stencil', 'fused', 'transfers')),
                 ('p2', (2 * P2_NELEMS + 1,) * 2, (2, 2), (False, False), ('float64',), ('sweeps',)),
-                ('finitestrain', (FINITESTRAIN_NELEMS + 1,) * 2 + (2,), (1, 1, 1), (False, False, False),
-                 ('float64',), ('stencil', 'fused', 'transfers'))]
+                ('finitestrain', _FS, (1, 1, 1), (False, False, False), ('float64',), ('stencil', 'fused', 'transfers'))
+                ] + [(label, shape, (1, 1, 1), (False, False, False), ('float64',), ('stencil', 'fused'))
+                     for label, shape in FINITESTRAIN_LEVELS]
 # the rows of K1-K3 kept beside each kernel's main row (the slice's, float32)
-EXTRA_ROWS = {('slice', 'float64'), ('example', 'float64'), ('finitestrain', 'float64')}
+EXTRA_ROWS = {('slice', 'float64'), ('example', 'float64'), ('periodic', 'float32'), ('finitestrain', 'float64'),
+              *((label, 'float64') for label, _s in FINITESTRAIN_LEVELS)}
 
 
 def kernel_cases(what):
@@ -660,7 +753,7 @@ def phase_kernels(device='cuda', cases=KERNEL_CASES, k4=True):
                 checks['stencil_matvec'] = (lambda: stencil.stencil_matvec(w, x, ks, shape, per),
                                             lambda: stencil.matvec_plain(w, x, ks, shape, per),
                                             (W + 2) * n * isz, 2 * W * n)
-                if label == 'slice' and dtype == torch.float32:
+                if label == 'slice' and dtype == torch.float32 or label.startswith('finitestrain'):
                     # the same product as one cuSPARSE CSR matvec
                     indptr, indices, data = carry._csr_of_stencil(w_np, ks, shape, per)
                     A = torch.sparse_csr_tensor(torch.as_tensor(indptr), torch.as_tensor(indices),
@@ -681,6 +774,8 @@ def phase_kernels(device='cuda', cases=KERNEL_CASES, k4=True):
                 (ms, call_ms), (plain_ms, plain_call_ms) = time_ms(kernel), time_ms(plain)
                 lib = library.get(name.split('/')[0]) if name != 'jacobi_smooth/mode0' else None
                 fields = row(err, ms, plain_ms, nbytes, flops, None if lib is None else time_ms(lib)[0], peak)
+                if name == 'stencil_matvec':
+                    fields.update(stencil_forms(w, x, ks, shape, per, got))
                 check_row(name, label, dname, relerr, dict(fields, shape=list(shape), ks=list(ks),
                                                            periodic=list(per), call_ms=call_ms,
                                                            plain_call_ms=plain_call_ms))
@@ -819,6 +914,7 @@ def phase_slice(nelems=1024, device='cuda'):
         t_solve = time.perf_counter() - t0
         launches = read_launches(LAPLACE_KERNELS)
         single_sweeps = read_launches(('jacobi_smooth',))['jacobi_smooth']
+        forms = read_forms('slice', {'stencil_matvec': 'tile', 'jacobi_pre': '2d', 'jacobi_post': '2d'})
         stats = dict(jac._solve_stats)
         peak = torch.cuda.max_memory_allocated()
         # a warm solve only replays: its launches are the replays times each
@@ -843,7 +939,7 @@ def phase_slice(nelems=1024, device='cuda'):
     emit('slice', ndofs=ndofs, t_system=t_system, t_jacres=t_jacres, t_pattern=t_pattern, t_setup=t_setup,
          t_solve=t_solve, t_solve_again=t_solve_again, t_solve_warm_all=times, solve_stats=stats,
          warm_solve_stats=warm, rel_residual=rel_residual, mg_levels=levels, peak_device_bytes=peak,
-         launches=launches, single_sweep_launches=single_sweeps,
+         launches=launches, single_sweep_launches=single_sweeps, launches_by_form=forms,
          warm_launches_per_solve={k: v / 5 for k, v in warm_launches.items()})
     if x.shape != (ndofs,) or not numpy.isfinite(x).all():
         raise AssertionError('slice solution is not a finite vector of the dof count')
@@ -1712,6 +1808,7 @@ def phase_laplace_example(nelems=2048):
         stats = dict(jac._solve_stats)
         launches = read_launches(EXAMPLE_KERNELS + ('cg_dot', 'cg_step', 'cg_xpby'))
         single_sweeps = read_launches(('jacobi_smooth',))['jacobi_smooth']
+        forms = read_forms('laplace_example', {'stencil_matvec': 'tile', 'jacobi_pre': '2d', 'jacobi_post': '2d'})
         t_solve_warm, dx_warm = _sync_time(lambda: jac.solve(r, symmetric=system.is_symmetric))
         wall, kernels, _full, _dx = profiled(lambda: jac.solve(r, symmetric=system.is_symmetric))
         solve_profile = dict(wall_s=wall, device_busy_s=busy_s(kernels), busy_share=busy_s(kernels) / wall,
@@ -1722,7 +1819,7 @@ def phase_laplace_example(nelems=2048):
              mg_levels=None if mg is None else [list(lev[1]) for lev in mg.levels], t_solve=t_solve,
              t_solve_warm=t_solve_warm, solve_stats=stats, warm_solve_stats=dict(jac._solve_stats),
              t_host_residual=t_check, rel_residual=rel_residual, launches=launches,
-             single_sweep_launches=single_sweeps, warm_solve_profile=solve_profile)
+             single_sweep_launches=single_sweeps, launches_by_form=forms, warm_solve_profile=solve_profile)
         # the same as the user calls it: the System keeps the constant
         # jacobian, and the jacobian its masked operator
         t_solve_entry, args = _sync_time(lambda: system.solve(constrain=cons))
@@ -1890,9 +1987,10 @@ def phase_laplace_example_p2(nelems=P2_NELEMS):
         reset_launches()
         t, (cons, u, err) = _sync_time(lambda: tp.laplace_example('nutils_tpu_torch', nelems, degree=2))
         launches = read_launches(P2_KERNELS + ('stencil_matvec', 'cg_dot', 'cg_step', 'cg_xpby'))
+        forms = read_forms('laplace_example_p2', {'jacobi_pre': '2d', 'jacobi_post': '2d'})
     limit = 4 * 8.0e-8 * (40 / nelems) ** 3
     emit('laplace_example_p2', nelems=nelems * nelems, ndofs=len(u), seconds=t, l2_error=err, limit=limit,
-         constrained=int(numpy.isfinite(cons).sum()), launches=launches)
+         constrained=int(numpy.isfinite(cons).sum()), launches=launches, launches_by_form=forms)
     if u.shape != ((2 * nelems + 1) ** 2,) or not numpy.isfinite(u).all() or not err < limit:
         raise AssertionError(f'degree-2 example: {u.shape} dofs, L2 error {err:.3e} (limit {limit:.2e})')
     missing = [name for name in P2_KERNELS if launches[name] <= 0]
@@ -2207,13 +2305,16 @@ def phase_elasticity_square(nelems=SQUARE_NELEMS):
         t, (cons, u, _t, F, system) = _sync_time(
             lambda: tp.elasticity('nutils_tpu_torch', nelems, 'square', degree=2, **BLOCK_CG))
         launches = read_launches(SQUARE_KERNELS)
+        # its stencil of ks (2, 2, 1) takes K1's generic form
+        forms = read_forms('elasticity_square', {'stencil_matvec': 'generic'})
         jm = system._cache['jacmat']
         stats = dict(jm._solve_stats)
         mv_kind = jm._masked_solve_cache[1]._device_op()[0]
     chunk = stats.get('graph_launches', {}).get('chunk', {})
     force_error = float(numpy.abs(F - [0., 1.]).max())
     emit('elasticity_square', nelems=nelems * nelems, ndofs=int(u.size), seconds=t, op=[mv_kind[0], list(mv_kind[1]),
-         list(mv_kind[2])], solve_stats=stats, F=F.tolist(), force_error=force_error, launches=launches)
+         list(mv_kind[2])], solve_stats=stats, F=F.tolist(), force_error=force_error, launches=launches,
+         launches_by_form=forms)
     if mv_kind[0] != 'stencil' or tuple(mv_kind[1]) != (2, 2, 1) or len(mv_kind[2]) != 3:
         raise AssertionError(f'the square elasticity operator is {mv_kind}, not the 3-D stencil of ks (2, 2, 1)')
     if stats['precon'] != 'block' or not stats['accepted_on_device'] or not (
@@ -2486,6 +2587,10 @@ def phase_finitestrain(nelems=FINITESTRAIN_NELEMS):
             t_minimize, args1 = _sync_time(lambda: system.solve(arguments=args0, constrain=cons, method=Minimize(),
                                                                 tol=1e-10))
             launches = read_launches(tuple(wrappers()))
+            # every level of the vector field's hierarchy smooths in K2's
+            # component form, its operators' products in K1's tiled form
+            forms = read_forms('finitestrain', {'stencil_matvec': 'tile', 'jacobi_pre': 'components',
+                                                'jacobi_post': 'components'})
         values = [e for e in events if e['ev'] == 'value']
         arguments, x = system.deconstruct(args1, cons)
         jac, res = system.assemble_jacobian_residual(arguments, x)
@@ -2501,6 +2606,17 @@ def phase_finitestrain(nelems=FINITESTRAIN_NELEMS):
         rel_matvec = tp.rel(y, y_scipy)
         emit('finitestrain_matvec', t_device_first=t_device_first, t_device=t_device, t_scipy_submatrix=t_scipy,
              rel=rel_matvec, tol=1e-12)
+        # one inner solve as Minimize makes it, on the converged jacobian
+        # (a first call sets up its masked operator and hierarchy), under
+        # the profiler: its wall and device-busy time, and the device time
+        # of K2's launches and of K1's, by kernel name
+        rhs = numpy.random.default_rng(44).standard_normal(len(x))
+        jac.solve_leniently(rhs, symmetric=True)
+        wall, kernels, _full, _dx = profiled(lambda: jac.solve_leniently(rhs, symmetric=True))
+        emit('finitestrain_solve_profile', wall_s=wall, device_busy_s=busy_s(kernels),
+             busy_share=busy_s(kernels) / wall, kernel_launches=sum(e.count for e in kernels),
+             k2_device_s=busy_s([e for e in kernels if 'jacobi' in e.key]),
+             k1_device_s=busy_s([e for e in kernels if 'stencil' in e.key]), solve_stats=jac._solve_stats)
         galerkin_equal = check_planned_galerkin(jac._parent._masked(jac._mask))
         del jac
     setup = sum(it['t_mask'] + it['t_op_form'] + it['t_mg'] + it['t_precon'] for it in iterations)
@@ -2510,7 +2626,7 @@ def phase_finitestrain(nelems=FINITESTRAIN_NELEMS):
          t_assemble=sum(it['t_assemble'] for it in iterations), t_value=sum(it['t_value'] for it in iterations),
          t_setup=setup, t_krylov=sum(it['t_krylov'] for it in iterations),
          t_matvec=sum(it['t_matvec'] for it in iterations), launches={k: v for k, v in launches.items() if v},
-         plain_calls=plain, u0_max=float(numpy.abs(u0).max()), u1_max=float(numpy.abs(u1).max()))
+         launches_by_form=forms, plain_calls=plain, u0_max=float(numpy.abs(u0).max()), u1_max=float(numpy.abs(u1).max()))
     if u1.shape != tuple(system.trial_shapes[0]) or not (numpy.isfinite(u0).all() and numpy.isfinite(u1).all()):
         raise AssertionError('finitestrain: the displacements are not finite arrays of the field\'s shape')
     if not resnorm <= 1e-10:
@@ -2521,9 +2637,10 @@ def phase_finitestrain(nelems=FINITESTRAIN_NELEMS):
         raise AssertionError('finitestrain: the planned Galerkin product differs from scipy\'s')
     short = [it['iteration'] for it in iterations if any(d[0] < 1 or d[1] != 1 for d in it['k15_per_value'])]
     missing = [name for name in FINITESTRAIN_KERNELS if launches[name] <= 0]
-    if short or missing or plain or not values:
+    if short or missing or plain or not values or launches['jacobi_smooth']:
         raise AssertionError(f'finitestrain: K15 missing from a value assembly in iterations {short}, kernels not '
-                             f'launched {missing}, plain versions run {plain}')
+                             f'launched {missing}, plain versions run {plain}, single sweeps '
+                             f'{launches["jacobi_smooth"]}')
     return launches, system, args1, value
 
 
@@ -2645,13 +2762,14 @@ def finitestrain_only():
 
 def kernels_only():
     """``--only kernels``: kernel rows alone, without the solves: K3 at the
-    slice's, the example's and the finite-strain grids, K1 and K2's fused
-    sweeps at the finite-strain grid; K11 and K12 at every block of the
+    slice's, the example's and the finite-strain grids, K1 at the slice's,
+    a periodic and the example's grid and K1 and K2's fused sweeps at every
+    smoothed level of the finite-strain hierarchy; K11 and K12 at every block of the
     slice, the NS step, the triangle step and the elasticity example and on
     one of the Laplace example's chunks; K7 on the NS step's and the
     triangle step's jacobians; K13 and K14 at the elasticity path's shapes
-    (its free rows from ``solve_constraints``, random nodal blocks).  K3's
-    and K7's rows carry the sha1 of their outputs.  Run from another
+    (its free rows from ``solve_constraints``, random nodal blocks).  K1's,
+    K2's, K3's and K7's rows carry the sha1 of their outputs.  Run from another
     checkout's root (a copy of this script beside its package), it
     measures that checkout's kernels at the same shapes and inputs."""
     import _torch_parity as tp
@@ -2662,8 +2780,11 @@ def kernels_only():
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    phase_kernels(cases=kernel_cases({'slice': ('transfers',), 'example': ('transfers',),
-                                      'finitestrain': ('stencil', 'fused', 'transfers')}), k4=False)
+    phase_kernels(cases=kernel_cases({'slice': ('stencil', 'transfers'), 'periodic': ('stencil',),
+                                      'example': ('stencil', 'transfers'),
+                                      'finitestrain': ('stencil', 'fused', 'transfers'),
+                                      **{label: ('stencil', 'fused') for label, _s in FINITESTRAIN_LEVELS}}),
+                  k4=False)
     torch.cuda.empty_cache()
     with config.device('cuda'):
         system = build_laplace(1024, numpy.float32, reaction=True)
@@ -2838,6 +2959,8 @@ def main():
         by = {path: counts.get(name, 0) for path, counts in mg_by_path.items()}
         launches[name] = sum(by.values())
         measured[name] = dict(measured[name], launches_by_path=by)
+    for name in FORM_KERNELS:
+        measured[name]['launches_by_form'] = {path: forms[name] for path, forms in FORMS_BY_PATH.items()}
     # K11 and K12: launches summed over the paths' runs, each path's beside
     # them; their float64 measurements on one of the example's element
     # chunks, written in place, and on the elasticity example's block,

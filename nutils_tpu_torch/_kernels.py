@@ -48,7 +48,8 @@ _PI32 = ctypes.POINTER(ctypes.c_int)
 _SIG = {
     'ntt_stencil_matvec': (_I, _P, _P, _P, _P, _I, _PI64, _PI32, _PI32, _P),
     'ntt_jacobi': (_I, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _PI64, _PI32, _PI32, _P),
-    'ntt_jacobi_fused': (_I, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _I, _PI64, _PI32, _PI32, _P),
+    'ntt_stencil_tile': (_I, _P, _P, _P, _P, _I, _PI64, _PI32, _PI32, _P),
+    'ntt_jacobi_fused': (_I, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _I, _I, _PI64, _PI32, _PI32, _P),
     'ntt_restrict': (_I, _P, _P, _P, _I, _PI64, _PI64, _P),
     'ntt_prolong_add': (_I, _P, _P, _P, _I, _PI64, _PI64, _P),
     'ntt_transfer_tile': (_I, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -143,12 +144,21 @@ def library():
 COUNTED = []
 
 
-def counted(wrapper):
+def counted(wrapper, forms=()):
     '''Register a kernel wrapper whose ``launches`` attribute counts its
-    launches (set to 0 here); returns the wrapper.'''
+    launches (set to 0 here), and, for a kernel that comes in several
+    forms, whose ``forms`` dict counts them by form (:func:`count`);
+    returns the wrapper.'''
     wrapper.launches = 0
+    wrapper.forms = dict.fromkeys(forms, 0)
     COUNTED.append(wrapper)
     return wrapper
+
+
+def count(wrapper, form):
+    '''One launch of ``wrapper``'s kernel, in ``form``.'''
+    wrapper.launches += 1
+    wrapper.forms[form] += 1
 
 
 class Graph:
@@ -158,22 +168,25 @@ class Graph:
     launches a replay).  A capture that fails raises.'''
 
     def __init__(self, fn):
-        before = [w.launches for w in COUNTED]
+        before = [(w.launches, dict(w.forms)) for w in COUNTED]
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph):
                 fn()
         finally:
-            self._deltas = [(w, w.launches - b) for w, b in zip(COUNTED, before) if w.launches != b]
-            for w, b in zip(COUNTED, before):
-                w.launches = b
-        self.counts = {w.__name__: d for w, d in self._deltas}
+            self._deltas = [(w, w.launches - b, {k: w.forms[k] - v for k, v in f.items() if w.forms[k] != v})
+                            for w, (b, f) in zip(COUNTED, before) if w.launches != b]
+            for w, (b, f) in zip(COUNTED, before):
+                w.launches, w.forms = b, f
+        self.counts = {w.__name__: d for w, d, _f in self._deltas}
         self.replays = 0
 
     def replay(self):
         self.graph.replay()
-        for w, d in self._deltas:
+        for w, d, f in self._deltas:
             w.launches += d
+            for k, v in f.items():
+                w.forms[k] += v
         self.replays += 1
 
 

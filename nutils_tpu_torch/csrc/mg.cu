@@ -14,14 +14,21 @@
 // always runs), so an iteration after the loop's exit costs empty launches,
 // not a V-cycle.
 //
-// K2 comes in two forms.  The single sweep (jacobi_kernel) takes any grid
-// of up to four axes and any half-width through the generic stencil_row.
-// The fused sweeps (jacobi_fused_kernel) take the V-cycle's smoothing of a
-// level in two launches instead of 2 nu: jacobi_pre is mode 0, nu - 1
-// mode-1 sweeps and the mode-2 residual, jacobi_post nu mode-1 sweeps.
-// They exist for 2-D and 3-D grids of half-width 1 (the 9- and 27-point
-// stencils of the degree-1 Laplace levels), with every slot unrolled and
-// no division per point.  A block owns a tile of outputs (2-D 16 x 32 in
+// K2 comes in a single sweep and three fused forms, chosen by shape on
+// the host (ops/mg.py fused_form).  The single sweep (jacobi_kernel) takes
+// any grid of up to four axes and any half-width through the generic
+// stencil_row (the degree-2 levels' k = 2).  The fused sweeps take the
+// V-cycle's smoothing of a level in two launches instead of 2 nu:
+// jacobi_pre is mode 0, nu - 1 mode-1 sweeps and the mode-2 residual,
+// jacobi_post nu mode-1 sweeps, for grids of half-width 1 with every slot
+// unrolled and no division per point:
+// - the 2-D form (jacobi_fused_kernel, D = 2): the slice's and the Laplace
+//   example's levels;
+// - the component form (jacobi_rows_kernel, below): grids (n0, n1, V) of
+//   V = 1-3 components, the last axis not periodic, the finite-strain
+//   levels (721, 721, 2) down to (91, 91, 2);
+// - the 3-D box (jacobi_fused_kernel, D = 3): every other 3-D grid.
+// In the 2-D and box forms a block owns a tile of outputs (2-D 16 x 32 in
 // float32 and 8 x 32 in float64, 3-D 4 x 4 x 32) and stages r, dinv and x
 // on the tile grown by a halo of nu
 // points in shared memory (periodic axes wrap, points off a non-periodic
@@ -37,7 +44,7 @@
 // sweeps of jacobi_pre at nu = 2.  The grids' rows (1025, 2049 points) are
 // not multiples of 16 bytes, so the loads are coalesced 4- or 8-byte ones,
 // not tensor maps.
-// Both forms compute a point with the same jacobi_point and sum its slots
+// Every form computes a point with the same jacobi_point and sums its slots
 // in the same order with explicit fmas, so a fused launch gives the same
 // bits as the single sweeps it replaces.
 #include "grid.cuh"
@@ -268,6 +275,178 @@ int fused(int ndim, int nu, const Box& b, const void* w, const void* dinv, const
           void* xout, void* res, double omega, const int* active, cudaStream_t s) {
   if (ndim == 2) return fused_nu<T, 2, PRE>(nu, b, w, dinv, r, xin, xout, res, omega, active, s);
   return fused_nu<T, 3, PRE>(nu, b, w, dinv, r, xin, xout, res, omega, active, s);
+}
+
+// ------------------------------------------------------------ component form
+//
+// K2's fused sweeps on a grid (n0, n1, V) of half-width 1 whose last axis
+// holds V = 1-3 components and is not periodic: a vector field's levels,
+// the finite-strain hierarchy's (721, 721, 2) down to (91, 91, 2).  The box
+// form above tiles the component axis as a spatial one: 30 of its tile's 32
+// columns lie off a 2-point axis, and a block stages 2,304 points (83 KB in
+// float64) for 32 outputs.  Here a block of a 2-D launch grid owns a tile
+// of T0 x 16 points over axes 0 and 1 (T0 = 16 in float32, 8 in float64)
+// with all V values of each (grid.cuh's row tiles), and stages r, dinv and
+// x on the tile grown by nu points on those axes alone: in float64 at
+// nu = 2 and V = 2, 12 x 20 x 2 values, 17 KB, for 256 outputs.  The
+// sweeps run as the box form's do (the halo recomputed, each sweep one
+// point smaller), each value's slots in stencil_row's order, so the bits
+// are the single sweeps'.
+// The weights are 27 of the 31 values a point moves, and at nu = 2 a launch
+// applies A to its tile twice (the inner sweep over the tile grown by 1,
+// then the residual or the last sweep over the tile).  So a thread loads
+// the weights of its own values of the tile into registers first, before
+// the block stages its arrays, and keeps them for both passes: device
+// memory gives each weight once, and its loads overlap the staging.  Only
+// the inner sweep's ring (points of the neighbouring tiles), swept first,
+// reads weights again, mostly from L2.  (Reading a value's weights from
+// device memory in each pass instead, the second read left to L2 as the
+// 2-D form does, on 8 x 32 tiles, took 0.20 ms a launch at (721, 721, 2)
+// on the H100 against this form's 0.14, PERF.md.)
+
+// f(c, i) over the ring of the tile grown by 1: rows H - 1 and H + T0
+// whole, then the points H - 1 and H + T1 of the tile's rows
+template <class G, typename F>
+__device__ __forceinline__ void for_ring(F f) {
+  constexpr int EQ = (G::T1 + 2) * G::V, N = 2 * EQ + 2 * G::T0 * G::V;
+#pragma unroll
+  for (int k = 0; k < (N + TILE_THREADS - 1) / TILE_THREADS; ++k) {
+    const int p = threadIdx.x + k * TILE_THREADS;
+    if (p < N) {
+      int l0, l1, c;
+      if (p < 2 * EQ) {
+        const int q = p < EQ ? p : p - EQ;
+        l0 = p < EQ ? G::H - 1 : G::H + G::T0;
+        l1 = q / G::V + G::H - 1;
+        c = q % G::V;
+      } else {
+        const int e = p - 2 * EQ;
+        l0 = G::H + e / (2 * G::V);
+        l1 = e % (2 * G::V) < G::V ? G::H - 1 : G::H + G::T1;
+        c = e % G::V;
+      }
+      f(c, (l0 * G::R1 + l1) * G::V + c);
+    }
+  }
+}
+
+// PRE: xout = x after mode 0 and H - 1 mode-1 sweeps, res = r - A xout.
+// Post (not PRE): xout = H mode-1 sweeps from xin.  H (= nu) is 1 or 2.
+template <class G, bool PRE>
+__global__ void __launch_bounds__(TILE_THREADS)
+    jacobi_rows_kernel(Rows b, const typename G::T* __restrict__ w, const typename G::T* __restrict__ dinv,
+                       const typename G::T* __restrict__ r, const typename G::T* __restrict__ xin,
+                       typename G::T* __restrict__ xout, typename G::T* __restrict__ res, typename G::T omega,
+                       const int* active) {
+  using T = typename G::T;
+  constexpr int NU = G::H, TQ = G::T1 * G::V, NI = G::T0 * TQ, P = (NI + TILE_THREADS - 1) / TILE_THREADS;
+  static_assert(NU == 1 || NU == 2, "one or two sweeps a launch");
+  if (stopped(active)) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // sd before xa: row_sum's select may read the value before xa
+  T* sr = (T*)smem_raw;
+  T* sd = sr + G::RS;
+  T* xa = sd + G::RS;
+  T* xb = xa + G::RS;
+  int* sg = (int*)(xb + G::RS);
+  const int o0 = blockIdx.y * G::T0, o1 = blockIdx.x * G::T1;
+  const int64_t npts = b.npts;
+  // f(k, l0, l1, c, i) over the thread's values of the tile, k-th at p =
+  // threadIdx.x + k TILE_THREADS (the order of for_rows<G, 0>)
+  auto for_own = [&](auto f) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int p = threadIdx.x + k * TILE_THREADS;
+      if (p < NI) {
+        const int m0 = p / TQ, q = p - m0 * TQ;
+        f(k, G::H + m0, G::H + q / G::V, q % G::V, ((G::H + m0) * G::R1 + G::H) * G::V + q);
+      }
+    }
+  };
+  // the weights of the thread's own values, loaded first
+  T wr[P][G::W];
+  for_own([&](int k, int l0, int l1, int c, int) {
+    const int g = row_global<G>(b, o0, o1, l0, l1, c);
+#pragma unroll
+    for (int s = 0; s < G::W; ++s) wr[k][s] = g >= 0 ? __ldg(w + s * npts + g) : T(0);
+  });
+  // stage r, dinv and x (PRE: x0 = omega dinv r) over the halo NU; Post
+  // reads r and dinv over the halo NU - 1 only
+  for_rows<G, NU>([&](int l0, int l1, int c, int i) {
+    const int g = row_global<G>(b, o0, o1, l0, l1, c);
+    sg[i] = g;
+    if (PRE) {
+      const T rv = g >= 0 ? r[g] : T(0), dv = g >= 0 ? dinv[g] : T(0);
+      sr[i] = rv;
+      sd[i] = dv;
+      xa[i] = g >= 0 ? jacobi_point(0, omega, dv, rv, T(0), T(0)) : T(0);
+    } else {
+      xa[i] = g >= 0 ? xin[g] : T(0);
+      if (g >= 0 && l0 > 0 && l0 < G::R0 - 1 && l1 > 0 && l1 < G::R1 - 1) {
+        sr[i] = r[g];
+        sd[i] = dinv[g];
+      }
+    }
+  });
+  __syncthreads();
+  if constexpr (NU == 2) {
+    // the inner sweep over the tile grown by 1: the ring, then the tile
+    auto sweep = [&](int c, int i, auto wt) {
+      const int g = sg[i];
+      xb[i] = g < 0 ? T(0) : jacobi_point(1, omega, sd[i], sr[i], xa[i], row_sum<G>(wt, xa, i, c));
+    };
+    for_ring<G>([&](int c, int i) {
+      const int64_t g = sg[i];
+      sweep(c, i, [&](int s) { return __ldg(w + s * npts + g); });
+    });
+    for_own([&](int k, int, int, int c, int i) { sweep(c, i, [&](int s) { return wr[k][s]; }); });
+    __syncthreads();
+  }
+  // the tile itself: the residual (PRE) or the last sweep (Post), written
+  // where the tile lies on the grid
+  const T* xs = NU == 2 ? xb : xa;
+  for_own([&](int k, int l0, int l1, int c, int i) {
+    if (o0 + l0 - G::H >= b.n0 || o1 + l1 - G::H >= b.n1) return;
+    const int g = sg[i];
+    const T ax = row_sum<G>([&](int s) { return wr[k][s]; }, xs, i, c);
+    if (PRE) {
+      res[g] = jacobi_point(2, omega, T(0), sr[i], T(0), ax);
+      xout[g] = xs[i];
+    } else {
+      xout[g] = jacobi_point(1, omega, sd[i], sr[i], xs[i], ax);
+    }
+  });
+}
+
+template <typename T, int V, int NU, bool PRE>
+int launch_rows(const Rows& b, const void* w, const void* dinv, const void* r, const void* xin, void* xout, void* res,
+                double omega, const int* active, cudaStream_t s) {
+  using G = RowTile<T, V, 3, 64 / (int)sizeof(T), 16, NU>;
+  constexpr size_t bytes = 4 * G::RS * sizeof(T) + G::RS * sizeof(int);
+  auto kernel = jacobi_rows_kernel<G, PRE>;
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((b.n1 + G::T1 - 1) / G::T1, (b.n0 + G::T0 - 1) / G::T0);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, TILE_THREADS, bytes, s>>>(b, (const T*)w, (const T*)dinv, (const T*)r, (const T*)xin, (T*)xout,
+                                           (T*)res, (T)omega, active);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool PRE>
+int rows(int V, int nu, const Rows& b, const void* w, const void* dinv, const void* r, const void* xin, void* xout,
+         void* res, double omega, const int* active, cudaStream_t s) {
+  switch (V * 2 + nu) {
+    case 3: return launch_rows<T, 1, 1, PRE>(b, w, dinv, r, xin, xout, res, omega, active, s);
+    case 4: return launch_rows<T, 1, 2, PRE>(b, w, dinv, r, xin, xout, res, omega, active, s);
+    case 5: return launch_rows<T, 2, 1, PRE>(b, w, dinv, r, xin, xout, res, omega, active, s);
+    case 6: return launch_rows<T, 2, 2, PRE>(b, w, dinv, r, xin, xout, res, omega, active, s);
+    case 7: return launch_rows<T, 3, 1, PRE>(b, w, dinv, r, xin, xout, res, omega, active, s);
+    case 8: return launch_rows<T, 3, 2, PRE>(b, w, dinv, r, xin, xout, res, omega, active, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------ transfers
@@ -502,14 +681,33 @@ int ntt_jacobi(int dtype, const void* w, const void* dinv, const void* r, const 
 }
 
 // The fused sweeps of a level: pre (mode 0, nu - 1 sweeps, the residual
-// into res) or post (nu sweeps from xin), on a 2-D or 3-D grid of half-width
-// 1 on every axis, nu 1 or 2 (else cudaErrorInvalidValue).
+// into res) or post (nu sweeps from xin), on a grid of half-width 1 on
+// every axis, nu 1 or 2, in the form `form` (else cudaErrorInvalidValue):
+// 0 the 2-D form (ndim 2) or the 3-D box (ndim 3); 1 the component form
+// (ndim 3, a last axis of 1-3 components, not periodic).
 int ntt_jacobi_fused(int dtype, const void* w, const void* dinv, const void* r, const void* xin, void* xout,
-                     void* res, const int* active, double omega, int nu, int pre, int ndim, const int64_t* shape,
-                     const int* ks, const int* per, void* stream) {
-  if (ndim < 2 || ndim > 3 || nu < 1 || nu > 2) return (int)cudaErrorInvalidValue;
+                     void* res, const int* active, double omega, int nu, int pre, int form, int ndim,
+                     const int64_t* shape, const int* ks, const int* per, void* stream) {
+  if (ndim < 2 || ndim > 3 || nu < 1 || nu > 2 || form < 0 || form > 1) return (int)cudaErrorInvalidValue;
   for (int a = 0; a < ndim; ++a)
     if (ks[a] != 1) return (int)cudaErrorInvalidValue;
+  if (form) {
+    if (ndim != 3 || shape[2] < 1 || shape[2] > 3 || per[2]) return (int)cudaErrorInvalidValue;
+    ntt::Rows b;
+    b.n0 = (int)shape[0];
+    b.n1 = (int)shape[1];
+    b.per0 = per[0];
+    b.per1 = per[1];
+    b.npts = b.n0 * b.n1 * (int)shape[2];
+    if (b.npts == 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int V = (int)shape[2];
+    if (dtype == 0)
+      return pre ? ntt::rows<float, true>(V, nu, b, w, dinv, r, xin, xout, res, omega, active, s)
+                 : ntt::rows<float, false>(V, nu, b, w, dinv, r, xin, xout, res, omega, active, s);
+    return pre ? ntt::rows<double, true>(V, nu, b, w, dinv, r, xin, xout, res, omega, active, s)
+               : ntt::rows<double, false>(V, nu, b, w, dinv, r, xin, xout, res, omega, active, s);
+  }
   ntt::Box b;
   b.npts = 1;
   for (int a = 0; a < 3; ++a) {

@@ -13,9 +13,13 @@ the host; the coarsest level is inverted densely once.
 The V(2,2) cycle (:func:`apply_vcycle`) runs on the device through
 hand-written kernels: K2 smooths a level in two launches, :func:`jacobi_pre`
 (the pre-smoothing sweeps and the residual r - A x) and :func:`jacobi_post`
-(the post-smoothing sweeps), each fused with the stencil matvec, on 2-D and
-3-D grids of half-width 1 (:func:`fused_shape`); other levels take K2's
-single sweeps, :func:`jacobi_smooth`, one launch a sweep.  K3
+(the post-smoothing sweeps), each fused with the stencil matvec, on grids
+of half-width 1 in the form the level's shape takes (:func:`fused_form`):
+``'2d'`` (a 2-D grid: the slice's and the Laplace example's levels),
+``'components'`` (a grid (n0, n1, V) of V = 1-3 components, its last axis
+not periodic: the finite-strain levels, (721, 721, 2) down to (91, 91, 2))
+or ``'box'`` (any other 3-D grid); other levels (half-widths 2, 1-D, 4-D)
+take K2's single sweeps, :func:`jacobi_smooth`, one launch a sweep.  K3
 :func:`mg_restrict` (full weighting) and :func:`mg_prolong_add` (x += P xc,
 linear interpolation) move between levels, tiled where axes 0 and 1
 coarsen beside at most a kept axis of components (:func:`transfer_form`),
@@ -400,19 +404,31 @@ _kernels.counted(jacobi_smooth)
 
 # the sweeps a fused K2 launch may hold (its instantiations in csrc/mg.cu)
 FUSED_NU = (1, 2)
+# K2's fused forms and their codes in ``ntt_jacobi_fused`` (the 2-D tile and
+# the 3-D box: 0, by rank; the component form: 1)
+FORM_CODES = {'2d': 0, 'components': 1, 'box': 0}
 
 
-def fused_shape(ks, nu):
-    '''Whether a level of half-widths ``ks`` smooths through the fused
-    sweeps (:func:`jacobi_pre`, :func:`jacobi_post`: 2-D and 3-D grids of
-    half-width 1 on every axis, ``nu`` in :data:`FUSED_NU`) rather than
-    through 2 ``nu`` single sweeps.'''
-    return len(ks) in (2, 3) and all(int(k) == 1 for k in ks) and int(nu) in FUSED_NU
+def fused_form(ks, shape, periodic, nu):
+    '''The form in which a level of half-widths ``ks`` on the grid
+    ``shape`` smooths (a pure function of the level), through the fused
+    sweeps :func:`jacobi_pre` and :func:`jacobi_post` where every
+    half-width is 1 and ``nu`` is in :data:`FUSED_NU`: ``'2d'`` on a 2-D
+    grid, ``'components'`` on a grid (n0, n1, V) that K1 tiles too (V at
+    most 3, its last axis not periodic: a vector field's levels,
+    :func:`ops.stencil.matvec_form`), ``'box'`` on any other 3-D grid;
+    None where the level smooths through 2 ``nu`` single sweeps.'''
+    ks = tuple(int(k) for k in ks)
+    if len(ks) not in (2, 3) or any(k != 1 for k in ks) or int(nu) not in FUSED_NU:
+        return None
+    if len(ks) == 2:
+        return '2d'
+    return 'components' if _st.matvec_form(ks, shape, periodic) == 'tile' else 'box'
 
 
-def _fused(name, pre, w, dinv, r, x, ks, shape, periodic, omega, nu, active):
-    '''Launch the fused K2 kernel (``ntt_jacobi_fused``); returns its
-    outputs (x, and the residual where ``pre``).'''
+def _fused(name, pre, w, dinv, r, x, ks, shape, periodic, omega, nu, active, form):
+    '''Launch the fused K2 kernel (``ntt_jacobi_fused``) in ``form``;
+    returns its outputs (x, and the residual where ``pre``).'''
     W = int(numpy.prod([2 * k + 1 for k in ks]))
     named = dict(w=(w, (W,) + shape), dinv=(dinv, shape))
     if not pre:
@@ -422,7 +438,7 @@ def _fused(name, pre, w, dinv, r, x, ks, shape, periodic, omega, nu, active):
     out = torch.empty_like(r)
     res = torch.empty_like(r) if pre else None
     _kernels.launch('ntt_jacobi_fused', r, [w, dinv, r, None if pre else x, out, res, active], shape, ks=ks,
-                    periodic=periodic, scalars=(float(omega), int(nu), int(pre)))
+                    periodic=periodic, scalars=(float(omega), int(nu), int(pre), FORM_CODES[form]))
     return (out, res) if pre else out
 
 
@@ -432,43 +448,48 @@ def _grid(ks, shape, periodic):
 
 def jacobi_pre(w, dinv, r, ks, shape, periodic, nu=2, omega=OMEGA, active=None):
     '''A level's pre-smoothing and residual in one launch (kernel K2,
-    ``csrc/mg.cu``): the first sweep from x = 0, ``nu - 1`` sweeps, then
-    ``r - A x``; returns (x, residual).  The same bits as those
-    :func:`jacobi_smooth` sweeps (modes 0, 1 ... 1, 2), which it replaces
-    where :func:`fused_shape` holds and which run in its place elsewhere.
-    Outputs are left unwritten while ``active`` is 0.'''
+    ``csrc/mg.cu``, in its form for the level, :func:`fused_form`): the
+    first sweep from x = 0, ``nu - 1`` sweeps, then ``r - A x``; returns
+    (x, residual).  The same bits as those :func:`jacobi_smooth` sweeps
+    (modes 0, 1 ... 1, 2), which it replaces where the level has a fused
+    form and which run in its place elsewhere.  Outputs are left unwritten
+    while ``active`` is 0.  ``jacobi_pre.forms`` counts the launches by
+    form.'''
     ks, shape, periodic = _grid(ks, shape, periodic)
     if r.device.type == 'cpu':
         return jacobi_pre_plain(w, dinv, r, ks, shape, periodic, omega, nu)
-    if not fused_shape(ks, nu):
+    form = fused_form(ks, shape, periodic, nu)
+    if form is None:
         return _pre_sweeps(lambda x, mode: jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega, mode, active),
                            nu)
-    out = _fused('jacobi_pre', True, w, dinv, r, None, ks, shape, periodic, omega, nu, active)
-    jacobi_pre.launches += 1
+    out = _fused('jacobi_pre', True, w, dinv, r, None, ks, shape, periodic, omega, nu, active, form)
+    _kernels.count(jacobi_pre, form)
     return out
 
 
-_kernels.counted(jacobi_pre)
+_kernels.counted(jacobi_pre, forms=tuple(FORM_CODES))
 
 
 def jacobi_post(w, dinv, r, x, ks, shape, periodic, nu=2, omega=OMEGA, active=None):
-    '''A level's post-smoothing in one launch (kernel K2, ``csrc/mg.cu``):
-    ``nu`` sweeps from ``x``; returns the new x.  The same bits as those
-    :func:`jacobi_smooth` sweeps, which it replaces where
-    :func:`fused_shape` holds and which run in its place elsewhere.  The
-    output is left unwritten while ``active`` is 0.'''
+    '''A level's post-smoothing in one launch (kernel K2, ``csrc/mg.cu``,
+    in its form for the level, :func:`fused_form`): ``nu`` sweeps from
+    ``x``; returns the new x.  The same bits as those :func:`jacobi_smooth`
+    sweeps, which it replaces where the level has a fused form and which
+    run in its place elsewhere.  The output is left unwritten while
+    ``active`` is 0.  ``jacobi_post.forms`` counts the launches by form.'''
     ks, shape, periodic = _grid(ks, shape, periodic)
     if r.device.type == 'cpu':
         return jacobi_post_plain(w, dinv, r, x, ks, shape, periodic, omega, nu)
-    if not fused_shape(ks, nu):
+    form = fused_form(ks, shape, periodic, nu)
+    if form is None:
         return _post_sweeps(lambda x, mode: jacobi_smooth(w, dinv, r, x, ks, shape, periodic, omega, mode, active),
                             x, nu)
-    out = _fused('jacobi_post', False, w, dinv, r, x, ks, shape, periodic, omega, nu, active)
-    jacobi_post.launches += 1
+    out = _fused('jacobi_post', False, w, dinv, r, x, ks, shape, periodic, omega, nu, active, form)
+    _kernels.count(jacobi_post, form)
     return out
 
 
-_kernels.counted(jacobi_post)
+_kernels.counted(jacobi_post, forms=tuple(FORM_CODES))
 
 
 # K3's tiled form (``csrc/mg.cu``): components a kept trailing axis may have,
@@ -559,7 +580,8 @@ def vcycle(levels, mg_ops, r_nd, nu=2, active=None):
     '''V(nu, nu) cycle with weighted-Jacobi smoothing for the static
     ((ks, shape, periodic), ...) level tuple (the coarsest included) on the
     operands ``(ws, dinvs, coarse_inv)``; ``r_nd`` has the finest shape.
-    Each level smooths in two K2 launches where :func:`fused_shape` holds.
+    Each level smooths in two K2 launches where it has a fused form
+    (:func:`fused_form`).
     K2 and K3 do nothing while the CG loop's flag ``active`` is 0 (the
     coarsest level's product still runs).'''
     ws, dinvs, coarse_inv = mg_ops

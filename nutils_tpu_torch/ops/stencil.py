@@ -304,17 +304,42 @@ def matvec_plain(w, x, ks, shape, periodic=None):
     return acc
 
 
+# K1's tiled form and K2's component form (``csrc/grid.cuh``'s row tiles):
+# the components a trailing axis may hold, the fewest rows of points a tile
+# has (float64's), and the rows of tiles a launch's grid may hold
+TILE_COMPONENTS = 3
+TILE_ROWS = 8
+MAX_GRID_Y = 65535
+
+
+def matvec_form(ks, shape, periodic):
+    '''The form of K1 for a grid (a pure function of it): ``'tile'`` for
+    half-width 1 on a 2-D grid, or on a grid (n0, n1, V) whose last axis
+    holds at most :data:`TILE_COMPONENTS` components and is not periodic
+    (a vector field's), within the launch grid's rows; ``'generic'`` for
+    every other grid (wider stencils, 1-D, 4-D, more components, a periodic
+    last axis).'''
+    ks, shape = tuple(int(k) for k in ks), tuple(int(s) for s in shape)
+    periodic = tuple(bool(p) for p in periodic)
+    rows = len(ks) == 2 or len(ks) == 3 and 1 <= shape[2] <= TILE_COMPONENTS and not periodic[2]
+    fits = -(-shape[0] // TILE_ROWS) <= MAX_GRID_Y
+    return 'tile' if rows and all(k == 1 for k in ks) and fits else 'generic'
+
+
 def stencil_matvec(w, x, ks, shape, periodic=None, active=None):
     '''y = A x for the grid stencil ``w`` [W, *shape] and ``x`` [*shape].
 
     Kernel K1 (``csrc/stencil.cu``), replacing the device work of
     ``nutils_tpu.ops.stencil._matvec_fn`` (the function the deleted Pallas
-    stencil kernel computed).  It is memory-bound: (W + 2) values move per
-    dof, and one thread per output dof reads its W slot-major weights
-    coalesced while L2 serves the neighbour reads of ``x``.  ``active``
-    (int32, the CG loop's flag, ``ops/cg.py``) makes the kernel do nothing
-    while it is 0; ``y`` is then left unwritten.  Tensors on the CPU take
-    :func:`matvec_plain`; a CUDA tensor launches the kernel or raises.'''
+    stencil kernel computed), in its form for the grid
+    (:func:`matvec_form`: tiled, x staged with its halo in shared memory,
+    or generic, one thread a dof), both with the same bits.  It is
+    memory-bound: (W + 2) values move per dof, the W slot-major weights
+    read coalesced.  ``active`` (int32, the CG loop's flag, ``ops/cg.py``)
+    makes the kernel do nothing while it is 0; ``y`` is then left
+    unwritten.  Tensors on the CPU take :func:`matvec_plain`; a CUDA tensor
+    launches the kernel or raises.  ``stencil_matvec.forms`` counts the
+    launches by form.'''
     ks = tuple(int(k) for k in ks)
     shape = tuple(int(s) for s in shape)
     periodic = tuple(bool(p) for p in (periodic or (False,) * len(ks)))
@@ -324,12 +349,14 @@ def stencil_matvec(w, x, ks, shape, periodic=None, active=None):
     _kernels.check_operands('stencil_matvec', x, shape, x.dtype, w=(w, (W,) + shape))
     _kernels.check_flag('stencil_matvec', active, x)
     y = torch.empty_like(x)
-    _kernels.launch('ntt_stencil_matvec', x, [w, x, y, active], shape, ks=ks, periodic=periodic)
-    stencil_matvec.launches += 1
+    form = matvec_form(ks, shape, periodic)
+    _kernels.launch('ntt_stencil_tile' if form == 'tile' else 'ntt_stencil_matvec', x, [w, x, y, active], shape,
+                    ks=ks, periodic=periodic)
+    _kernels.count(stencil_matvec, form)
     return y
 
 
-_kernels.counted(stencil_matvec)
+_kernels.counted(stencil_matvec, forms=('tile', 'generic'))
 
 
 def matvec(form, w_dev, x):

@@ -8,6 +8,8 @@ Without a card every test skips.  Tolerances: float32 1e-6 and float64 1e-14
 of the largest plain value (the sums run in another order, with fused
 multiply-adds); reductions on the scale of their terms.'''
 
+import hashlib
+
 import numpy
 import pytest
 import torch
@@ -80,6 +82,65 @@ def _same_bits(a, b):
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
 
 
+def _digest(t):
+    return hashlib.sha1(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+# K1's tiled form: the half-width-1 grids of STENCILS, the component grids
+# of K2's component form, a periodic axis beside the components, and grids
+# whose tiles end mid-block (neither rows of 8 or 16 nor columns of 32)
+TILE_STENCILS = [case for case in STENCILS if stencil.matvec_form(*case[1::-1], case[2]) == 'tile'] + [
+    ((33, 17, 2), (1, 1, 1), (False, False, False)),
+    ((5, 9, 3), (1, 1, 1), (False, False, False)),
+    ((2, 40, 1), (1, 1, 1), (False, False, False)),
+    ((9, 35, 2), (1, 1, 1), (True, False, False)),
+    ((3, 4, 2), (1, 1, 1), (True, True, False)),
+    ((3, 40), (1, 1), (True, True)),
+    ((37, 65), (1, 1), (False, True)),
+    ((91, 91, 2), (1, 1, 1), (False, False, False)),
+]
+
+
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('shape,ks,periodic', TILE_STENCILS)
+def test_stencil_tile_is_the_generic_kernel(cuda, shape, ks, periodic, dtype, tol):
+    # stencil_matvec takes the tiled form here and gives the generic
+    # kernel's bits (launched directly), zeros of either sign included; the
+    # launch is counted once, in its form
+    assert stencil.matvec_form(ks, shape, periodic) == 'tile'
+    rng = numpy.random.default_rng(17)
+    W = int(numpy.prod([2 * k + 1 for k in ks]))
+    w, x = rng.standard_normal((W,) + shape), rng.standard_normal(shape)
+    x.flat[::7] = 0.0
+    x.flat[1::11] = -0.0
+    w[0] = -0.0
+    w, x = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (w, x))
+    before = stencil.stencil_matvec.launches, stencil.stencil_matvec.forms['tile']
+    got = stencil.stencil_matvec(w, x, ks, shape, periodic)
+    assert (stencil.stencil_matvec.launches, stencil.stencil_matvec.forms['tile']) == (before[0] + 1, before[1] + 1)
+    want = torch.full(shape, 7.0, dtype=dtype, device=cuda)
+    _kernels.launch('ntt_stencil_matvec', x, [w, x, want, None], shape, ks=ks, periodic=periodic)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and _same_bits(got, want) and _digest(got) == _digest(want)
+    assert _rel(got, stencil.matvec_plain(w, x, ks, shape, periodic)) <= tol
+
+
+@pytest.mark.parametrize('shape,ks,periodic', [((33, 65), (1, 1), (False, False)), ((17, 9, 2), (1, 1, 1), (False,) * 3)])
+def test_stencil_tile_does_nothing_while_inactive(cuda, shape, ks, periodic):
+    rng = numpy.random.default_rng(18)
+    W = 3 ** len(shape)
+    w, x = (torch.as_tensor(a, device=cuda) for a in (rng.standard_normal((W,) + shape), rng.standard_normal(shape)))
+    for flag in (0, 1):
+        active = torch.full((1,), flag, dtype=torch.int32, device=cuda)
+        y = torch.full(shape, 7.0, dtype=x.dtype, device=cuda)
+        _kernels.launch('ntt_stencil_tile', x, [w, x, y, active], shape, ks=ks, periodic=periodic)
+        torch.cuda.synchronize()
+        if flag:
+            assert _rel(y, stencil.matvec_plain(w, x, ks, shape, periodic)) <= 1e-14
+        else:
+            assert bool((y == 7.0).all())
+
+
 # K3's tiled form: odd sizes from 5 up, tiles that end mid-block (the
 # coarse rows are not multiples of the tile's 8 or 16 rows, nor its 32
 # columns), V = 1, 2, 3, and the three paths' transfers at reduced size
@@ -143,7 +204,14 @@ FUSED_CASES = [((1025, 1025), (1, 1), (True, False)),
                ((1024, 1025), (1, 1), (False, True)),
                ((3, 40), (1, 1), (True, True)),
                ((129, 129, 65), (1, 1, 1), (False, True, False)),
-               ((2, 5, 33), (1, 1, 1), (True, True, False))]
+               ((2, 5, 33), (1, 1, 1), (True, True, False)),
+               # the component form: V = 1-3, a periodic axis 0, tiles that
+               # end mid-block, the finite strain's coarsest smoothed level
+               ((33, 17, 2), (1, 1, 1), (False, False, False)),
+               ((5, 9, 3), (1, 1, 1), (False, False, False)),
+               ((2, 40, 1), (1, 1, 1), (False, False, False)),
+               ((9, 35, 2), (1, 1, 1), (True, False, False)),
+               ((91, 91, 2), (1, 1, 1), (False, False, False))]
 
 
 @pytest.mark.parametrize('nu', [1, 2])
@@ -151,19 +219,29 @@ FUSED_CASES = [((1025, 1025), (1, 1), (True, False)),
 @pytest.mark.parametrize('shape,ks,per', FUSED_CASES)
 def test_fused_jacobi_is_its_single_sweeps(cuda, shape, ks, per, dtype, tol, nu):
     # K2's fused launches give the bits of the single sweeps they replace
-    # (the Laplace grid, periodic axes, axes shorter than the halo, 3-D),
-    # and agree with the plain sweeps
+    # (the Laplace grid, periodic axes, axes shorter than the halo, 3-D,
+    # component axes), and agree with the plain sweeps; the component form
+    # gives the box form's bits too
     rng = numpy.random.default_rng(11)
     W = int(numpy.prod([2 * k + 1 for k in ks]))
     w, dinv, r, x = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (
         rng.standard_normal((W,) + shape), rng.random(shape) + 1, rng.standard_normal(shape),
         rng.standard_normal(shape)))
-    assert mg.fused_shape(ks, nu)
-    before = mg.jacobi_pre.launches, mg.jacobi_post.launches, mg.jacobi_smooth.launches
+    form = mg.fused_form(ks, shape, per, nu)
+    assert form == ('2d' if len(shape) == 2 else 'components' if shape[2] <= 3 else 'box')
+    before = mg.jacobi_pre.launches, mg.jacobi_post.launches, mg.jacobi_smooth.launches, mg.jacobi_pre.forms[form]
     xf, resf = mg.jacobi_pre(w, dinv, r, ks, shape, per, nu)
     post = mg.jacobi_post(w, dinv, r, x, ks, shape, per, nu)
-    assert (mg.jacobi_pre.launches, mg.jacobi_post.launches, mg.jacobi_smooth.launches) == \
-        (before[0] + 1, before[1] + 1, before[2])
+    assert (mg.jacobi_pre.launches, mg.jacobi_post.launches, mg.jacobi_smooth.launches, mg.jacobi_pre.forms[form]) \
+        == (before[0] + 1, before[1] + 1, before[2], before[3] + 1)
+    for code in (0, 1) if form == 'components' else ():
+        outs = [torch.full(shape, 7.0, dtype=dtype, device=cuda) for _ in range(3)]
+        _kernels.launch('ntt_jacobi_fused', r, [w, dinv, r, None, outs[0], outs[1], None], shape, ks=ks, periodic=per,
+                        scalars=(mg.OMEGA, nu, 1, code))
+        _kernels.launch('ntt_jacobi_fused', r, [w, dinv, r, x, outs[2], None, None], shape, ks=ks, periodic=per,
+                        scalars=(mg.OMEGA, nu, 0, code))
+        torch.cuda.synchronize()
+        assert all(_same_bits(a, b) for a, b in zip(outs, (xf, resf, post))), code
     xs = mg.jacobi_smooth(w, dinv, r, None, ks, shape, per, mode=0)
     for _ in range(nu - 1):
         xs = mg.jacobi_smooth(w, dinv, r, xs, ks, shape, per, mode=1)

@@ -16,6 +16,8 @@ CASES = [
     ((9, 11), (3, 1), (False, True)),
     ((5, 7, 9), (1, 1, 1), (False, False, False)),
     ((5, 7, 9), (1, 2, 1), (True, False, True)),
+    ((9, 7, 2), (1, 1, 1), (False, False, False)),
+    ((6, 9, 3), (1, 1, 1), (True, False, False)),
 ]
 
 
@@ -48,3 +50,31 @@ def test_from_csr_grid_matches_jax():
     b = st_torch.from_csr_grid(A.data, A.indices, A.indptr, (5, 8))
     assert (a.ks, a.shape, a.periodic) == (b.ks, b.shape, b.periodic)
     numpy.testing.assert_array_equal(a.w, b.w)
+
+
+@pytest.mark.parametrize('ks,shape,periodic,form', [
+    ((1, 1), (1025, 1025), (False, False), 'tile'),               # the slice
+    ((1, 1), (2049, 2049), (False, False), 'tile'),               # the Laplace example
+    ((1, 1), (1024, 1025), (True, False), 'tile'),
+    ((1, 1), (3, 40), (True, True), 'tile'),
+    ((1, 1, 1), (721, 721, 2), (False, False, False), 'tile'),    # the finite-strain levels
+    ((1, 1, 1), (361, 361, 2), (False, False, False), 'tile'),
+    ((1, 1, 1), (181, 181, 2), (False, False, False), 'tile'),
+    ((1, 1, 1), (91, 91, 2), (False, False, False), 'tile'),
+    ((1, 1, 1), (5, 9, 3), (True, True, False), 'tile'),
+    ((1, 1, 1), (2, 40, 1), (False, False, False), 'tile'),
+    ((1, 1), (8 * 65535, 3), (False, False), 'tile'),
+    ((2, 2, 1), (513, 513, 2), (False, False, False), 'generic'),  # the elasticity squares (degree 2)
+    ((2, 2), (513, 513), (False, False), 'generic'),               # the degree-2 example's fine level
+    ((1, 1, 1), (129, 129, 65), (False, False, False), 'generic'),  # more components than a tile holds
+    ((1, 1, 1), (9, 9, 4), (False, False, False), 'generic'),
+    ((1, 1, 1), (9, 9, 2), (False, False, True), 'generic'),       # a periodic component axis
+    ((1, 1, 0), (9, 9, 2), (False, False, False), 'generic'),
+    ((1,), (17,), (False,), 'generic'),
+    ((1, 1, 1, 1), (3, 5, 7, 9), (False, False, False, False), 'generic'),
+    ((1, 1), (8 * 65535 + 1, 3), (False, False), 'generic'),       # more rows of tiles than a launch holds
+])
+def test_matvec_form(ks, shape, periodic, form):
+    # K1's form is a pure function of the grid: tiled on every stencil of
+    # half-width 1 that the paths' operators have
+    assert st_torch.matvec_form(ks, shape, periodic) == form
