@@ -7,6 +7,7 @@ the GPU.
     python3 chip_smoke.py --only kernels   # K1-K3, K7, K11-K14's rows alone, no solves
     python3 chip_smoke.py --only assemble  # warm assemblies alone, no solves
     python3 chip_smoke.py --only finitestrain  # the finite-strain phases alone
+    python3 chip_smoke.py --only krylov    # K6/K10 rows and the Navier-Stokes GMRES/BiCGStab solves alone
 
 Phases, each printing JSON lines (``--only kernels``: device, build, K3's
 rows at the slice's, the example's and the finite-strain grids, K1's at
@@ -23,9 +24,8 @@ two checkouts the same way):
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; fails without a CUDA card.
-2. build    — builds the CUDA kernels K1-K5, K7-K9 and K11-K15 from
-   ``nutils_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, in
-   parallel) and compiles the Triton kernels of K6 and K10.
+2. build    — builds the CUDA kernels K1-K15 from ``nutils_tpu_torch/csrc``
+   with nvcc for sm_90a (one nvcc per source, in parallel).
 3. kernel   — K1-K4 against their plain PyTorch versions on the card, at
    the Laplace slice's shapes (1025^2 grid, W = 9, float32 and float64) and
    on a periodic 2-D and a 3-D stencil: error, CUDA-event times, the bound
@@ -70,8 +70,11 @@ two checkouts the same way):
    K12, every chunk factored; then ``assembly_kernels`` at its shapes), the
    device Schur diagonal, K5's compact plan and operand, refined GMRES to
    rtol 1e-3 and the fused step, through the kernels (launch counts read
-   around the run); then K5-K7 against their plain versions at the step's
-   shapes (K5 also against the literal port on the weight buffer, and
+   around the run; the GMRES loop replays CUDA graphs on K6's device state,
+   each solve's record asserted: driver ``graph``, accepted on the device,
+   host reads no more than chunks + cycles + rounds); then K5-K7 against
+   their plain versions at the step's shapes (K6's six entries at steps 0,
+   50 and 99 of GMRES(100), their decisions equal) (K5 also against the literal port on the weight buffer, and
    cuSPARSE in float32 and float64; K7 twice, the same bits, with the sha1
    of minv and the floor of its two passes beside its bound), and a
    profile of one warm assembly and one warm solve.
@@ -82,13 +85,14 @@ two checkouts the same way):
    assembly (K11, K12, every chunk factored; ``assembly_kernels`` at its
    shapes) through the value scatter K8, the device Schur diagonal on CSR
    values (K7), refined GMRES and refined BiCGStab to rtol 1e-3 on the CSR
-   operator (K9, K6, K10), through the kernels (launch counts read around
-   the run; the residual's rows with no slice plan sum through K8 too, and
+   operator (K9, K6, K10), through the kernels, both loops from CUDA graphs
+   (asserted as on ``ns``; launch counts read around the run; the residual's rows with no slice plan sum through K8 too, and
    two assemblies are bitwise equal; their bits' sha1 digests are printed,
    to compare between calls), and a profile of one warm assembly
    and one warm solve of each method.
 11. ns_tri_kernels — K7 on CSR values and K8-K10 against their plain
-   versions at the triangle step's shapes (K9 also twice, for the same
+   versions at the triangle step's shapes (K10's entries each with their
+   decisions) (K9 also twice, for the same
    bits, and with the loop's flag at 0, writing nothing).
 12. ns_tri_parity — the triangle step at 6x6 elements in float64 on the
    card and on the CPU: both methods' solutions agree to 1e-8 relative, in
@@ -212,20 +216,23 @@ KERNELS = {
     'cg_step': ('cuda', 'nutils_tpu_torch/csrc/cg.cu', 'nutils_tpu/ops/sparse.py:322'),
     'cg_xpby': ('cuda', 'nutils_tpu_torch/csrc/cg.cu', 'nutils_tpu/ops/sparse.py:322'),
     'blockgrid_matvec': ('cuda', 'nutils_tpu_torch/csrc/blockgrid.cu', 'nutils_tpu/ops/blockgrid.py:276'),
-    'gmres_project': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
-    'gmres_update': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
-    'gmres_normalize': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
-    'gmres_combine': ('triton', 'nutils_tpu_torch/ops/_triton_gmres.py', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_project': ('cuda', 'nutils_tpu_torch/csrc/gmres.cu', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_update': ('cuda', 'nutils_tpu_torch/csrc/gmres.cu', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_normalize': ('cuda', 'nutils_tpu_torch/csrc/gmres.cu', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_start': ('cuda', 'nutils_tpu_torch/csrc/gmres.cu', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_residual': ('cuda', 'nutils_tpu_torch/csrc/gmres.cu', 'nutils_tpu/ops/sparse.py:408'),
+    'gmres_solve_combine': ('cuda', 'nutils_tpu_torch/csrc/gmres.cu', 'nutils_tpu/ops/sparse.py:408'),
     'schur_diag_inverse_device': ('cuda', 'nutils_tpu_torch/csrc/schur.cu', 'nutils_tpu/ops/sparse.py:198'),
     # K7's map-free variant on a CSR matrix's values: the same wrapper, read
     # on the triangle step
     'schur_diag_inverse_device[csr]': ('cuda', 'nutils_tpu_torch/csrc/schur.cu', 'nutils_tpu/ops/sparse.py:198'),
     'csr_scatter': ('cuda', 'nutils_tpu_torch/csrc/csr_scatter.cu', 'nutils_tpu/matrix.py:83'),
     'csr_matvec': ('cuda', 'nutils_tpu_torch/csrc/csr_spmv.cu', 'nutils_tpu/ops/sparse.py:274'),
-    'bicg_dots': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
-    'bicg_s': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
-    'bicg_xr': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
-    'bicg_p': ('triton', 'nutils_tpu_torch/ops/_triton_bicgstab.py', 'nutils_tpu/ops/sparse.py:531'),
+    'bicg_dots': ('cuda', 'nutils_tpu_torch/csrc/bicgstab.cu', 'nutils_tpu/ops/sparse.py:531'),
+    'bicg_s': ('cuda', 'nutils_tpu_torch/csrc/bicgstab.cu', 'nutils_tpu/ops/sparse.py:531'),
+    'bicg_xr': ('cuda', 'nutils_tpu_torch/csrc/bicgstab.cu', 'nutils_tpu/ops/sparse.py:531'),
+    'bicg_refresh': ('cuda', 'nutils_tpu_torch/csrc/bicgstab.cu', 'nutils_tpu/ops/sparse.py:531'),
+    'bicg_p': ('cuda', 'nutils_tpu_torch/csrc/bicgstab.cu', 'nutils_tpu/ops/sparse.py:531'),
     'elem_matrix': ('cuda', 'nutils_tpu_torch/csrc/assembly.cu', 'nutils_tpu/solver.py:1231'),
     'elem_vector': ('cuda', 'nutils_tpu_torch/csrc/assembly.cu', 'nutils_tpu/solver.py:950'),
     'block_apply': ('cuda', 'nutils_tpu_torch/csrc/block_jacobi.cu', 'nutils_tpu/ops/sparse.py:122'),
@@ -238,14 +245,17 @@ KERNELS = {
 ASSEMBLY_KERNELS = ('elem_matrix', 'elem_vector')
 LAPLACE_KERNELS = ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add', 'cg_dot',
                    'cg_step', 'cg_xpby') + ASSEMBLY_KERNELS
-NS_KERNELS = ('blockgrid_matvec', 'gmres_project', 'gmres_update', 'gmres_normalize', 'gmres_combine',
-              'schur_diag_inverse_device') + ASSEMBLY_KERNELS
-TRI_KERNELS = ('csr_scatter', 'csr_matvec', 'schur_diag_inverse_device', 'gmres_project', 'gmres_update',
-               'gmres_normalize', 'gmres_combine', 'bicg_dots', 'bicg_s', 'bicg_xr', 'bicg_p') + ASSEMBLY_KERNELS
+# GMRES (K6) and BiCGStab (K10): their loops on the device, from CUDA graphs
+GMRES_KERNELS = ('gmres_project', 'gmres_update', 'gmres_normalize', 'gmres_start', 'gmres_residual',
+                 'gmres_solve_combine')
+BICGSTAB_KERNELS = ('bicg_dots', 'bicg_s', 'bicg_xr', 'bicg_refresh', 'bicg_p')
+NS_KERNELS = ('blockgrid_matvec', 'schur_diag_inverse_device') + GMRES_KERNELS + ASSEMBLY_KERNELS
+TRI_KERNELS = ('csr_scatter', 'csr_matvec', 'schur_diag_inverse_device') + GMRES_KERNELS + BICGSTAB_KERNELS \
+    + ASSEMBLY_KERNELS
 # the Laplace example's solve: assembly in element chunks, GMRES with the
 # multigrid V-cycle on the masked stencil operator
-EXAMPLE_KERNELS = ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add', 'gmres_project',
-                   'gmres_update', 'gmres_normalize', 'gmres_combine') + ASSEMBLY_KERNELS
+EXAMPLE_KERNELS = ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add') + GMRES_KERNELS \
+    + ASSEMBLY_KERNELS
 # the degree-2 example: its fine level's stencil (k = 2) smooths through
 # K2's single sweeps, the coarser levels (k = 1) through the fused ones
 P2_KERNELS = ('jacobi_smooth', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add')
@@ -297,8 +307,7 @@ def emit(phase, **fields):
 
 
 def wrappers():
-    from nutils_tpu_torch.ops import (_triton_bicgstab, _triton_gmres, assembly, blockgrid, cg, mg, precon, sparse,
-                                      stencil)
+    from nutils_tpu_torch.ops import assembly, bicgstab, blockgrid, cg, gmres, mg, precon, sparse, stencil
     return {'elem_matrix': assembly.elem_matrix, 'elem_vector': assembly.elem_vector,
             'elem_value': assembly.elem_value, 'elem_value_sum': assembly.elem_value_sum,
             'block_apply': precon.block_apply, 'mask_pre': sparse.mask_pre, 'mask_post': sparse.mask_post,
@@ -306,13 +315,13 @@ def wrappers():
             'jacobi_pre': mg.jacobi_pre, 'jacobi_post': mg.jacobi_post,
             'mg_restrict': mg.mg_restrict, 'mg_prolong_add': mg.mg_prolong_add,
             'cg_dot': cg.cg_dot, 'cg_step': cg.cg_step, 'cg_xpby': cg.cg_xpby,
-            'blockgrid_matvec': blockgrid.blockgrid_matvec, 'gmres_project': _triton_gmres.gmres_project,
-            'gmres_update': _triton_gmres.gmres_update, 'gmres_normalize': _triton_gmres.gmres_normalize,
-            'gmres_combine': _triton_gmres.gmres_combine,
+            'blockgrid_matvec': blockgrid.blockgrid_matvec, 'gmres_project': gmres.gmres_project,
+            'gmres_update': gmres.gmres_update, 'gmres_normalize': gmres.gmres_normalize,
+            'gmres_start': gmres.gmres_start, 'gmres_residual': gmres.gmres_residual,
+            'gmres_solve_combine': gmres.gmres_solve_combine,
             'schur_diag_inverse_device': sparse.schur_diag_inverse_device, 'csr_scatter': sparse.csr_scatter,
-            'csr_matvec': sparse.csr_matvec, 'bicg_dots': _triton_bicgstab.bicg_dots,
-            'bicg_s': _triton_bicgstab.bicg_s, 'bicg_xr': _triton_bicgstab.bicg_xr,
-            'bicg_p': _triton_bicgstab.bicg_p}
+            'csr_matvec': sparse.csr_matvec, 'bicg_dots': bicgstab.bicg_dots, 'bicg_s': bicgstab.bicg_s,
+            'bicg_xr': bicgstab.bicg_xr, 'bicg_refresh': bicgstab.bicg_refresh, 'bicg_p': bicgstab.bicg_p}
 
 
 def reset_launches():
@@ -467,31 +476,13 @@ def phase_device():
 
 
 def phase_build():
-    import torch
     from nutils_tpu_torch import _kernels
-    from nutils_tpu_torch.ops import _triton_bicgstab, _triton_gmres, cg
+    from nutils_tpu_torch.ops import cg
     path, seconds, diag = _kernels.build(verbose=True)
     _kernels.library()
     emit('build_cg', grid=cg.grid(0))
-    t0 = time.perf_counter()
-    for dtype in (torch.float32, torch.float64):
-        a = torch.ones(4096, dtype=dtype, device='cuda')
-        s = torch.ones((), dtype=dtype, device='cuda')
-        V = torch.ones((3, 4096), dtype=dtype, device='cuda')
-        h = _triton_gmres.gmres_project(V, 1, a)
-        _triton_gmres.gmres_update(V, 1, h, a.clone())
-        _triton_gmres.gmres_normalize(a, s, s, V[2])
-        _triton_gmres.gmres_combine(V, 2, h, a.clone())
-        sc = _triton_bicgstab.scalars(dtype, 'cuda')
-        _triton_bicgstab.bicg_dots(a, a, None, sc, _triton_bicgstab.RV)
-        _triton_bicgstab.bicg_dots(a, a, a, sc, _triton_bicgstab.TT, _triton_bicgstab.TS)
-        _triton_bicgstab.bicg_s(a, a, sc, a.clone(), _triton_bicgstab.RHO[0])
-        _triton_bicgstab.bicg_xr(*[a.clone() for _ in range(7)], sc)
-        _triton_bicgstab.bicg_p(a.clone(), a, a, a.clone(), sc, False, *_triton_bicgstab.RHO)
-    torch.cuda.synchronize()
     ptxas = [line.strip() for line in diag.splitlines() if 'registers' in line or 'spill' in line]
-    emit('build', library=str(path.relative_to(ROOT)), nvcc_seconds=seconds,
-         triton_seconds=time.perf_counter() - t0, ptxas=ptxas)
+    emit('build', library=str(path.relative_to(ROOT)), nvcc_seconds=seconds, ptxas=ptxas)
 
 
 def _compare(got, want, scale=None):
@@ -691,7 +682,7 @@ def transfer_rows(label, f, x, per, dname, peak, rng):
 # K2 fused and K3, its float64); the degree-2 example's fine grid (K2 single
 # sweeps, k = 2); the finite-strain grid (a vector field: K1, K2 fused and
 # K3 with the component axis kept, float64) and the hierarchy's three
-# coarser smoothed levels (K1, K2 fused)
+# coarser smoothed levels (K1, K2 fused; K3 from the two finer of them)
 _BOTH = ('float32', 'float64')
 _FS = (FINITESTRAIN_NELEMS + 1,) * 2 + (2,)
 FINITESTRAIN_LEVELS = [(f'finitestrain_l{level}', tuple((s - 1) // 2 ** level + 1 for s in _FS[:2]) + (2,))
@@ -702,7 +693,8 @@ KERNEL_CASES = [('slice', (1025, 1025), (1, 1), (False, False), _BOTH, ('stencil
                 ('example', (2049, 2049), (1, 1), (False, False), ('float64',), ('stencil', 'fused', 'transfers')),
                 ('p2', (2 * P2_NELEMS + 1,) * 2, (2, 2), (False, False), ('float64',), ('sweeps',)),
                 ('finitestrain', _FS, (1, 1, 1), (False, False, False), ('float64',), ('stencil', 'fused', 'transfers'))
-                ] + [(label, shape, (1, 1, 1), (False, False, False), ('float64',), ('stencil', 'fused'))
+                ] + [(label, shape, (1, 1, 1), (False, False, False), ('float64',),
+                      ('stencil', 'fused') + (('transfers',) if shape[0] > 91 else ()))
                      for label, shape in FINITESTRAIN_LEVELS]
 # the rows of K1-K3 kept beside each kernel's main row (the slice's, float32)
 EXTRA_ROWS = {('slice', 'float64'), ('example', 'float64'), ('periodic', 'float32'), ('finitestrain', 'float64'),
@@ -753,7 +745,7 @@ def phase_kernels(device='cuda', cases=KERNEL_CASES, k4=True):
                 checks['stencil_matvec'] = (lambda: stencil.stencil_matvec(w, x, ks, shape, per),
                                             lambda: stencil.matvec_plain(w, x, ks, shape, per),
                                             (W + 2) * n * isz, 2 * W * n)
-                if label == 'slice' and dtype == torch.float32 or label.startswith('finitestrain'):
+                if label in ('slice', 'periodic', 'example') or label.startswith('finitestrain'):
                     # the same product as one cuSPARSE CSR matvec
                     indptr, indices, data = carry._csr_of_stencil(w_np, ks, shape, per)
                     A = torch.sparse_csr_tensor(torch.as_tensor(indptr), torch.as_tensor(indices),
@@ -1114,6 +1106,17 @@ def busy_s(kernels):
     return sum(e.self_device_time_total for e in kernels) / 1e6
 
 
+def check_driver(path, stats):
+    """Raise unless a device Krylov solve's record says its loop replayed
+    CUDA graphs, was accepted on the device and read the device no more
+    than once a chunk, a GMRES cycle end, a CG refresh and a refinement
+    round."""
+    limit = sum(stats.get(key, 0) for key in ('chunks', 'cycles', 'refreshes', 'rounds'))
+    if stats.get('driver') != 'graph' or not stats.get('accepted_on_device') or not stats['host_reads'] <= limit:
+        raise AssertionError(f'{path}: the solve ran {stats.get("driver")}, accepted on the device '
+                             f'{stats.get("accepted_on_device")}, {stats.get("host_reads")} host reads for {limit}')
+
+
 def phase_ns(nelems=330, device='cuda'):
     """The second main path: the Taylor-Hood Navier-Stokes Newton step at
     983,403 dofs through the kernels; returns (launch counts, the step's
@@ -1149,6 +1152,7 @@ def phase_ns(nelems=330, device='cuda'):
         t_solve, dx = _sync_time(lambda: jac.solve_leniently(res, solver='gmres', rtol=1e-3))
         stats = dict(jac._solve_stats)
         t_solve_again, _dx = _sync_time(lambda: jac.solve_leniently(res, solver='gmres', rtol=1e-3))
+        warm_stats = dict(jac._solve_stats)
         fused = system.fused_step_op(solver='gmres', rtol=1e-3)
         t_step_fused_first, _out = _sync_time(lambda: fused(clean))
         t_step_fused, (dxf, rnf, itf) = _sync_time(lambda: fused(clean))
@@ -1162,13 +1166,17 @@ def phase_ns(nelems=330, device='cuda'):
     emit('ns', ndofs=ndofs, t_system=t_system, t_pattern=t_pattern, t_jacres=t_jacres, t_precon=t_precon,
          t_k5_plan=t_k5_plan, t_pack=t_pack, t_solve=t_solve, t_solve_again=t_solve_again,
          t_step_fused_first=t_step_fused_first, t_step_fused=t_step_fused, iters_fused=int(itf), resnorm_fused=rnf, solve_stats=stats,
-         rel_residual=rel_residual, rel_residual_fused=rel_residual_fused, t_host_matvec=t_host_matvec,
+         warm_solve_stats=warm_stats, rel_residual=rel_residual, rel_residual_fused=rel_residual_fused, t_host_matvec=t_host_matvec,
          peak_device_bytes=peak, launches=launches)
     if dx.shape != (ndofs,) or not numpy.isfinite(dx).all() or not numpy.isfinite(dxf).all():
         raise AssertionError('Navier-Stokes step: the solution is not a finite vector of the dof count')
     want = {'method': 'gmres', 'op_form': 'blockgrid', 'precon': 'diag', 'accepted_on_device': True}
     if any(stats[k] != v for k, v in want.items()):
         raise AssertionError(f'Navier-Stokes step solved through {stats}, expected {want}')
+    check_driver('ns', stats)
+    check_driver('ns warm', warm_stats)
+    if warm_stats['iters'] != stats['iters']:
+        raise AssertionError(f'Navier-Stokes step: {stats["iters"]} and {warm_stats["iters"]} GMRES iterations')
     if not (rel_residual <= 1e-3 and rel_residual_fused <= 1e-3):
         raise AssertionError(f'Navier-Stokes step misses rtol 1e-3: {rel_residual:.3e}, fused {rel_residual_fused:.3e}')
     missing = [name for name, count in launches.items() if count <= 0]
@@ -1214,6 +1222,243 @@ def schur_row(label, w, cmap, indices, indptr, n):
     return fields
 
 
+K6_RESTART = 100  # the restart of the port's GMRES solves (Matrix.solve)
+
+
+def _dt(dtype):
+    import numpy
+    import torch
+    return numpy.float32 if dtype == torch.float32 else numpy.float64
+
+
+def k6_state(n, j, dtype, dev, seed=11):
+    """A K6 state at step ``j`` of a GMRES(100) cycle: random h1, h2, g,
+    rotations and R = I + 0.1 U, rounded to ``dtype``; both flags set, atol
+    and inner_tol 0, no iteration cap in reach."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import gmres
+    m, dt = K6_RESTART, _dt(dtype)
+    rng = numpy.random.default_rng(seed)
+    L = gmres.layout(m)
+    s = numpy.zeros(L['parts'])
+    s[gmres.BETA], s[gmres.RN], s[gmres.HN], s[gmres.RESNORM] = dt(1.3), dt(0.9), dt(0.8), dt(1.0)
+    ints = s.view(numpy.int32)
+    ints[gmres.J], ints[gmres.INNER], ints[gmres.ACTIVE], ints[gmres.MAXITER] = j, 1, 1, 2 ** 30
+    theta = rng.random(m) * 2 * numpy.pi
+    for key, values in (('h1', rng.standard_normal(m + 1)), ('h2', 0.01 * rng.standard_normal(m + 1)),
+                        ('g', rng.standard_normal(m + 1)), ('cs', numpy.cos(theta)), ('sn', numpy.sin(theta)),
+                        ('R', (numpy.eye(m) + 0.1 * numpy.triu(rng.standard_normal((m, m)))).ravel())):
+        s[L[key]:L[key] + len(values)] = values.astype(dt)
+    st = gmres.new_state(n, m, dtype, dev)
+    st[:L['parts']] = torch.as_tensor(s, device=dev)
+    return st
+
+
+def k10_state(n, dtype, dev, seed=13, **kw):
+    """A K10 state with random scalars (rounded to ``dtype``), the active
+    flag set and the flags and slots of ``kw`` ({name: value})."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import bicgstab as B
+    dt = _dt(dtype)
+    s = numpy.zeros(B.HEAD)
+    s[:B.RNORM + 1] = (numpy.random.default_rng(seed).random(B.RNORM + 1) + 0.5).astype(dt)
+    s[B.ATOL] = dt(1e-3)
+    ints = s.view(numpy.int32)
+    ints[B.ACTIVE], ints[B.K], ints[B.MAXITER] = 1, 5, 2 ** 30
+    for name, value in kw.items():
+        slot = getattr(B, name.upper())
+        if slot > B.RNORM:  # an int32 slot
+            ints[slot] = value
+        else:
+            s[slot] = dt(value)
+    st = B.new_state(n, dtype, dev)
+    st[:B.HEAD] = torch.as_tensor(s, device=dev)
+    return st
+
+
+def stateful_ms(fn, st, eager=False):
+    """Device ms of one call of ``fn``, which changes the state ``st``: each
+    call after a copy of ``st`` back from a snapshot, the copy's own time
+    subtracted; from a CUDA graph (time_ms) or, with ``eager``, from CUDA
+    events around eager calls (time_eager_ms: the plain versions read the
+    state on the host)."""
+    snap = st.clone()
+
+    def reset():
+        st.copy_(snap)
+
+    def both():
+        reset()
+        fn()
+    timer = time_eager_ms if eager else (lambda f: time_ms(f)[0])
+    ms = timer(both) - timer(reset)
+    reset()
+    return ms
+
+
+def _state_err(got, want, regions, scales=None):
+    """(max abs error, max error over each region's scale) of two states'
+    float regions ({name: (start, stop)}); each region's scale is its
+    largest plain magnitude unless ``scales`` names one."""
+    errs = []
+    for name, (lo, hi) in regions.items():
+        scale = (scales or {}).get(name)
+        errs.append(_compare(got[lo:hi], want[lo:hi], scale) if hi > lo else (0.0, 0.0))
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def k6_rows(n, dev, label, dtype=None, js=(0, 50, 99)):
+    """K6 on GMRES(100) vectors of length ``n`` (float32 unless given) at
+    steps ``js``: each entry against its plain version on the same state
+    (vectors on their largest value, the projections on the scale of their
+    terms, the other state on each region's largest value, the loop's
+    decisions equal), its device time (the state restored before each call
+    where the entry changes it), the plain version's (eager: it reads the
+    state on the host), the bound and the library call where one computes
+    the same function; returns {name: row} at j = 50 (the cycle's entries
+    at j = 0)."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import gmres
+    dtype = dtype or torch.float32
+    dname, isz, m = str(dtype).split('.')[1], (4 if dtype == torch.float32 else 8), K6_RESTART
+    peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
+    rng = numpy.random.default_rng(21)
+    V = gmres.basis(n, m, dtype, dev)
+    V.copy_(torch.as_tensor(rng.standard_normal((m + 1, n)) / n ** 0.5, dtype=dtype, device=dev))
+    vec = {k: torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev) for k in ('w', 'src', 'x', 'b', 'y', 'r')}
+    vec['vcur'] = torch.zeros(n, dtype=dtype, device=dev)
+    L = gmres.layout(m)
+    regions = {'head': (0, gmres.RR + 1), 'g': (L['g'], L['cs']), 'cs': (L['cs'], L['sn']), 'sn': (L['sn'], L['y']),
+               'y': (L['y'], L['R']), 'R': (L['R'], L['parts'])}
+    ints = (gmres.J, gmres.IT, gmres.STALL, gmres.INNER, gmres.ACTIVE, gmres.CYCLES)
+    entries = {  # name: (call on (functions, vectors, V, state), stateful, bytes, operations, library call)
+        'gmres_project': (lambda f, v, W, st, j: f[0](W, v['w'], st, True), False,
+                          lambda j: (j + 2) * n * isz, lambda j: 2 * (j + 1) * n,
+                          lambda j, v, W, st: torch.mv(W[:j + 1], v['w'])),
+        'gmres_update': (lambda f, v, W, st, j: f[1](W, v['w'], v['w'], st, True), True,
+                         lambda j: (j + 3) * n * isz, lambda j: 2 * (j + 1) * n + 3 * n,
+                         lambda j, v, W, st: torch.addmv(v['w'], W[:j + 1].T, st[L['h2']:L['h2'] + j + 1].to(dtype),
+                                                         alpha=-1)),
+        'gmres_normalize': (lambda f, v, W, st, j: f[2](v['w'], W, v['vcur'], st), False,
+                            lambda j: 3 * n * isz, lambda j: n, None),
+        'gmres_start': (lambda f, v, W, st, j: f[3](v['w'], v['r'], st, m), True,
+                        lambda j: 2 * n * isz, lambda j: 4 * n, None),
+        'gmres_residual': (lambda f, v, W, st, j: f[4](v['b'], v['y'], v['r'], st, m, True), True,
+                           lambda j: 3 * n * isz, lambda j: 3 * n, None),
+        'gmres_solve_combine': (lambda f, v, W, st, j: f[5](W, v['x'], st), False,
+                                lambda j: (j + 2) * n * isz, lambda j: 2 * j * n + j * j,
+                                lambda j, v, W, st: torch.addmv(v['x'], W[:j].T, st[L['y']:L['y'] + j].to(dtype))),
+    }
+    kernels = (gmres.gmres_project, gmres.gmres_update, gmres.gmres_normalize, gmres.gmres_start, gmres.gmres_residual,
+               gmres.gmres_solve_combine)
+    plains = (gmres.project_plain, gmres.update_plain, gmres.normalize_plain, gmres.start_plain, gmres.residual_plain,
+              gmres.solve_combine_plain)
+    results = {}
+    for j in js:
+        for name, (call, stateful, nbytes, flops, lib) in entries.items():
+            if j and name in ('gmres_normalize', 'gmres_start', 'gmres_residual'):
+                continue
+            runs = []
+            for f in (kernels, plains):
+                v = {k: t.clone() for k, t in vec.items()}
+                W = gmres.basis(n, m, dtype, dev)
+                W.copy_(V)
+                st = k6_state(n, j, dtype, dev)
+                call(f, v, W, st, j)
+                torch.cuda.synchronize()
+                runs.append((v, W, st))
+            (vk, Wk, sk), (vp, Wp, sp) = runs
+            errs = [_compare(vk[k], vp[k]) for k in vec] + [_compare(Wk, Wp)]
+            if name == 'gmres_project':
+                errs.append(_compare(sk[L['h2']:L['h2'] + j + 1], sp[L['h2']:L['h2'] + j + 1],
+                                     (V[:j + 1].abs() @ vec['w'].abs()).max()))
+            errs.append(_state_err(sk, sp, regions))
+            err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
+            same = [int(sk.view(torch.int32)[i]) == int(sp.view(torch.int32)[i]) for i in ints]
+            v, W, st = vec, V, k6_state(n, j, dtype, dev)
+            if stateful:
+                ms = stateful_ms(lambda: call(kernels, v, W, st, j), st)
+                plain_ms = stateful_ms(lambda: call(plains, v, W, st, j), st, eager=True)
+            else:
+                ms = time_ms(lambda: call(kernels, v, W, st, j))[0]
+                plain_ms = time_eager_ms(lambda: call(plains, v, W, st, j))
+            lib_ms = time_ms(lambda: lib(j, v, W, st))[0] if lib is not None else None
+            fields = row(err, ms, plain_ms, nbytes(j), flops(j), lib_ms, peak)
+            check_row(name, f'{label} j={j}', dname, relerr, dict(fields, n=n, j=j, restart=m, decisions_equal=all(same)))
+            if not all(same):
+                raise AssertionError(f'{name} ({label}, j={j}) decides otherwise than its plain version')
+            if j == 50 or (j == js[0] and name in ('gmres_normalize', 'gmres_start', 'gmres_residual')):
+                results[name] = fields
+    return results
+
+
+def k10_rows(n, dev, label, dtype):
+    """K10 on BiCGStab vectors of length ``n``: each entry against its plain
+    version on the same state (vectors on their largest value, sums on the
+    scale of their terms, the decisions equal), timed as :func:`k6_rows`
+    times K6; the refresh with its flag set.  Returns {name: row}."""
+    import numpy
+    import torch
+    from nutils_tpu_torch.ops import bicgstab as B
+    dname, isz = str(dtype).split('.')[1], (4 if dtype == torch.float32 else 8)
+    peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
+    rng = numpy.random.default_rng(22)
+    vec = {k: torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+           for k in ('x', 'r', 'phat', 'shat', 's', 't', 'rhat', 'v', 'p', 'b', 'y')}
+    sums = {B.RV: ('rhat', 'v'), B.TT: ('t', 't'), B.TS: ('t', 's'), B.RR: ('r', 'r'), B.RHOR: ('rhat', 'r')}
+    ints = (B.K, B.ACTIVE, B.NEED, B.STALL, B.CLAIMED, B.BREAKDOWN, B.REFRESHES, B.REFUTED, B.BREAKDOWNS)
+    entries = {  # name: (call, state, stateful, vectors moved, operations a value, library call)
+        'bicg_dots': (lambda f, v, st: f[0](v['rhat'], v['v'], None, st, B.RV), {}, False, 2, 2,
+                      lambda v, st: torch.dot(v['rhat'], v['v'])),
+        'bicg_dots/two': (lambda f, v, st: f[0](v['t'], v['t'], v['s'], st, B.TT, B.TS), {}, False, 2, 4, None),
+        'bicg_s': (lambda f, v, st: f[1](v['r'], v['v'], st, v['s']), {}, False, 3, 2,
+                   lambda v, st: torch.addcmul(v['r'], st[B.ALPHA].to(dtype), v['v'], value=-1)),
+        'bicg_xr': (lambda f, v, st: f[2](v['x'], v['r'], v['phat'], v['shat'], v['s'], v['t'], v['rhat'], st), {},
+                    False, 8, 10, None),
+        'bicg_refresh': (lambda f, v, st: f[3](v['b'], v['y'], v['r'], v['rhat'], st), {'need': 1}, True, 4, 5, None),
+        'bicg_p': (lambda f, v, st: f[4](v['p'], v['r'], v['v'], v['rhat'], st), {}, False, 4, 4, None),
+        'bicg_p/breakdown': (lambda f, v, st: f[4](v['p'], v['r'], v['v'], v['rhat'], st), {'breakdown': 1}, False, 4,
+                             0, None),
+    }
+    kernels = (B.bicg_dots, B.bicg_s, B.bicg_xr, B.bicg_refresh, B.bicg_p)
+    plains = (B.dots_plain, B.s_plain, B.xr_plain, B.refresh_plain, B.p_plain)
+    results = {}
+    for name, (call, kw, stateful, nvec, flops, lib) in entries.items():
+        runs = []
+        for f in (kernels, plains):
+            v = {k: t.clone() for k, t in vec.items()}
+            st = k10_state(n, dtype, dev, **kw)
+            call(f, v, st)
+            torch.cuda.synchronize()
+            runs.append((v, st))
+        (vk, sk), (vp, sp) = runs
+        errs = [_compare(vk[k], vp[k]) for k in vec]
+        for slot, (a, b) in sums.items():
+            errs.append(_compare(sk[slot:slot + 1], sp[slot:slot + 1], (vp[a] * vp[b]).abs().sum()))
+        others = [i for i in range(B.RNORM + 1) if i not in sums]
+        errs.append(_compare(sk[others], sp[others]))
+        err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
+        same = all(int(sk.view(torch.int32)[i]) == int(sp.view(torch.int32)[i]) for i in ints)
+        v, st = vec, k10_state(n, dtype, dev, **kw)
+        if stateful:
+            ms = stateful_ms(lambda: call(kernels, v, st), st)
+            plain_ms = stateful_ms(lambda: call(plains, v, st), st, eager=True)
+        else:
+            ms = time_ms(lambda: call(kernels, v, st))[0]
+            plain_ms = time_eager_ms(lambda: call(plains, v, st))
+        lib_ms = time_ms(lambda: lib(v, st))[0] if lib is not None else None
+        fields = row(err, ms, plain_ms, nvec * n * isz, flops * n, lib_ms, peak)
+        check_row(name, label, dname, relerr, dict(fields, n=n, decisions_equal=same))
+        if not same:
+            raise AssertionError(f'{name} ({label}, {dname}) decides otherwise than its plain version')
+        if '/' not in name:
+            results[name] = fields
+    return results
+
+
 def phase_ns_kernels(jac, k5_setup):
     """K5-K7 against their plain versions at the Navier-Stokes step's shapes
     (its block-grid operator and K5's plan, whose host and pack times
@@ -1221,7 +1466,6 @@ def phase_ns_kernels(jac, k5_setup):
     returns {name: row} in float32."""
     import numpy
     import torch
-    from nutils_tpu_torch.ops import _triton_gmres as tgm
     from nutils_tpu_torch.ops import blockgrid
     rng = numpy.random.default_rng(1)
     results = {}
@@ -1277,49 +1521,7 @@ def phase_ns_kernels(jac, k5_setup):
         if dtype == torch.float32:
             results['schur_diag_inverse_device'] = fields
     # K6 on GMRES(100) vectors of the step's length, float32
-    dtype = torch.float32
-    V = torch.as_tensor(rng.standard_normal((101, n)), dtype=dtype, device=dev)
-    wv, xv = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev) for _ in range(2))
-    hn = torch.linalg.norm(wv)
-    eps = torch.tensor(1e-30, dtype=dtype, device=dev)
-    out1, out2 = torch.empty_like(wv), torch.empty_like(wv)
-    for j in (0, 50, 99):
-        h = torch.as_tensor(rng.standard_normal(j + 1) / n ** 0.5, dtype=dtype, device=dev)
-        w1, w2, x1, x2 = wv.clone(), wv.clone(), xv.clone(), xv.clone()
-        n1, n2 = tgm.gmres_update(V, j, h, w1), tgm.update_plain(V, j, h, w2)
-        proj, proj_plain = tgm.gmres_project(V, j, wv), tgm.project_plain(V, j, wv)
-        torch.cuda.synchronize()
-        scale = float((V[:j + 1].abs() @ wv.abs()).max())
-        compared = {
-            'gmres_project': [(proj, proj_plain, scale)],
-            'gmres_update': [(w1, w2, None), (n1, n2, None)],
-            'gmres_normalize': [(tgm.gmres_normalize(wv, hn, eps, out1), tgm.normalize_plain(wv, hn, eps, out2),
-                                 None)],
-            'gmres_combine': [(tgm.gmres_combine(V, j + 1, h, x1), tgm.combine_plain(V, j + 1, h, x2), None)],
-        }
-        timed = {
-            'gmres_project': (lambda: tgm.gmres_project(V, j, wv), lambda: tgm.project_plain(V, j, wv),
-                              (j + 2) * n + j + 1, 2 * (j + 1) * n, lambda: torch.mv(V[:j + 1], wv)),
-            'gmres_update': (lambda: tgm.gmres_update(V, j, h, w1), lambda: tgm.update_plain(V, j, h, w2),
-                             (j + 3) * n + j + 1, 2 * (j + 2) * n,
-                             lambda: torch.addmv(w2, V[:j + 1].T, h, alpha=-1)),
-            'gmres_normalize': (lambda: tgm.gmres_normalize(wv, hn, eps, out1),
-                                lambda: tgm.normalize_plain(wv, hn, eps, out2), 2 * n, n, None),
-            'gmres_combine': (lambda: tgm.gmres_combine(V, j + 1, h, x1), lambda: tgm.combine_plain(V, j + 1, h, x2),
-                              (j + 3) * n + j + 1, 2 * (j + 1) * n + n,
-                              lambda: torch.addmv(x2, V[:j + 1].T, h)),
-        }
-        for name, triples in compared.items():
-            if name == 'gmres_normalize' and j:
-                continue
-            errs = [_compare(got, want, sc) for got, want, sc in triples]
-            err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
-            kernel, plain, nvals, flops, lib = timed[name]
-            (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
-            fields = row(err, ms, plain_ms, nvals * 4, flops, time_ms(lib)[0] if lib is not None else None)
-            check_row(name, f'ns j={j}', 'float32', relerr, dict(fields, n=n, j=j, call_ms=call_ms))
-            if j == 50 or name == 'gmres_normalize':
-                results[name] = fields
+    results.update(k6_rows(n, dev, 'ns'))
     return results
 
 
@@ -1517,7 +1719,7 @@ def phase_ns_tri(nelems=330, device='cuda'):
             t_solve, dx = _sync_time(lambda: jac.solve_leniently(res, solver=method, rtol=1e-3))
             stats = dict(jac._solve_stats)
             t_solve_again, _dx = _sync_time(lambda: jac.solve_leniently(res, solver=method, rtol=1e-3))
-            solves[method] = dx, stats, t_solve, t_solve_again
+            solves[method] = dx, stats, t_solve, t_solve_again, dict(jac._solve_stats)
         launches = read_launches(TRI_KERNELS)
         peak = torch.cuda.max_memory_allocated()
         # the residual's rows with no slice plan sum through K8 in a fixed
@@ -1535,10 +1737,14 @@ def phase_ns_tri(nelems=330, device='cuda'):
         raise AssertionError(f'triangle step: residual K8 launches {residual_k8}, bitwise equal {bitwise}')
     norm_res = float(numpy.linalg.norm(res))
     out = {}
-    for method, (dx, stats, t_solve, t_solve_again) in solves.items():
+    for method, (dx, stats, t_solve, t_solve_again, warm_stats) in solves.items():
         rel_residual = float(numpy.linalg.norm(res - jac @ dx)) / norm_res
         out[method] = dict(t_solve=t_solve, t_solve_again=t_solve_again, solve_stats=stats,
-                           rel_residual=rel_residual)
+                           warm_solve_stats=warm_stats, rel_residual=rel_residual)
+        check_driver(f'ns_tri {method}', stats)
+        check_driver(f'ns_tri {method} warm', warm_stats)
+        if warm_stats['iters'] != stats['iters']:
+            raise AssertionError(f'triangle step ({method}): {stats["iters"]} and {warm_stats["iters"]} iterations')
         if dx.shape != (ndofs,) or not numpy.isfinite(dx).all():
             raise AssertionError(f'triangle step ({method}): the solution is not a finite vector of the dof count')
         want = {'method': method, 'op_form': 'csr', 'precon': 'diag', 'accepted_on_device': True}
@@ -1561,7 +1767,6 @@ def phase_ns_tri_kernels(system, jac):
     vectors of its length); returns {name: row} in float32."""
     import numpy
     import torch
-    from nutils_tpu_torch.ops import _triton_bicgstab as tbi
     from nutils_tpu_torch.ops import sparse
     rng = numpy.random.default_rng(2)
     results = {}
@@ -1629,61 +1834,10 @@ def phase_ns_tri_kernels(system, jac):
         if dtype == torch.float32:
             results['schur_diag_inverse_device[csr]'] = fields
         del data, values
-        # K10 on BiCGStab vectors of the step's length; sums compared on the
-        # scale of their terms, the rest on their largest value
-        x, r, phat, shat, s, t, rhat, v, p = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
-                                              for _ in range(9))
-        sc = tbi.scalars(dtype, dev)
-        sc[:tbi.EPS] = torch.as_tensor(rng.random(tbi.EPS) + 0.5, dtype=dtype, device=dev)
-
-        def both(kernel, plain, *args):
-            a = [u.clone() if isinstance(u, torch.Tensor) else u for u in args]
-            b = [u.clone() if isinstance(u, torch.Tensor) else u for u in args]
-            kernel(*a)
-            plain(*b)
-            torch.cuda.synchronize()
-            return a, b
-        checks = {}
-        a, b = both(tbi.bicg_dots, tbi.dots_plain, rhat, v, None, sc, tbi.RV)
-        checks['bicg_dots'] = [(a[3], b[3], (rhat * v).abs().sum())]
-        a, b = both(tbi.bicg_dots, tbi.dots_plain, t, t, s, sc, tbi.TT, tbi.TS)
-        checks['bicg_dots/two'] = [(a[3], b[3], (t * t).sum() + (t * s).abs().sum())]
-        a, b = both(tbi.bicg_s, tbi.s_plain, r, v, sc, s, tbi.RHO[0])
-        checks['bicg_s'] = [(a[3], b[3], None), (a[2], b[2], None)]
-        a, b = both(tbi.bicg_xr, tbi.xr_plain, x, r, phat, shat, s, t, rhat, sc)
-        checks['bicg_xr'] = [(a[0], b[0], None), (a[1], b[1], None), (a[7][:tbi.RR], b[7][:tbi.RR], None),
-                             (a[7], b[7], (a[1] * a[1]).sum() + (a[1] * rhat).abs().sum())]
-        a, b = both(tbi.bicg_p, tbi.p_plain, p, r, v, rhat, sc, False, *tbi.RHO)
-        checks['bicg_p'] = [(u, w, None) for u, w in zip(a[:5], b[:5])]
-        a, b = both(tbi.bicg_p, tbi.p_plain, p, r, v, rhat, sc, True, *tbi.RHO)
-        checks['bicg_p/breakdown'] = [(u, w, None) for u, w in zip(a[:5], b[:5])]
-        sc1, sc2, x1, x2, r1, r2, p1, p2 = sc.clone(), sc.clone(), x.clone(), x.clone(), r.clone(), r.clone(), \
-            p.clone(), p.clone()
-        timed = {  # kernel, plain, vectors moved, operations, library call
-            'bicg_dots': (lambda: tbi.bicg_dots(rhat, v, None, sc1, tbi.RV),
-                          lambda: tbi.dots_plain(rhat, v, None, sc2, tbi.RV), 2, 2, lambda: torch.dot(rhat, v)),
-            'bicg_dots/two': (lambda: tbi.bicg_dots(t, t, s, sc1, tbi.TT, tbi.TS),
-                              lambda: tbi.dots_plain(t, t, s, sc2, tbi.TT, tbi.TS), 2, 4, None),
-            'bicg_s': (lambda: tbi.bicg_s(r, v, sc1, s, tbi.RHO[0]),
-                       lambda: tbi.s_plain(r, v, sc2, s, tbi.RHO[0]), 3, 2,
-                       lambda: torch.addcmul(r, sc1[tbi.ALPHA], v, value=-1)),
-            'bicg_xr': (lambda: tbi.bicg_xr(x1, r1, phat, shat, s, t, rhat, sc1),
-                        lambda: tbi.xr_plain(x2, r2, phat, shat, s, t, rhat, sc2), 8, 10, None),
-            'bicg_p': (lambda: tbi.bicg_p(p1, r, v, rhat, sc1, False, *tbi.RHO),
-                       lambda: tbi.p_plain(p2, r, v, rhat, sc2, False, *tbi.RHO), 4, 4, None),
-            'bicg_p/breakdown': (lambda: tbi.bicg_p(p1, r, v, r1, sc1, True, *tbi.RHO),
-                                 lambda: tbi.p_plain(p2, r, v, r2, sc2, True, *tbi.RHO), 4, 0, None),
-        }
-        for name, triples in checks.items():
-            errs = [_compare(got, want, scale) for got, want, scale in triples]
-            err, relerr = max(e[0] for e in errs), max(e[1] for e in errs)
-            kernel, plain, nvec, flops, lib = timed[name]
-            (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
-            fields = row(err, ms, plain_ms, nvec * n * isz, flops * n,
-                         time_ms(lib)[0] if lib is not None else None)
-            check_row(name, 'ns_tri', dname, relerr, dict(fields, n=n, call_ms=call_ms))
-            if dtype == torch.float32 and '/' not in name:
-                results[name] = fields
+        # K10 on BiCGStab vectors of the step's length
+        rows = k10_rows(n, dev, 'ns_tri', dtype)
+        if dtype == torch.float32:
+            results.update(rows)
     return results
 
 
@@ -1837,6 +1991,7 @@ def phase_laplace_example(nelems=2048):
     want = {'method': 'gmres', 'op_form': 'stencil', 'precon': 'mg', 'accepted_on_device': True}
     if any(stats.get(k) != v for k, v in want.items()):
         raise AssertionError(f'Laplace example solved through {stats}, expected {want}')
+    check_driver('laplace_example', stats)
     # four times the O(h^2) estimate from the example's own regression at 4
     # elements (1.63e-3): 2.5e-8 at 2048
     if not err < 4 * 1.63e-3 * (4 / nelems) ** 2:
@@ -2044,6 +2199,8 @@ def phase_ns_newton(nelems=330):
     host = [it['solve_stats'] for it in iterations[:-1] if not it['solve_stats']['accepted_on_device']]
     if host:
         raise AssertionError(f'Newton\'s inner solves left the device: {host}')
+    for k, it in enumerate(iterations[:-1]):
+        check_driver(f'ns_newton iteration {k}', it['solve_stats'])
 
 
 @contextlib.contextmanager
@@ -2760,6 +2917,98 @@ def finitestrain_only():
     emit('done', seconds=time.perf_counter() - t0)
 
 
+KRYLOV_N = 983403  # the Navier-Stokes step's dofs, both meshes
+
+
+def krylov_turn_rows(n, dev, package):
+    """K6's normalize, its projection and second update at j = 50, and
+    K10's ``rhat . v`` on float32 vectors of length ``n``, timed from CUDA
+    graphs, in the form ``package`` has: ``'cuda'`` (this tree's kernels on
+    their device state; the update with the step's scalars, its state
+    restored before each call) or ``'triton'`` (a checkout whose K6 and K10
+    are Triton, ``ops/_triton_gmres.py`` and ``ops/_triton_bicgstab.py``)."""
+    import numpy
+    import torch
+    dtype = torch.float32
+    rng = numpy.random.default_rng(23)
+    j, m = 50, K6_RESTART
+    w, rhat, v = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev) for _ in range(3))
+    Vvals = torch.as_tensor(rng.standard_normal((m + 1, n)) / n ** 0.5, dtype=dtype, device=dev)
+    if package == 'cuda':
+        from nutils_tpu_torch.ops import bicgstab, gmres
+        V = gmres.basis(n, m, dtype, dev)
+        V.copy_(Vvals)
+        vcur = torch.empty_like(w)
+        st = k6_state(n, j, dtype, dev)
+        sb = k10_state(n, dtype, dev)
+        return {'gmres_normalize': time_ms(lambda: gmres.gmres_normalize(w, V, vcur, st))[0],
+                'gmres_project': time_ms(lambda: gmres.gmres_project(V, w, st, True))[0],
+                'gmres_update': stateful_ms(lambda: gmres.gmres_update(V, w, w, st, True), st),
+                'bicg_dots': time_ms(lambda: bicgstab.bicg_dots(rhat, v, None, sb, bicgstab.RV))[0]}
+    from nutils_tpu_torch.ops import _triton_bicgstab as tbi
+    from nutils_tpu_torch.ops import _triton_gmres as tgm
+    hn, eps = torch.linalg.norm(w), torch.tensor(1e-30, dtype=dtype, device=dev)
+    out = torch.empty_like(w)
+    h = torch.as_tensor(rng.standard_normal(j + 1) / n ** 0.5, dtype=dtype, device=dev)
+    sc = tbi.scalars(dtype, dev)
+    return {'gmres_normalize': time_ms(lambda: tgm.gmres_normalize(w, hn, eps, out))[0],
+            'gmres_project': time_ms(lambda: tgm.gmres_project(Vvals, j, w))[0],
+            'gmres_update': time_ms(lambda: tgm.gmres_update(Vvals, j, h, w))[0],
+            'bicg_dots': time_ms(lambda: tbi.bicg_dots(rhat, v, None, sc, tbi.RV))[0]}
+
+
+def krylov_only():
+    """``--only krylov``: device, build, :func:`krylov_turn_rows` and the
+    GMRES and BiCGStab solves of the Navier-Stokes step on squares and on
+    triangles at 330 x 330 elements in float32 (983,403 dofs): each
+    method's first solve (in a fresh process: with its Triton compile in a
+    checkout that has one, with its graphs' capture here), three warm
+    solves, and one warm solve under torch.profiler (device-busy share).
+    Copied into another checkout's root and run there, it measures that
+    checkout's kernels and loops the same way, for turns; K5 on the step's
+    operator beside them."""
+    import numpy
+    import torch
+    from nutils_tpu_torch import _kernels
+    from nutils_tpu_torch.utils import config
+    t0 = time.perf_counter()
+    phase_device()
+    _path, seconds, _diag = _kernels.build()
+    _kernels.library()
+    package = 'cuda' if (ROOT / 'nutils_tpu_torch' / 'ops' / 'gmres.py').exists() else 'triton'
+    emit('build', nvcc_seconds=seconds, package=package)
+    emit('krylov_rows', package=package, n=KRYLOV_N, ms=krylov_turn_rows(KRYLOV_N, torch.device('cuda'), package))
+    for path, etype, methods in (('ns', 'square', ('gmres',)), ('ns_tri', 'triangle', TRI_METHODS)):
+        with config.device('cuda'):
+            system, args = build_ns(330, numpy.float32, etype)
+            jac, res = system.assemble_jacobian_residual(args)
+            (kind, *plan), op = jac._device_op()
+            jac._device_precon(None, None)
+            if kind == 'blockgrid':
+                # K5 on the step's operator (its flag, new here, not passed)
+                from nutils_tpu_torch.ops import blockgrid
+                x = torch.as_tensor(numpy.random.default_rng(24).standard_normal(KRYLOV_N), dtype=torch.float32,
+                                    device='cuda')
+                emit('krylov_rows', package=package, n=KRYLOV_N,
+                     ms={'blockgrid_matvec': time_ms(lambda: blockgrid.blockgrid_matvec(op[0], x, plan[0]))[0]})
+            for method in methods:
+                def solve():
+                    return jac.solve_leniently(res, solver=method, rtol=1e-3)
+                t_first, _dx = _sync_time(solve)
+                first = dict(jac._solve_stats)
+                warm = [_sync_time(solve)[0] for _ in range(3)]
+                stats = dict(jac._solve_stats)
+                wall, kernels, _full, _dx = profiled(solve)
+                busy = busy_s(kernels)
+                emit('krylov_solve', package=package, path=path, method=method, t_first=t_first, t_warm=warm,
+                     profiled_wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+                     kernel_launches=sum(e.count for e in kernels), iters=stats['iters'], rounds=stats['rounds'],
+                     first_stats=first, stats=stats)
+        del system, jac, res
+        torch.cuda.empty_cache()
+    emit('done', seconds=time.perf_counter() - t0)
+
+
 def kernels_only():
     """``--only kernels``: kernel rows alone, without the solves: K3 at the
     slice's, the example's and the finite-strain grids, K1 at the slice's,
@@ -2783,7 +3032,8 @@ def kernels_only():
     phase_kernels(cases=kernel_cases({'slice': ('stencil', 'transfers'), 'periodic': ('stencil',),
                                       'example': ('stencil', 'transfers'),
                                       'finitestrain': ('stencil', 'fused', 'transfers'),
-                                      **{label: ('stencil', 'fused') for label, _s in FINITESTRAIN_LEVELS}}),
+                                      **{label: ('stencil', 'fused') + (('transfers',) if shape[0] > 91 else ())
+                                         for label, shape in FINITESTRAIN_LEVELS}}),
                   k4=False)
     torch.cuda.empty_cache()
     with config.device('cuda'):
@@ -2881,9 +3131,11 @@ def main():
         return assemble_only()
     if sys.argv[1:] == ['--only', 'finitestrain']:
         return finitestrain_only()
+    if sys.argv[1:] == ['--only', 'krylov']:
+        return krylov_only()
     if sys.argv[1:]:
-        raise SystemExit(f'chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --only kernels, --only assemble or '
-                         '--only finitestrain)')
+        raise SystemExit(f'chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --only kernels, --only assemble, '
+                         '--only finitestrain or --only krylov)')
     t0 = time.perf_counter()
     phase_device()
     phase_build()
@@ -2920,8 +3172,7 @@ def main():
     by_path['ns_tri'] = {name: tri_launches[name] for name in ASSEMBLY_KERNELS}
     # the kernels new on the triangle path count its launches; K7's CSR
     # variant is the same wrapper, read on that path
-    launches.update({name: tri_launches[name] for name in ('csr_scatter', 'csr_matvec', 'bicg_dots', 'bicg_s',
-                                                           'bicg_xr', 'bicg_p')})
+    launches.update({name: tri_launches[name] for name in ('csr_scatter', 'csr_matvec') + BICGSTAB_KERNELS})
     launches['schur_diag_inverse_device[csr]'] = tri_launches['schur_diag_inverse_device']
     example_launches, system, clean, w0, r0 = phase_laplace_example()
     phase_laplace_example_chunks(system, clean, w0, r0)
@@ -2961,6 +3212,12 @@ def main():
         measured[name] = dict(measured[name], launches_by_path=by)
     for name in FORM_KERNELS:
         measured[name]['launches_by_form'] = {path: forms[name] for path, forms in FORMS_BY_PATH.items()}
+    # K6: launches summed over the paths that run GMRES, each path's beside
+    # them
+    for name in GMRES_KERNELS:
+        by = {'ns': ns_launches[name], 'ns_tri': tri_launches[name], 'laplace_example': example_launches[name]}
+        launches[name] = sum(by.values())
+        measured[name] = dict(measured[name], launches_by_path=by)
     # K11 and K12: launches summed over the paths' runs, each path's beside
     # them; their float64 measurements on one of the example's element
     # chunks, written in place, and on the elasticity example's block,

@@ -14,7 +14,6 @@ structured Laplace solve:
   L5 solver      System: localized-AD assembly straight into stencil weights
   ops/           stencil matvec, multigrid cycle, CG and the other Krylov
                  solvers; their kernels in csrc/ (CUDA, built by _kernels.py)
-                 and ops/_triton_*.py (Triton)
 '''
 
 __version__ = '0.1.0'

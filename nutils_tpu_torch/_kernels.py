@@ -1,20 +1,18 @@
 '''Build, load and launch of the hand-written CUDA kernels.
 
 K1 (``csrc/stencil.cu``), K2 and K3 (``csrc/mg.cu``), K4 (``csrc/cg.cu``),
-K5 (``csrc/blockgrid.cu``), K7 (``csrc/schur.cu``), K8
-(``csrc/csr_scatter.cu``), K9 (``csrc/csr_spmv.cu``), K11 and K12
-(``csrc/assembly.cu``), K13 (``csrc/block_jacobi.cu``), K14
-(``csrc/masked.cu``) and K15 (``csrc/value.cu``) compile with
-``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together, and
-link into one shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at first use, into
-``build/nutils_tpu_torch/<hash of the sources and flags>/`` at the root of
-the checkout, so a change of any source rebuilds.  Every C entry point
-launches on the stream it is given (PyTorch's current stream), allocates
-nothing, and returns ``cudaGetLastError()``; :func:`launch` and :func:`call`
-turn a nonzero code into an exception.  K6 and K10 are Triton and compile
-through Triton's own cache (``ops/_triton_gmres.py``,
-``ops/_triton_bicgstab.py``).
+K5 (``csrc/blockgrid.cu``), K6 (``csrc/gmres.cu``), K7 (``csrc/schur.cu``),
+K8 (``csrc/csr_scatter.cu``), K9 (``csrc/csr_spmv.cu``), K10
+(``csrc/bicgstab.cu``), K11 and K12 (``csrc/assembly.cu``), K13
+(``csrc/block_jacobi.cu``), K14 (``csrc/masked.cu``) and K15
+(``csrc/value.cu``) compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and link into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build happens at first use,
+into ``build/nutils_tpu_torch/<hash of the sources and flags>/`` at the
+root of the checkout, so a change of any source rebuilds.  Every C entry
+point launches on the stream it is given (PyTorch's current stream),
+allocates nothing, and returns ``cudaGetLastError()``; :func:`launch` and
+:func:`call` turn a nonzero code into an exception.
 
 Each CUDA wrapper counts its launches (:func:`counted`); a :class:`Graph`
 captured from code that calls the wrappers adds, at each replay, what the
@@ -43,6 +41,7 @@ _I64x4 = ctypes.c_int64 * 4
 _I32x4 = ctypes.c_int * 4
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _PI64 = ctypes.POINTER(ctypes.c_int64)
 _PI32 = ctypes.POINTER(ctypes.c_int)
 _SIG = {
@@ -56,7 +55,7 @@ _SIG = {
     'ntt_cg_dot': (_I, _P, _P, _P, _I, _I, _I, _I, _P),
     'ntt_cg_step': (_I, _P, _P, _P, _P, _P, _I, _I, _P),
     'ntt_cg_xpby': (_I, _P, _P, _P, _I, _I, _P),
-    'ntt_blockgrid_matvec': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    'ntt_blockgrid_matvec': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     'ntt_schur_diag': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_double, _P),
     'ntt_csr_scatter': (_I, _P, _P, _P, _P, _I, _P),
     'ntt_csr_spmv': (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
@@ -67,6 +66,17 @@ _SIG = {
     'ntt_mask_post': (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     'ntt_elem_value': (_I, _P, _P, ctypes.c_int64, _I, _I, _P),
     'ntt_elem_value_sum': (_I, _P, _P, _P, _I, _P),
+    'ntt_gmres_project': (_I, _P, _P, _P, _L, _I, _I, _I, _P),
+    'ntt_gmres_update': (_I, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    'ntt_gmres_normalize': (_I, _P, _P, _P, _P, _L, _I, _I, _P),
+    'ntt_gmres_start': (_I, _P, _P, _P, _I, _I, _P),
+    'ntt_gmres_residual': (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    'ntt_gmres_solve_combine': (_I, _P, _P, _P, _L, _I, _I, _P),
+    'ntt_bicg_dots': (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'ntt_bicg_s': (_I, _P, _P, _P, _P, _I, _P),
+    'ntt_bicg_xr': (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    'ntt_bicg_refresh': (_I, _P, _P, _P, _P, _P, _I, _P),
+    'ntt_bicg_p': (_I, _P, _P, _P, _P, _P, _I, _P),
 }
 
 

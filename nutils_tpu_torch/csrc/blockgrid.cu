@@ -64,7 +64,11 @@ __global__ void __launch_bounds__(ROWS)
     blockgrid_matvec_kernel(const T* __restrict__ v, const T* __restrict__ x, T* __restrict__ y,
                             const int* __restrict__ rows, const int* __restrict__ ctab,
                             const int* __restrict__ stab, const int2* __restrict__ slots,
-                            const int* __restrict__ btab, const int* __restrict__ tiles) {
+                            const int* __restrict__ btab, const int* __restrict__ tiles,
+                            const int* __restrict__ active) {
+  // the loop's flag, read with the class's tables and tested after them, so
+  // the two latencies overlap
+  const int live = active ? *active : 1;
   __shared__ int s_delta[MAX_SLOTS];
   __shared__ int s_shift[MAX_SLOTS];
   __shared__ int s_blk[MAX_SEGMENTS][BCOLS];
@@ -95,7 +99,7 @@ __global__ void __launch_bounds__(ROWS)
   }
   __syncthreads();
   const int i = (blockIdx.x - C[C_TILE0]) * ROWS + threadIdx.x;
-  if (i >= nrows) return;
+  if (!live || i >= nrows) return;
   const int g = rows[C[C_ROW0] + i];
   const T* vp = v + C[C_VBASE] + i;
   T total = T(0);
@@ -155,20 +159,22 @@ __global__ void __launch_bounds__(ROWS)
 
 extern "C" {
 
-// dtype: 0 float32, 1 float64.  Returns cudaGetLastError() after the launch.
+// dtype: 0 float32, 1 float64; active: a Krylov loop's flag (null: not a
+// predicated loop), y is left unwritten while it is 0.  Returns
+// cudaGetLastError() after the launch.
 int ntt_blockgrid_matvec(int dtype, const void* v, const void* x, void* y, const void* rows, const void* ctab,
-                         const void* stab, const void* slots, const void* btab, const void* tiles, int ntiles,
-                         void* stream) {
+                         const void* stab, const void* slots, const void* btab, const void* tiles, const int* active,
+                         int ntiles, void* stream) {
   if (ntiles == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     ntt_bg::blockgrid_matvec_kernel<float><<<ntiles, ntt_bg::ROWS, 0, s>>>(
         (const float*)v, (const float*)x, (float*)y, (const int*)rows, (const int*)ctab, (const int*)stab,
-        (const int2*)slots, (const int*)btab, (const int*)tiles);
+        (const int2*)slots, (const int*)btab, (const int*)tiles, active);
   else
     ntt_bg::blockgrid_matvec_kernel<double><<<ntiles, ntt_bg::ROWS, 0, s>>>(
         (const double*)v, (const double*)x, (double*)y, (const int*)rows, (const int*)ctab, (const int*)stab,
-        (const int2*)slots, (const int*)btab, (const int*)tiles);
+        (const int2*)slots, (const int*)btab, (const int*)tiles, active);
   return (int)cudaGetLastError();
 }
 

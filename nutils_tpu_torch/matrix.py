@@ -740,8 +740,8 @@ class Matrix:
             method, mv_kind, op, b64, target=target, maxiter=cap, restart=restart,
             minv=minv, precon=kind, op64=op64, stats=driver)
         # attribution record for benches/logs: which operator form, precon
-        # and iteration counts this solve used, and how its loop ran (for
-        # CG: graphs or host loop, the chunk, replays and host reads)
+        # and iteration counts this solve used, and how its loop ran (graphs
+        # or host loop, the chunk, replays, host reads, capture time)
         self._solve_stats = {
             'method': method,
             'op_form': mv_kind[0],

@@ -660,22 +660,25 @@ def compact_matvec_plain(v, x, plan):
     return y
 
 
-def blockgrid_matvec(v, x, plan):
+def blockgrid_matvec(v, x, plan, active=None):
     '''y = A x for the block-grid operator whose compact operand is ``v``
     (:func:`pack` of its weights) and flat ``x``: kernel K5
     (``csrc/blockgrid.cu``), replacing the device work of
     ``nutils_tpu.ops.blockgrid._matvec_fn``.  It reads each of the
     operator's values once, the row list once, ``x`` through L2 and writes
-    ``y`` once, with no atomics.  Tensors on the CPU take
-    :func:`matvec_plain`, the literal port, on the weights that ``v``
-    unpacks to; a CUDA tensor launches the kernel or raises.'''
+    ``y`` once, with no atomics.  ``active`` (int32, a Krylov loop's flag)
+    makes the kernel do nothing while it is 0; ``y`` is then left
+    unwritten.  Tensors on the CPU take :func:`matvec_plain`, the literal
+    port, on the weights that ``v`` unpacks to; a CUDA tensor launches the
+    kernel or raises.'''
     if x.device.type == 'cpu':
         return matvec_plain(unpack(v, plan), x, plan.meta, plan.woff)
     _kernels.check_operands('blockgrid_matvec', x, (plan.n,), x.dtype, v=(v, (plan.nv,)))
+    _kernels.check_flag('blockgrid_matvec', active, x)
     t = plan.tables(x.device)
     y = torch.empty_like(x)
     _kernels.call('ntt_blockgrid_matvec', x, [v, x, y, t['rows'], t['ctab'], t['stab'], t['slots'], t['btab'],
-                                              t['tiles']], scalars=(len(plan.tiles),))
+                                              t['tiles'], active], scalars=(len(plan.tiles),))
     blockgrid_matvec.launches += 1
     return y
 

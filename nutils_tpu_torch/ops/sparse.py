@@ -5,7 +5,8 @@ assembly, and the Schur-aware inverse diagonal.
 
 The CG, GMRES and BiCGStab parts of ``nutils_tpu.ops.sparse`` with their
 exact semantics.  The JAX package runs the loops as ``lax.while_loop``; here
-they are Python loops over device tensors.
+the loops' decisions run on the device too, and the host reads their state
+between chunks of iterations.
 
 * CG: a true-residual refresh every 64 iterations and whenever the recursion
   claims convergence, a stall exit after four refreshes without 1%
@@ -20,16 +21,20 @@ they are Python loops over device tensors.
   against.
 * GMRES: CGS2 orthogonalization, Givens rotations, a triangular solve, true-
   residual restarts and a stall exit after five restarts without 0.1%
-  progress.  The Arnoldi vector work is kernel K6
-  (``ops/_triton_gmres.py``); each inner iteration reads the new Hessenberg
-  column (j + 2 values) and does the rotations on the host in the working
-  dtype, and each restart solves the small triangular system there.
+  progress.  The Arnoldi vector work, the rotations, the solve and the
+  tests run on the device on a state (kernel K6, ``ops/gmres.py``) whose
+  inner flag stops the Arnoldi steps and whose outer flag stops the
+  cycles; the host reads it once a chunk of steps and once a cycle end.
 * BiCGStab: two matvecs and two preconditioner applies an iteration, the
   CG driver's refresh and stall discipline, and a restart of the recurrence
   from the true residual on a rho or omega breakdown or a refuted claim.
-  The scalars stay on the device; each iteration reads three of them
-  (omega, |r|^2, rhat . r) for the exit, refresh and breakdown tests.
-  Vector work: kernel K10 (``ops/_triton_bicgstab.py``).
+  The vector work, the scalars, the refresh (its matvec predicated on the
+  state's refresh flag) and every test run on the device on a state
+  (kernel K10, ``ops/bicgstab.py``); the host reads it once a chunk.
+* On the card the three loops replay CUDA graphs (a start, a chunk of
+  iterations or steps, and CG's refresh or GMRES's cycle end); the host
+  loop (one iteration a read) is the plain driver, the CPU's, and on the
+  card the reference the graphs are held against.
 * The Schur-aware inverse diagonal is kernel K7 (``csrc/schur.cu``,
   :func:`schur_diag_inverse_device`).
 
@@ -54,11 +59,12 @@ import torch
 from .. import _kernels
 from . import blockgrid as _bg
 from . import cg as _cg
+from . import _state
 from . import mg as _mg
 from . import precon as _precon
 from . import stencil as _st
-from . import _triton_bicgstab as _bicg
-from ._triton_gmres import gmres_combine, gmres_normalize, gmres_project, gmres_update
+from . import bicgstab as _bi
+from . import gmres as _gm
 
 
 def schur_diag_inverse(data, indices, indptr, n, weak_rel=1e-3):
@@ -412,7 +418,7 @@ def _make_matvec(mv_kind):
 
         def mv(op, x, active=None):
             (v,) = op
-            return _bg.blockgrid_matvec(v, x, plan)
+            return _bg.blockgrid_matvec(v, x, plan, active)
         return mv
     if mv_kind[0] == 'csr':
         def mv(op, x, active=None):
@@ -482,69 +488,244 @@ class _CGLoop:
         _cg.cg_dot(self.r, z, self.st, _cg.RZ)
         _cg.cg_xpby(self.p, z, self.st)
 
+    def reset(self, atol, maxiter):
+        _cg.reset(self.st, atol, maxiter)
 
-def _cg_loop(loop, atol, maxiter, start, chunk, refresh, stats):
-    '''The host's part of a CG solve: after ``start()``, run ``chunk()``
-    (iterations that stop themselves) and read the state, run ``refresh()``
-    where the state asks for one and read it again, and decide the stall
-    and the exit with the JAX package's expressions.  Returns (rnorm, k).'''
-    _cg.reset(loop.st, atol, maxiter)
-    start()
-    stall = 0
-    lastres = None
-    while True:
-        chunk()
-        k, reason, rr, rr0 = _cg.read(loop.st)
-        stats['host_reads'] += 1
-        stats['chunks'] = stats.get('chunks', 0) + 1
-        if lastres is None:
-            rnorm = lastres = _cg.norm(rr0)
-        if reason == _cg.START:
-            return rnorm, k
-        if reason in (_cg.CLAIMED, _cg.SCHEDULED):
-            refresh()
-            rnorm = _cg.norm(_cg.read(loop.st)[2])
+    def pieces(self, c):
+        return {'start': self.start, 'chunk': lambda: self.iterations(c), 'refresh': self.refresh}
+
+    def warm(self):
+        return self.start, self.iteration, self.refresh
+
+    def run(self, pieces, atol, maxiter, stats):
+        '''The host's part of a CG solve: after the start, run a chunk of
+        iterations (which stop themselves) and read the state, run the
+        refresh where the state asks for one and read it again, and decide
+        the stall and the exit with the JAX package's expressions.  Returns
+        (rnorm, k).'''
+        self.reset(atol, maxiter)
+        pieces['start']()
+        stall = 0
+        lastres = None
+        while True:
+            pieces['chunk']()
+            k, reason, rr, rr0 = _cg.read(self.st)
             stats['host_reads'] += 1
-            stats['refreshes'] = stats.get('refreshes', 0) + 1
-            if reason == _cg.CLAIMED and not rnorm <= atol:
-                stats['refuted'] = stats.get('refuted', 0) + 1
-            # stagnating refreshes end the loop
-            stall = stall + 1 if rnorm > 0.99 * lastres else 0
-            lastres = rnorm
-        else:
-            rnorm = _cg.norm(rr)
-        if not (rnorm > atol and k < maxiter and stall < 4):
-            return rnorm, k
+            stats['chunks'] = stats.get('chunks', 0) + 1
+            if lastres is None:
+                rnorm = lastres = _cg.norm(rr0)
+            if reason == _cg.START:
+                return rnorm, k
+            if reason in (_cg.CLAIMED, _cg.SCHEDULED):
+                pieces['refresh']()
+                rnorm = _cg.norm(_cg.read(self.st)[2])
+                stats['host_reads'] += 1
+                stats['refreshes'] = stats.get('refreshes', 0) + 1
+                if reason == _cg.CLAIMED and not rnorm <= atol:
+                    stats['refuted'] = stats.get('refuted', 0) + 1
+                # stagnating refreshes end the loop
+                stall = stall + 1 if rnorm > 0.99 * lastres else 0
+                lastres = rnorm
+            else:
+                rnorm = _cg.norm(rr)
+            if not (rnorm > atol and k < maxiter and stall < 4):
+                return rnorm, k
 
 
-class _CGGraphs:
-    '''A :class:`_CGLoop` whose start, chunk of ``chunk`` iterations and
-    refresh are captured as CUDA graphs (after one eager warm-up of every
-    piece on a side stream: first calls upload tables and load kernels).'''
+# ------------------------------------------------------------ GMRES(m)
 
-    def __init__(self, precon_kind, mv_kind, op, minv, b, chunk, atol, maxiter):
+# Arnoldi steps a chunk graph holds on the card: the host reads the state
+# once a chunk and once a cycle end
+GMRES_CHUNK = 8
+
+
+class _GMRESLoop:
+    '''The buffers of one GMRES(m) solve (right-hand side ``b``, ``x``,
+    ``r``, ``w``, ``vcur``, the basis ``V`` and the K6 state) and the loop's
+    three pieces over them, each of which only launches work.  The step's
+    matvec and preconditioner take the state's inner flag, the cycle end's
+    its outer flag, so a step after the inner loop has stopped, or a cycle
+    end after the outer one has, costs empty launches.'''
+
+    def __init__(self, precon_kind, mv_kind, m, op, minv, b):
+        self.apply_m = _precon_apply(precon_kind)
+        self.matvec = _make_matvec(mv_kind)
+        self.op, self.minv, self.m = op, minv, m
+        self.b = b
+        n = b.shape[0]
+        self.x, self.r, self.w, self.vcur = (torch.empty_like(b) for _ in range(4))
+        self.V = _gm.basis(n, m, b.dtype, b.device)
+        self.st = _gm.new_state(n, m, b.dtype, b.device)
+        self.inner, self.active = _gm.inner_flag(self.st), _gm.active_flag(self.st)
+
+    def _cycle(self):
+        '''A cycle's start from r: z = M r, beta, rn, inner_tol and V[0].'''
+        z = self.apply_m(self.minv, self.r, self.active)
+        _gm.gmres_start(z, self.r, self.st, self.m)
+        _gm.gmres_normalize(z, self.V, self.vcur, self.st, first=True)
+
+    def start(self):
+        '''x = 0, r = b, resnorm = |b| with the entry test, and the first
+        cycle's start.'''
+        self.x.zero_()
+        _gm.gmres_residual(self.b, None, self.r, self.st, self.m, first=True)
+        self._cycle()
+
+    def step(self):
+        '''One Arnoldi step of ``nutils_tpu.ops.sparse._gmres_driver``'s inner
+        body: w = M A V[j], CGS2 against V[:j+1], the rotations and V[j+1];
+        it stops the inner loop at j = m or res <= inner_tol.'''
+        src = self.apply_m(self.minv, self.matvec(self.op, self.vcur, self.inner), self.inner)
+        _gm.gmres_project(self.V, src, self.st)
+        _gm.gmres_update(self.V, src, self.w, self.st)
+        _gm.gmres_project(self.V, self.w, self.st, second=True)
+        _gm.gmres_update(self.V, self.w, self.w, self.st, second=True)
+        _gm.gmres_normalize(self.w, self.V, self.vcur, self.st)
+
+    def steps(self, c):
+        for _ in range(c):
+            self.step()
+
+    def end(self):
+        '''A cycle's end: x += y V[:j] with R y = g, the true residual, the
+        stall and exit tests, and the next cycle's start.'''
+        _gm.gmres_solve_combine(self.V, self.x, self.st)
+        _gm.gmres_residual(self.b, self.matvec(self.op, self.x, self.active), self.r, self.st, self.m)
+        self._cycle()
+
+    def reset(self, atol, maxiter):
+        _gm.reset(self.st, atol, maxiter)
+
+    def pieces(self, c):
+        return {'start': self.start, 'chunk': lambda: self.steps(c), 'end': self.end}
+
+    def warm(self):
+        return self.start, self.step, self.end
+
+    def run(self, pieces, atol, maxiter, stats):
+        '''The host's part of a GMRES solve: after the start, run a chunk of
+        Arnoldi steps (which stop themselves) and read the state; where the
+        inner loop has stopped, run the cycle end and read it again; stop
+        where the state's outer flag has fallen.  Returns (resnorm, it).'''
+        self.reset(atol, maxiter)
+        pieces['start']()
+        while True:
+            pieces['chunk']()
+            state = _gm.read(self.st)
+            stats['host_reads'] += 1
+            stats['chunks'] = stats.get('chunks', 0) + 1
+            if state['active'] and not state['inner']:
+                pieces['end']()
+                state = _gm.read(self.st)
+                stats['host_reads'] += 1
+                stats['cycles'] = stats.get('cycles', 0) + 1
+            if not state['active']:
+                return state['resnorm'], state['it']
+
+
+# ------------------------------------------------------------ BiCGStab
+
+# iterations a chunk graph holds on the card
+BICGSTAB_CHUNK = 8
+
+
+class _BiCGLoop:
+    '''The buffers of one BiCGStab solve (right-hand side ``b``, ``x``,
+    ``r``, ``rhat``, ``p``, ``s`` and the K10 state) and the loop's two
+    pieces over them, each of which only launches work.  The matvecs and
+    preconditioner take the state's active flag, the refresh's matvec its
+    refresh flag, so an iteration after the loop has stopped costs empty
+    launches.'''
+
+    def __init__(self, precon_kind, mv_kind, op, minv, b):
+        self.apply_m = _precon_apply(precon_kind)
+        self.matvec = _make_matvec(mv_kind)
+        self.op, self.minv = op, minv
+        self.b = b
+        self.x, self.r, self.rhat, self.p, self.s = (torch.empty_like(b) for _ in range(5))
+        self.st = _bi.new_state(b.shape[0], b.dtype, b.device)
+        self.active, self.need = _bi.active_flag(self.st), _bi.need_flag(self.st)
+
+    def start(self):
+        '''x = 0, r = rhat = p = b, rho = |b|^2 and the entry test.'''
+        self.x.zero_()
+        for t in (self.r, self.rhat, self.p):
+            t.copy_(self.b)
+        _bi.bicg_dots(self.b, self.b, None, self.st, _bi.RR, start=True)
+
+    def iteration(self):
+        '''One iteration of ``nutils_tpu.ops.sparse._bicgstab_driver``'s body,
+        the refresh and the decisions included.'''
+        phat = self.apply_m(self.minv, self.p, self.active)
+        v = self.matvec(self.op, phat, self.active)
+        _bi.bicg_dots(self.rhat, v, None, self.st, _bi.RV)
+        _bi.bicg_s(self.r, v, self.st, self.s)
+        shat = self.apply_m(self.minv, self.s, self.active)
+        t = self.matvec(self.op, shat, self.active)
+        _bi.bicg_dots(t, t, self.s, self.st, _bi.TT, _bi.TS)
+        _bi.bicg_xr(self.x, self.r, phat, shat, self.s, t, self.rhat, self.st)
+        _bi.bicg_refresh(self.b, self.matvec(self.op, self.x, self.need), self.r, self.rhat, self.st)
+        _bi.bicg_p(self.p, self.r, v, self.rhat, self.st)
+
+    def iterations(self, c):
+        for _ in range(c):
+            self.iteration()
+
+    def reset(self, atol, maxiter):
+        _bi.reset(self.st, atol, maxiter)
+
+    def pieces(self, c):
+        return {'start': self.start, 'chunk': lambda: self.iterations(c)}
+
+    def warm(self):
+        return self.start, self.iteration
+
+    def run(self, pieces, atol, maxiter, stats):
+        '''The host's part of a BiCGStab solve: after the start, run chunks
+        of iterations (which stop themselves) and read the state until its
+        active flag has fallen.  Returns (rnorm, k).'''
+        self.reset(atol, maxiter)
+        pieces['start']()
+        while True:
+            pieces['chunk']()
+            state = _bi.read(self.st)
+            stats['host_reads'] += 1
+            stats['chunks'] = stats.get('chunks', 0) + 1
+            if not state['active']:
+                for key in ('refreshes', 'refuted', 'breakdowns'):
+                    stats[key] = stats.get(key, 0) + state[key]
+                return state['rnorm'], state['k']
+
+
+# ------------------------------------------------------------ the drivers
+
+class _Graphs:
+    '''A loop whose pieces are captured as CUDA graphs (after one eager
+    warm-up of its ``warm()`` pieces on a side stream: first calls upload
+    tables, make plans and load kernels); ``t_capture`` is the time both
+    took.'''
+
+    def __init__(self, loop, c):
         t0 = time.perf_counter()
-        self.loop = loop = _CGLoop(precon_kind, mv_kind, op, minv, torch.empty_like(b))
-        loop.b.copy_(b)
-        _cg.reset(loop.st, atol, maxiter)
-        side = torch.cuda.Stream(b.device)
-        side.wait_stream(torch.cuda.current_stream(b.device))
+        self.loop = loop
+        device = loop.b.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            loop.start()
-            loop.iteration()
-            loop.refresh()
-        torch.cuda.current_stream(b.device).wait_stream(side)
-        torch.cuda.synchronize(b.device)
-        self.graphs = {'start': _kernels.Graph(loop.start), 'chunk': _kernels.Graph(lambda: loop.iterations(chunk)),
-                       'refresh': _kernels.Graph(loop.refresh)}
-        torch.cuda.synchronize(b.device)
+            for piece in loop.warm():
+                piece()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        self.graphs = {name: _kernels.Graph(fn) for name, fn in loop.pieces(c).items()}
+        torch.cuda.synchronize(device)
         self.t_capture = time.perf_counter() - t0
 
 
-# the graphs of recent CG solves, keyed by kinds, chunk and the operands'
-# identity (each entry holds its operands, so their storage is not reused)
-_CG_GRAPHS = collections.OrderedDict()
-_CG_GRAPHS_KEPT = 4
+# the graphs of recent solves, keyed by the loop, its kinds, the chunk and
+# the operands' identity (each entry holds its operands, so their storage
+# is not reused)
+_GRAPHS = collections.OrderedDict()
+_GRAPHS_KEPT = 4
 
 
 def _tensors(obj):
@@ -555,35 +736,38 @@ def _tensors(obj):
     return []
 
 
-def _cg_graphs(precon_kind, mv_kind, op, minv, b, chunk, atol, maxiter):
-    key = (precon_kind, mv_kind, chunk, b.dtype, b.device, b.shape[0],
-           tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in _tensors((op, minv))))
-    entry = _CG_GRAPHS.pop(key, None)
+def _graphs(key, op, minv, make):
+    '''The cached graphs of ``key`` and the operands, or ``make()``'s
+    (the oldest entries dropped first); returns (entry, fresh).'''
+    key = key + tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in _tensors((op, minv)))
+    entry = _GRAPHS.pop(key, None)
     fresh = entry is None
     if fresh:
-        entry = (_CGGraphs(precon_kind, mv_kind, op, minv, b, chunk, atol, maxiter), (op, minv))
-        while len(_CG_GRAPHS) >= _CG_GRAPHS_KEPT:
-            _CG_GRAPHS.popitem(last=False)
-    _CG_GRAPHS[key] = entry
+        while len(_GRAPHS) >= _GRAPHS_KEPT:
+            _GRAPHS.popitem(last=False)
+        entry = (make(), (op, minv))
+    _GRAPHS[key] = entry
     return entry[0], fresh
 
 
-def _resolve_chunk(chunk, device):
-    '''``'auto'``: :data:`CG_CHUNK` on the card, the host loop (None) on the
+def _resolve_chunk(chunk, device, default):
+    '''``'auto'``: ``default`` on the card, the host loop (None) on the
     CPU.'''
     if chunk == 'auto':
-        return CG_CHUNK if device.type == 'cuda' else None
+        return default if device.type == 'cuda' else None
     return chunk
 
 
-def _cg_driver(precon_kind, mv_kind, chunk='auto'):
-    '''Preconditioned CG with the semantics of
-    ``nutils_tpu.ops.sparse._cg_driver``, iteration for iteration.  ``chunk``
-    None is the host loop: one iteration, then one read of the state.  An
-    int ``chunk`` runs that many iterations between reads: replayed from
-    CUDA graphs (cached, :func:`_cg_graphs`) for CUDA tensors, eagerly (the
-    plain predicated steps) on the CPU.  Both return what the host loop
-    returns, bit for bit.'''
+def _driver(loop_class, default_chunk, chunk, *kinds):
+    '''The Krylov loop ``loop_class`` (:class:`_CGLoop`, :class:`_GMRESLoop`
+    or :class:`_BiCGLoop`, made from ``kinds`` and the operands) with the
+    semantics of the JAX package's driver, iteration for iteration.
+    ``chunk`` None is the host loop: one iteration (an Arnoldi step), then
+    one read of the state.  An int ``chunk`` runs that many between reads:
+    replayed from CUDA graphs (cached, :func:`_graphs`) for CUDA tensors,
+    eagerly (the plain predicated steps) on the CPU.  Both return what the
+    host loop returns, bit for bit.  ``'auto'`` is ``default_chunk`` on
+    the card, the host loop on the CPU.'''
 
     def run(op, b, minv, atol, maxiter, stats=None):
         '''Returns (x, resnorm, iters); b is not modified.  On the graph
@@ -591,32 +775,59 @@ def _cg_driver(precon_kind, mv_kind, chunk='auto'):
         ``stats`` (a dict) gathers the driver, the chunk, replays and host
         reads.'''
         stats = {} if stats is None else stats
-        atol = float(numpy.asarray(atol, dtype=numpy.float32 if b.dtype == torch.float32 else numpy.float64))
+        atol = float(numpy.asarray(atol, dtype=_state.numpy_dtype(b.dtype)))
         maxiter = int(maxiter)
-        c = _resolve_chunk(chunk, b.device)
+        c = _resolve_chunk(chunk, b.device, default_chunk)
         stats.setdefault('host_reads', 0)
         if c is not None and b.device.type == 'cuda':
-            entry, fresh = _cg_graphs(precon_kind, mv_kind, op, minv, b, int(c), atol, maxiter)
+            c = int(c)
+
+            def make():
+                loop = loop_class(*kinds, op, minv, torch.empty_like(b))
+                loop.b.copy_(b)
+                loop.reset(atol, maxiter)
+                return _Graphs(loop, c)
+            entry, fresh = _graphs((loop_class.__name__, *kinds, c, b.dtype, b.device, b.shape[0]), op, minv, make)
             graphs = entry.graphs
-            stats.update(driver='graph', c=int(c))
+            stats.update(driver='graph', c=c)
             stats['t_capture'] = stats.get('t_capture', 0.0) + (entry.t_capture if fresh else 0.0)
             before = {name: g.replays for name, g in graphs.items()}
             loop = entry.loop
             loop.b.copy_(b)
-            rnorm, k = _cg_loop(loop, atol, maxiter, graphs['start'].replay, graphs['chunk'].replay,
-                                graphs['refresh'].replay, stats)
+            rnorm, k = loop.run({name: g.replay for name, g in graphs.items()}, atol, maxiter, stats)
             replays = stats.setdefault('replays', {})
             for name, g in graphs.items():
                 replays[name] = replays.get(name, 0) + g.replays - before[name]
             stats['graph_launches'] = {name: g.counts for name, g in graphs.items()}
             return loop.x, rnorm, k
-        loop = _CGLoop(precon_kind, mv_kind, op, minv, b)
+        loop = loop_class(*kinds, op, minv, b)
         stats.update(driver='host' if c is None else 'chunked', c=int(c or 1))
-        rnorm, k = _cg_loop(loop, atol, maxiter, loop.start, lambda: loop.iterations(int(c or 1)), loop.refresh,
-                            stats)
+        rnorm, k = loop.run(loop.pieces(int(c or 1)), atol, maxiter, stats)
         return loop.x, rnorm, k
 
     return run
+
+
+def _cg_driver(precon_kind, mv_kind, chunk='auto'):
+    '''Preconditioned CG with the semantics of
+    ``nutils_tpu.ops.sparse._cg_driver`` (:func:`_driver`; on the card
+    :data:`CG_CHUNK` iterations a chunk).'''
+    return _driver(_CGLoop, CG_CHUNK, chunk, precon_kind, mv_kind)
+
+
+def _gmres_driver(precon_kind, restart, mv_kind, chunk='auto'):
+    '''Left-preconditioned restarted GMRES(m) with the semantics of
+    ``nutils_tpu.ops.sparse._gmres_driver`` (:func:`_driver`; on the card
+    :data:`GMRES_CHUNK` Arnoldi steps a chunk, and a cycle end where the
+    inner loop has stopped).'''
+    return _driver(_GMRESLoop, GMRES_CHUNK, chunk, precon_kind, mv_kind, int(restart))
+
+
+def _bicgstab_driver(precon_kind, mv_kind, chunk='auto'):
+    '''Right-preconditioned BiCGStab with the semantics of
+    ``nutils_tpu.ops.sparse._bicgstab_driver`` (:func:`_driver`; on the
+    card :data:`BICGSTAB_CHUNK` iterations a chunk).'''
+    return _driver(_BiCGLoop, BICGSTAB_CHUNK, chunk, precon_kind, mv_kind)
 
 
 def cg_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag', chunk='auto', stats=None):
@@ -626,175 +837,44 @@ def cg_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag', chunk='auto', s
     return x.clone(), rnorm, k
 
 
-# ------------------------------------------------------------ GMRES(m)
-
-def _gmres_driver(precon_kind, restart, mv_kind):
-    apply_m = _precon_apply(precon_kind)
-    matvec_op = _make_matvec(mv_kind)
-    m = int(restart)
-
-    def run(op, b, minv, atol, maxiter):
-        '''Returns (x, resnorm, iters); b is not modified.  The Hessenberg
-        column, the rotations and the residual estimate are numpy scalars
-        of the working dtype, as the JAX package's loop state is.'''
-        dt = numpy.float32 if b.dtype == torch.float32 else numpy.float64
-        eps = dt(numpy.finfo(dt).tiny * 16)
-        eps_dev = torch.tensor(eps, dtype=b.dtype, device=b.device)
-        atol = dt(atol)
-        maxiter = int(maxiter)
-        n = b.shape[0]
-        V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)  # once per solve
-        x = torch.zeros_like(b)
-        resnorm = dt(float(torch.linalg.norm(b)))
-        stall = it = 0
-        while resnorm > atol and it < maxiter and stall < 5:
-            r = b - matvec_op(op, x)
-            z = apply_m(minv, r)
-            beta, rn = (dt(v) for v in torch.stack([torch.linalg.norm(z), torch.linalg.norm(r)]).tolist())
-            beta_safe = max(beta, eps)
-            # map the true-residual tolerance into the preconditioned scale
-            inner_tol = dt(0.25) * atol * beta_safe / max(rn, eps)
-            torch.div(z, float(beta_safe), out=V[0])
-            R = numpy.zeros((m, m), dtype=dt)
-            g = numpy.zeros(m + 1, dtype=dt)
-            g[0] = beta
-            cs = numpy.zeros(m, dtype=dt)
-            sn = numpy.zeros(m, dtype=dt)
-            j = 0
-            res = beta
-            while j < m and res > inner_tol:
-                w = apply_m(minv, matvec_op(op, V[j]))
-                # CGS2 against V[0..j]
-                h1 = gmres_project(V, j, w)
-                gmres_update(V, j, h1, w)
-                h2 = gmres_project(V, j, w)
-                hn = torch.sqrt(gmres_update(V, j, h2, w))
-                gmres_normalize(w, hn, eps_dev, V[j + 1])
-                h = torch.cat([h1 + h2, hn.reshape(1)]).cpu().numpy()  # j + 2 values
-                for i in range(j):  # the earlier rotations
-                    t = cs[i] * h[i] + sn[i] * h[i + 1]
-                    h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
-                    h[i] = t
-                # the new rotation annihilating h[j+1]
-                denom = numpy.sqrt(h[j] ** 2 + h[j + 1] ** 2)
-                denom_safe = max(denom, eps)
-                c_new, s_new = h[j] / denom_safe, h[j + 1] / denom_safe
-                cs[j], sn[j] = c_new, s_new
-                h[j], h[j + 1] = denom, 0
-                R[:j + 1, j] = h[:j + 1]
-                g[j + 1] = -s_new * g[j]
-                g[j] = c_new * g[j]
-                res = abs(g[j + 1])
-                j += 1
-            if j:
-                import scipy.linalg
-                y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False).astype(dt, copy=False)
-                gmres_combine(V, j, torch.as_tensor(y, device=b.device), x)
-            new_resnorm = dt(float(torch.linalg.norm(b - matvec_op(op, x))))
-            # restart cycles that stop reducing the true residual: stalled
-            stall = stall + 1 if new_resnorm > dt(0.999) * resnorm else 0
-            resnorm = new_resnorm
-            it += j
-        return x, float(resnorm), it
-
-    return run
-
-
-def gmres_op(mv_kind, op, b, *, atol, maxiter, restart=60, minv, precon='diag'):
+def gmres_op(mv_kind, op, b, *, atol, maxiter, restart=60, minv, precon='diag', chunk='auto', stats=None):
     '''Left-preconditioned restarted GMRES(m) over an operator-kind/operand
     pair; returns (x, resnorm, iters).'''
     restart = max(2, min(int(restart), int(len(b))))
-    return _gmres_driver(precon, restart, mv_kind)(tuple(op), b, minv, atol, maxiter)
+    x, rnorm, k = _gmres_driver(precon, restart, mv_kind, chunk)(tuple(op), b, minv, atol, maxiter, stats)
+    return x.clone(), rnorm, k
 
 
-# ------------------------------------------------------------ BiCGStab
-
-def _bicgstab_driver(precon_kind, mv_kind):
-    apply_m = _precon_apply(precon_kind)
-    matvec_op = _make_matvec(mv_kind)
-
-    def run(op, b, minv, atol, maxiter):
-        '''Returns (x, resnorm, iters); b is not modified.  The scalars
-        (rho, alpha, omega and the dot products) stay in the device slots
-        of K10; the host reads omega, |r|^2 and rhat . r once an iteration
-        and decides the refresh, the breakdown and the exit in the working
-        dtype, with the JAX package's expressions.'''
-        dt = numpy.float32 if b.dtype == torch.float32 else numpy.float64
-        eps = dt(numpy.finfo(dt).tiny * 16)
-        atol = dt(atol)
-        maxiter = int(maxiter)
-        sc = _bicg.scalars(b.dtype, b.device)
-        x = torch.zeros_like(b)
-        r, rhat, p = b.clone(), b.clone(), b.clone()
-        v, s = torch.zeros_like(b), torch.empty_like(b)
-        # rho = b . b, and |r|^2 = rhat . r = b . b
-        _bicg.bicg_dots(b, b, b, sc, _bicg.RR, _bicg.RHOR)
-        sc[_bicg.RHO[0]] = sc[_bicg.RR]
-        rnorm = lastres = numpy.sqrt(dt(float(sc[_bicg.RR])))
-        k = stall = 0
-        while rnorm > atol and k < maxiter and stall < 4:
-            rho_old, rho_new = _bicg.RHO[k % 2], _bicg.RHO[1 - k % 2]
-            phat = apply_m(minv, p)
-            v = matvec_op(op, phat)
-            _bicg.bicg_dots(rhat, v, None, sc, _bicg.RV)
-            _bicg.bicg_s(r, v, sc, s, rho_old)
-            shat = apply_m(minv, s)
-            t = matvec_op(op, shat)
-            _bicg.bicg_dots(t, t, s, sc, _bicg.TT, _bicg.TS)
-            _bicg.bicg_xr(x, r, phat, shat, s, t, rhat, sc)
-            omega, rr, rhor = (dt(val) for val in sc[_bicg.OMEGA:_bicg.RHOR + 1].tolist())
-            claimed = numpy.sqrt(rr) <= atol
-            need = (k + 1) % 64 == 0 or claimed
-            if need:
-                # true-residual refresh on a 64-iteration schedule and
-                # whenever the recursion claims convergence
-                torch.sub(b, matvec_op(op, x), out=r)
-                _bicg.bicg_dots(r, r, rhat, sc, _bicg.RR, _bicg.RHOR)
-                rr, rhor = (dt(val) for val in sc[_bicg.RR:_bicg.RHOR + 1].tolist())
-            rnorm = numpy.sqrt(rr)
-            if need:
-                stall = stall + 1 if rnorm > dt(0.99) * lastres else 0
-                lastres = rnorm
-            # rho/omega breakdown or refuted convergence: restart the
-            # recurrence from the true residual (rhat = r, p = r)
-            breakdown = abs(rhor) <= eps or abs(omega) <= eps or claimed
-            _bicg.bicg_p(p, r, v, rhat, sc, breakdown, rho_old, rho_new)
-            k += 1
-        return x, float(rnorm), k
-
-    return run
-
-
-def bicgstab_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag'):
+def bicgstab_op(mv_kind, op, b, *, atol, maxiter, minv, precon='diag', chunk='auto', stats=None):
     '''Right-preconditioned BiCGStab over an operator-kind/operand pair;
     returns (x, resnorm, iters).'''
-    return _bicgstab_driver(precon, mv_kind)(tuple(op), b, minv, atol, maxiter)
+    x, rnorm, k = _bicgstab_driver(precon, mv_kind, chunk)(tuple(op), b, minv, atol, maxiter, stats)
+    return x.clone(), rnorm, k
 
 
 # ---------------------------------------- iterative refinement (device)
 
 def _refined_driver(method, precon_kind, mv_kind, restart, chunk='auto'):
     '''The mixed-precision refined solve: the working-precision inner CG,
-    GMRES or BiCGStab nested in a float64 outer refinement loop whose true residual is
-    computed on the device with the operator weights widened to float64
-    (exact, since they were assembled in the lower precision).  The rounds
-    run on the host, one read of the residual norm a round; ``chunk`` is
-    the CG driver's (:func:`_cg_driver`).  GMRES and BiCGStab run host
-    loops.'''
+    GMRES or BiCGStab nested in a float64 outer refinement loop whose true
+    residual is computed on the device with the operator weights widened to
+    float64 (exact, since they were assembled in the lower precision).  The
+    rounds run on the host, one read of the residual norm a round; ``chunk``
+    is the inner driver's (:func:`_driver`).'''
     matvec_op = _make_matvec(mv_kind)
     if method == 'cg':
         inner = _cg_driver(precon_kind, mv_kind, chunk)
     elif method == 'gmres':
-        inner = _gmres_driver(precon_kind, restart, mv_kind)
+        inner = _gmres_driver(precon_kind, restart, mv_kind, chunk)
     elif method == 'bicgstab':
-        inner = _bicgstab_driver(precon_kind, mv_kind)
+        inner = _bicgstab_driver(precon_kind, mv_kind, chunk)
     else:
         raise ValueError(f'unknown refined method {method!r}')
 
     def run(op32, op64, b64, minv, target, inner_floor, cap, maxrounds, rn0=None, stats=None):
         '''``rn0``: |b64| where the caller has it on the host, else read
-        here.  ``stats`` (a dict) gathers the CG driver's record with the
-        rounds' host reads, or that GMRES and BiCGStab run host loops.'''
+        here.  ``stats`` (a dict) gathers the inner driver's record with the
+        rounds' host reads.'''
         stats = {} if stats is None else stats
         reads = 0
         dt32 = op32[0].dtype
@@ -813,10 +893,7 @@ def _refined_driver(method, precon_kind, mv_kind, restart, chunk='auto'):
         while rn > target and rounds < maxrounds and (rounds == 0 or rn < 0.95 * prevrn) \
                 and math.isfinite(rn):
             inner_atol = float(np32(max(target / rn, inner_floor)))
-            if method == 'cg':
-                d, _rnin, it = inner(op32, (r / rn).to(dt32), minv, inner_atol, cap, stats)
-            else:
-                d, _rnin, it = inner(op32, (r / rn).to(dt32), minv, inner_atol, cap)
+            d, _rnin, it = inner(op32, (r / rn).to(dt32), minv, inner_atol, cap, stats)
             x_new = x + rn * d.to(torch.float64)
             r_new = b64 - matvec_op(op64, x_new)
             rn_new = float(torch.linalg.norm(r_new))
@@ -827,10 +904,7 @@ def _refined_driver(method, precon_kind, mv_kind, restart, chunk='auto'):
                 x, r, rn = x_new, r_new, rn_new
             rounds += 1
             total_it += it
-        if method == 'cg':
-            stats['host_reads'] = stats.get('host_reads', 0) + reads
-        else:
-            stats['driver'] = 'host'
+        stats['host_reads'] = stats.get('host_reads', 0) + reads
         return x, rn, total_it, rounds
 
     return run
@@ -847,7 +921,7 @@ def refined_solve_op(method, mv_kind, op, b, *, target, maxiter, restart=100,
                      minv, precon, op64=None, maxrounds=30, chunk='auto', stats=None):
     '''Refined device solve; returns (x64 numpy, resnorm, iters, rounds).
     ``op64`` defaults to widening ``op``; ``b`` is a host or device vector.
-    ``chunk``: the CG driver's (:func:`_cg_driver`; ``'auto'`` replays
+    ``chunk``: the inner driver's (:func:`_driver`; ``'auto'`` replays
     CUDA graphs on the card and runs the host loop on the CPU); ``stats``
     (a dict) receives the driver's record.'''
     x, rn, it, rounds = refined_solve_device(method, mv_kind, op, b, target=target, maxiter=maxiter,

@@ -9,6 +9,7 @@ tie.'''
 import jax.numpy as jnp
 import numpy
 import pytest
+import scipy.sparse
 import torch
 
 import _torch_parity as tp
@@ -140,3 +141,105 @@ def test_mg_preconditioned_gmres_nonsymmetric():
         x = tjac.solve(b, solver='gmres', rtol=1e-10)
     assert tjac._solve_stats['precon'] == 'mg' and tjac._solve_stats['method'] == 'gmres'
     assert numpy.linalg.norm(b - M._scipy() @ x) <= 5e-9 * numpy.linalg.norm(b)
+
+
+# ------------------------------------------- the chunked driver (plain steps)
+
+def _gmres(ns, dtype, chunk, rtol, restart=100, maxiter=2000, b=None):
+    b = ns['b'] if b is None else b
+    (kind, _plan), top = ns['tjac']._device_op()
+    op = tuple(t.to(dtype) for t in top)
+    stats = {}
+    x, rn, k = sp_torch.gmres_op(ns['tjac']._device_op()[0], op, torch.as_tensor(b, dtype=dtype),
+                                 atol=rtol * numpy.linalg.norm(b), maxiter=maxiter, restart=restart,
+                                 minv=torch.as_tensor(ns['minv'], dtype=dtype), precon='diag', chunk=chunk,
+                                 stats=stats)
+    return x, rn, k, stats
+
+
+def _same(a, b):
+    (xa, rna, ka, _sa), (xb, rnb, kb, _sb) = a, b
+    assert ka == kb and rna == rnb and torch.equal(xa, xb)
+
+
+@pytest.mark.parametrize('restart', [100, 15])
+@pytest.mark.parametrize('chunk', [1, 3, 8])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_chunked_gmres_is_the_host_loop(ns, dtype, chunk, restart):
+    # c Arnoldi steps between reads, those after the inner loop's stop doing
+    # nothing, and a cycle end where it has stopped: bitwise the host loop's
+    # (x, resnorm, iterations); one read a chunk and one a cycle end
+    rtol = 1e-8 if dtype == torch.float64 else 1e-4
+    host = _gmres(ns, dtype, None, rtol, restart)
+    chunked = _gmres(ns, dtype, chunk, rtol, restart)
+    _same(chunked, host)
+    assert host[3]['driver'] == 'host' and chunked[3]['driver'] == 'chunked' and chunked[3]['c'] == chunk
+    for _x, _rn, k, stats in (host, chunked):
+        assert stats['host_reads'] == stats['chunks'] + stats['cycles']
+    # the host loop reads once a step (and once more where a cycle's last
+    # step left the inner loop)
+    assert host[3]['chunks'] >= host[2] and chunked[3]['chunks'] <= -(-host[2] // chunk) + host[3]['cycles']
+    if restart == 15:
+        # cycles that end at j = m: several true-residual restarts
+        assert host[2] > 2 * restart and host[3]['cycles'] >= 3
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_chunked_gmres_stalls(dtype):
+    # GMRES(m) stagnates on the cyclic shift for m < n: no cycle reduces the
+    # true residual of b = e_0, and the fifth ends the loop at 5 m steps
+    n, m = 50, 10
+    A = scipy.sparse.csr_matrix((numpy.ones(n), numpy.roll(numpy.arange(n), 1), numpy.arange(n + 1)), shape=(n, n))
+    op = (torch.as_tensor(A.data, dtype=dtype), torch.as_tensor(A.indices.astype(numpy.int32)),
+          torch.as_tensor(A.indptr.astype(numpy.int32)))
+    b = torch.zeros(n, dtype=dtype)
+    b[0] = 1
+    out = []
+    for chunk in (None, 3):
+        stats = {}
+        x, rn, k = sp_torch.gmres_op(('csr',), op, b, atol=1e-8, maxiter=1000, restart=m,
+                                     minv=torch.ones(n, dtype=dtype), precon='diag', chunk=chunk, stats=stats)
+        out.append((x, rn, k, stats))
+    _same(*out)
+    x, rn, k, stats = out[0]
+    assert k == 5 * m and stats['cycles'] == 5 and rn == 1.0 and not x.any()
+
+
+@pytest.mark.parametrize('maxiter', [0, 1, 20])
+def test_chunked_gmres_maxiter_inside_a_chunk(ns, maxiter):
+    # the cap is the outer loop's: checked at cycle ends (it += j)
+    host = _gmres(ns, torch.float64, None, 1e-14, restart=15, maxiter=maxiter)
+    chunked = _gmres(ns, torch.float64, 8, 1e-14, restart=15, maxiter=maxiter)
+    _same(chunked, host)
+    assert host[2] == -(-maxiter // 15) * 15
+
+
+@pytest.mark.parametrize('chunk', [None, 8])
+def test_chunked_gmres_matches_jax(ns, chunk):
+    b = ns['b']
+    atol = 1e-8 * numpy.linalg.norm(b)
+    mv_kind, op = ns['jac']._device_op()
+    xj, rnj, kj = sp_jax.gmres_op(mv_kind, op, jnp.asarray(b), atol=atol, maxiter=2000, restart=15,
+                                  minv=jnp.asarray(ns['minv']), precon='diag')
+    xt, rnt, kt, _stats = _gmres(ns, torch.float64, chunk, 1e-8, restart=15)
+    assert abs(int(kj) - kt) <= 1
+    assert tp.rel(xt.numpy(), numpy.asarray(xj)) <= 1e-9
+
+
+@pytest.mark.parametrize('chunk', [None, 8])
+def test_chunked_refined_gmres(ns, chunk):
+    # the chunked refined solve is the host loop's bit for bit and the JAX
+    # package's to 1e-9; one read a chunk, a cycle end and a round
+    b = ns['res']
+    target = 1e-6 * numpy.linalg.norm(b)
+    mv_kind, op = ns['jac']._device_op()
+    xj, rnj, itj, rj = sp_jax.refined_solve_op('gmres', mv_kind, op, b, target=target, maxiter=1024,
+                                               minv=jnp.asarray(ns['minv']), precon='diag')
+    tkind, top = ns['tjac']._device_op()
+    kw = dict(target=target, maxiter=1024, minv=torch.as_tensor(ns['minv']), precon='diag')
+    stats = {}
+    got = sp_torch.refined_solve_op('gmres', tkind, top, b, chunk=chunk, stats=stats, **kw)
+    want = sp_torch.refined_solve_op('gmres', tkind, top, b, chunk=None, **kw)
+    assert got[1:] == want[1:] and numpy.array_equal(got[0], want[0])
+    assert got[1] <= target and got[3] == rj and abs(got[2] - itj) <= 1 and tp.rel(got[0], xj) <= 1e-9
+    assert stats['host_reads'] == stats['chunks'] + stats['cycles'] + got[3]

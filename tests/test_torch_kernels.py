@@ -15,9 +15,7 @@ import pytest
 import torch
 
 from nutils_tpu_torch import _kernels, matrix
-from nutils_tpu_torch.ops import _triton_bicgstab as tbi
-from nutils_tpu_torch.ops import _triton_gmres as tgm
-from nutils_tpu_torch.ops import assembly, blockgrid, cg, mg, precon, sparse, stencil
+from nutils_tpu_torch.ops import assembly, bicgstab, blockgrid, cg, gmres, mg, precon, sparse, stencil
 
 pytestmark = pytest.mark.gpu
 
@@ -44,6 +42,13 @@ def cuda():
 def _rel(got, want):
     torch.cuda.synchronize()
     return float((got - want).abs().max() / want.abs().max())
+
+
+def _close(got, want, tol, scale=None):
+    """Within ``tol`` of ``scale`` (the largest plain value unless given;
+    all zeros must then be equal)."""
+    torch.cuda.synchronize()
+    return float((got - want).abs().max()) <= tol * float(want.abs().max() if scale is None else scale)
 
 
 @pytest.mark.parametrize('dtype,tol', TOLS)
@@ -448,25 +453,186 @@ def test_blockgrid_matvec(cuda, name, dtype, tol):
     assert name == 'stokes' or plan.ctab[:, 5].any()
 
 
+def test_blockgrid_matvec_takes_the_flag(cuda):
+    # K5 under a Krylov loop's flag: the same bits while it is set; while
+    # it is clear the kernel writes nothing (its output then keeps what the
+    # caching allocator's reused block held)
+    plan = _blockgrid_operator('stokes')
+    rng = numpy.random.default_rng(5)
+    v = torch.as_tensor(rng.standard_normal(plan.nv), dtype=torch.float32, device=cuda)
+    x = torch.as_tensor(rng.standard_normal(plan.n), dtype=torch.float32, device=cuda)
+    on, off = torch.ones(1, dtype=torch.int32, device=cuda), torch.zeros(1, dtype=torch.int32, device=cuda)
+    want = blockgrid.blockgrid_matvec(v, x, plan)
+    assert torch.equal(blockgrid.blockgrid_matvec(v, x, plan, on), want)
+    filler = torch.full_like(x, 7.0)
+    del filler
+    idle = blockgrid.blockgrid_matvec(v, x, plan, off)
+    torch.cuda.synchronize()
+    assert bool((idle == 7.0).all())
+
+
+K6_RESTART = 64
+KRYLOV_SIZES = [1, 1023, 983403]
+
+
+def _np(dtype):
+    return numpy.float32 if dtype == torch.float32 else numpy.float64
+
+
+def _gmres_state(dev, dtype, n, j, inner=1, active=1, atol=1.0, inner_tol=1e-3, maxiter=1000, it=0, stall=0,
+                 resnorm=1.0, hn=0.8, beta=1.3, seed=11):
+    """A K6 state at step ``j`` of a cycle of restart K6_RESTART: random
+    h1, h2, g, rotations (cs, sn of random angles) and an upper triangular
+    R = I + 0.1 U, every value rounded to ``dtype``."""
+    m, dt = K6_RESTART, _np(dtype)
+    rng = numpy.random.default_rng(seed)
+    L = gmres.layout(m)
+    s = numpy.zeros(L['parts'])
+    s[gmres.ATOL], s[gmres.BETA], s[gmres.RN], s[gmres.INNER_TOL] = dt(atol), dt(beta), dt(0.9), dt(inner_tol)
+    s[gmres.RESNORM], s[gmres.HN], s[gmres.RES] = dt(resnorm), dt(hn), dt(0.5)
+    ints = s.view(numpy.int32)
+    ints[gmres.J], ints[gmres.IT], ints[gmres.STALL], ints[gmres.INNER], ints[gmres.ACTIVE] = j, it, stall, inner, active
+    ints[gmres.MAXITER], ints[gmres.CYCLES] = maxiter, 2
+    theta = rng.random(m) * 2 * numpy.pi
+    for key, values in (('h1', rng.standard_normal(m + 1)), ('h2', 0.01 * rng.standard_normal(m + 1)),
+                        ('g', rng.standard_normal(m + 1)), ('cs', numpy.cos(theta)), ('sn', numpy.sin(theta)),
+                        ('R', (numpy.eye(m) + 0.1 * numpy.triu(rng.standard_normal((m, m)))).ravel())):
+        s[L[key]:L[key] + len(values)] = values.astype(dt)
+    st = gmres.new_state(n, m, dtype, dev)
+    st[:L['parts']] = torch.as_tensor(s, device=dev)
+    return st
+
+
+def _gmres_vectors(dev, dtype, n, seed=12):
+    rng = numpy.random.default_rng(seed)
+    V = gmres.basis(n, K6_RESTART, dtype, dev)
+    V.copy_(torch.as_tensor(rng.standard_normal((K6_RESTART + 1, n)) / n ** 0.5, dtype=dtype, device=dev))
+    out = {k: torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev) for k in ('w', 'src', 'x', 'b', 'y', 'r')}
+    out['vcur'] = torch.zeros(n, dtype=dtype, device=dev)
+    out['V'] = V
+    return out
+
+
+def _k6_cases():
+    """(name, call, the state's arguments, the sums its last block takes):
+    every K6 entry with each decision it can take; ``call(f, v, st)`` runs
+    the entry ``f[name]`` (the kernel's or the plain version)."""
+    m = K6_RESTART
+
+    def proj(second):
+        return lambda f, v, st: f['project'](v['V'], v['w'], st, second)
+
+    def upd(second):
+        return lambda f, v, st: f['update'](v['V'], v['w'] if second else v['src'], v['w'], st, second)
+
+    def norm(first):
+        return lambda f, v, st: f['normalize'](v['w'], v['V'], v['vcur'], st, first)
+
+    def start(f, v, st):
+        f['start'](v['w'], v['r'], st, m)
+
+    def resid(first, with_y=True):
+        return lambda f, v, st: f['residual'](v['b'], v['y'] if with_y else None, v['r'], st, m, first)
+
+    def solve(f, v, st):
+        f['solve_combine'](v['V'], v['x'], st)
+    return [
+        ('project 1', proj(False), {}, None),
+        ('project 2', proj(True), {}, None),
+        ('update 1', upd(False), {}, None),
+        ('update 2', upd(True), {}, 'step'),
+        ('update 2 below inner_tol', upd(True), {'inner_tol': 1e30}, 'step'),
+        ('normalize', norm(False), {}, None),
+        ('normalize first', norm(True), {}, None),
+        ('normalize hn <= eps', norm(False), {'hn': 0.0}, None),
+        ('start', start, {'atol': 1e-3}, 'start'),
+        ('start below inner_tol', start, {'atol': 1e30}, 'start'),
+        ('residual first', resid(True, False), {'atol': 1e-3}, 'first'),
+        ('residual first at atol', resid(True, False), {'atol': 1e30}, 'first'),
+        ('residual stalled once', resid(False), {'atol': 1e-3, 'resnorm': 1e-30, 'stall': 1}, 'residual'),
+        ('residual progress', resid(False), {'atol': 1e-3, 'resnorm': 1e30, 'stall': 3}, 'residual'),
+        ('residual fifth stall', resid(False), {'atol': 1e-3, 'resnorm': 1e-30, 'stall': 4}, 'residual'),
+        ('residual capped', resid(False), {'atol': 1e-3, 'resnorm': 1e30, 'it': 995}, 'residual'),
+        ('solve_combine', solve, {}, None),
+    ]
+
+
+K6_KERNELS = {'project': gmres.gmres_project, 'update': gmres.gmres_update, 'normalize': gmres.gmres_normalize,
+              'start': gmres.gmres_start, 'residual': gmres.gmres_residual, 'solve_combine': gmres.gmres_solve_combine}
+K6_PLAIN = {'project': gmres.project_plain, 'update': gmres.update_plain, 'normalize': gmres.normalize_plain,
+            'start': gmres.start_plain, 'residual': gmres.residual_plain, 'solve_combine': gmres.solve_combine_plain}
+
+
+def _k6_run(call, f, vectors, dev, dtype, n, j, kwargs):
+    v = {k: t.clone() for k, t in vectors.items() if k != 'V'}
+    v['V'] = gmres.basis(n, K6_RESTART, dtype, dev)
+    v['V'].copy_(vectors['V'])
+    st = _gmres_state(dev, dtype, n, j, **kwargs)
+    call(f, v, st)
+    torch.cuda.synchronize()
+    return v, st
+
+
+def _k6_replay(sums, st_in, st_k, n, dtype):
+    """The plain scalar work of the entry's last block on the input state,
+    fed the kernel's own sums (its WW and RR slots): the state the kernel
+    must have written, bit for bit."""
+    m, dt = K6_RESTART, _np(dtype)
+    s = st_in[:gmres.layout(m)['parts']].cpu().numpy().copy()
+    k = st_k.cpu().numpy()
+    if sums == 'step':
+        gmres.step_scalars(s, m, k[gmres.WW], dt)
+    elif sums == 'start':
+        gmres.start_scalars(s, m, k[gmres.WW], k[gmres.RR], dt)
+    else:
+        gmres.residual_scalars(s, k[gmres.RR], sums == 'first', dt)
+    return s
+
+
 @pytest.mark.parametrize('dtype,tol', TOLS)
-@pytest.mark.parametrize('j', [0, 7, 63])
-def test_gmres_kernels(cuda, j, dtype, tol):
-    rng = numpy.random.default_rng(4 + j)
-    n = 100003
-    V = torch.as_tensor(rng.standard_normal((65, n)), dtype=dtype, device=cuda)
-    w, x = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda) for _ in range(2))
-    h = torch.as_tensor(rng.standard_normal(j + 1), dtype=dtype, device=cuda)
-    # reductions on the scale of their terms
-    got, want = tgm.gmres_project(V, j, w), tgm.project_plain(V, j, w)
-    assert float((got - want).abs().max()) <= tol * float((V[:j + 1].abs() @ w.abs()).max())
-    w1, w2 = w.clone(), w.clone()
-    n1, n2 = tgm.gmres_update(V, j, h, w1), tgm.update_plain(V, j, h, w2)
-    assert _rel(w1, w2) <= tol and abs(float(n1 - n2)) <= tol * float(n2)
-    hn, eps = torch.sqrt(n2), torch.tensor(1e-30, dtype=dtype, device=cuda)
-    out1, out2 = torch.empty_like(w), torch.empty_like(w)
-    assert _rel(tgm.gmres_normalize(w2, hn, eps, out1), tgm.normalize_plain(w2, hn, eps, out2)) <= tol
-    x1, x2 = x.clone(), x.clone()
-    assert _rel(tgm.gmres_combine(V, j + 1, h, x1), tgm.combine_plain(V, j + 1, h, x2)) <= tol
+@pytest.mark.parametrize('j', [0, 7, K6_RESTART - 1])
+@pytest.mark.parametrize('n', KRYLOV_SIZES)
+def test_gmres_kernels(cuda, n, j, dtype, tol):
+    # each K6 entry against its plain version on the same state: vectors to
+    # the tolerance of their largest value, the projections on the scale of
+    # their terms, the sums of squares relatively; the last block's scalar
+    # work (rotations, R, g, the tests, the back-substitution) bit for bit
+    # the plain scalar functions' on the kernel's own sums; no ticket left
+    vectors = _gmres_vectors(cuda, dtype, n)
+    L = gmres.layout(K6_RESTART)
+    for name, call, kwargs, sums in _k6_cases():
+        (vk, sk), (vp, sp) = (_k6_run(call, f, vectors, cuda, dtype, n, j, kwargs) for f in (K6_KERNELS, K6_PLAIN))
+        for key in vp:
+            assert _close(vk[key], vp[key], tol), (name, key)
+        ik = sk.view(torch.int32)
+        assert int(ik[gmres.TICKET]) == 0, name
+        if name.startswith('project'):
+            at = L['h2' if name.endswith('2') else 'h1']
+            scale = float((vectors['V'][:j + 1].abs() @ vectors['w'].abs()).max())
+            assert float((sk[at:at + j + 1] - sp[at:at + j + 1]).abs().max()) <= tol * scale, name
+            continue
+        for slot in (gmres.WW, gmres.RR):
+            assert abs(float(sk[slot] - sp[slot])) <= tol * abs(float(sp[slot])), (name, slot)
+        want = _k6_replay(sums, _gmres_state(cuda, dtype, n, j, **kwargs), sk, n, dtype) if sums else \
+            sp[:L['parts']].cpu().numpy()
+        got = sk[:L['parts']].cpu().numpy()
+        assert numpy.array_equal(got, want), (name, numpy.flatnonzero(got != want)[:8])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n', KRYLOV_SIZES)
+def test_gmres_kernels_are_deterministic_and_predicated(cuda, n, dtype):
+    # bitwise equal over two runs; nothing written while the entry's flag
+    # (the inner one for the Arnoldi entries, the outer one for the cycle's)
+    # is clear
+    vectors = _gmres_vectors(cuda, dtype, n)
+    for name, call, kwargs, _sums in _k6_cases():
+        (v1, s1), (v2, s2) = (_k6_run(call, K6_KERNELS, vectors, cuda, dtype, n, 7, kwargs) for _ in range(2))
+        assert all(torch.equal(v1[k], v2[k]) for k in vectors) and torch.equal(s1, s2), name
+        idle = dict(kwargs, inner=0, active=0)
+        v, st = _k6_run(call, K6_KERNELS, vectors, cuda, dtype, n, 7, idle)
+        assert all(torch.equal(v[k], vectors[k]) for k in vectors), name
+        assert torch.equal(st, _gmres_state(cuda, dtype, n, 7, **idle)), name
 
 
 @pytest.mark.parametrize('mapped', [True, False])
@@ -559,24 +725,76 @@ def test_schur_diag_is_deterministic(cuda, dtype, mapped):
 
 
 def test_cuda_ns_step_goes_through_the_kernels(cuda):
-    # a small Navier-Stokes step in float64 on the card: K5-K7 launch, and
-    # the GMRES solution is the CPU's (plain versions) to 1e-8
+    # a small Navier-Stokes step in float64 on the card: K5-K7 launch, the
+    # GMRES loop replays CUDA graphs, and the solution is the CPU's (plain
+    # versions) to 1e-8 in as many iterations
     import _torch_parity as tp
     from nutils_tpu_torch.utils import config
-    wrappers = [blockgrid.blockgrid_matvec, tgm.gmres_project, tgm.gmres_update, tgm.gmres_normalize,
-                tgm.gmres_combine, sparse.schur_diag_inverse_device]
+    wrappers = [blockgrid.blockgrid_matvec, gmres.gmres_project, gmres.gmres_update, gmres.gmres_normalize,
+                gmres.gmres_start, gmres.gmres_residual, gmres.gmres_solve_combine, sparse.schur_diag_inverse_device]
     out = []
     for device in ('cuda', 'cpu'):
         with config.device(device):
             system, args = tp.build_ns('nutils_tpu_torch', 6, numpy.float64)
             jac, res = system.assemble_jacobian_residual(args)
             before = [wr.launches for wr in wrappers]
-            out.append((jac.solve_leniently(res, solver='gmres', rtol=1e-3), jac._solve_stats['iters']))
+            out.append((jac.solve_leniently(res, solver='gmres', rtol=1e-3), dict(jac._solve_stats)))
             if device == 'cuda':
                 assert all(wr.launches > b for wr, b in zip(wrappers, before))
-    (xa, ia), (xb, ib) = out
-    assert ia == ib
+    (xa, sa), (xb, sb) = out
+    assert sa['iters'] == sb['iters'] and sa['driver'] == 'graph' and sb['driver'] == 'host'
+    assert sa['host_reads'] <= sa['chunks'] + sa.get('cycles', 0) + sa['rounds']
     assert numpy.linalg.norm(xa - xb) <= 1e-8 * numpy.linalg.norm(xb)
+
+
+def _krylov_operands(method, dtype):
+    """(mv_kind, op, minv, b) of the 6 x 6 Navier-Stokes step on the card,
+    assembled by the port in ``dtype``: its block-grid operator (K5) for
+    GMRES, the triangles' CSR operator (K9) for BiCGStab; the Schur
+    diagonal (K7)."""
+    import _torch_parity as tp
+    from nutils_tpu_torch.utils import config
+    with config.device('cuda'):
+        try:
+            system, args = (tp.build_ns if method == 'gmres' else tp.build_ns_tri)('nutils_tpu_torch', 6, dtype)
+            jac, res = system.assemble_jacobian_residual(args)
+        finally:
+            config.floatx.value = numpy.float64
+    mv_kind, op = jac._device_op()
+    _kind, minv = jac._device_precon(None, None)
+    return mv_kind, op, minv.to(op[0].dtype), torch.as_tensor(res, dtype=op[0].dtype, device='cuda')
+
+
+@pytest.mark.parametrize('dtype', [numpy.float32, numpy.float64])
+@pytest.mark.parametrize('method', ['gmres', 'bicgstab'])
+def test_krylov_graph_driver_is_the_host_loop(cuda, method, dtype):
+    # the chunked driver replayed from CUDA graphs returns the eager host
+    # loop's (x, resnorm, iters) bit for bit, GMRES(15) across several
+    # cycles; a warm solve grows the launch counters by its replays times
+    # each graph's launches; two graph solves give the same bits
+    mv_kind, op, minv, b = _krylov_operands(method, dtype)
+    atol = (1e-10 if dtype == numpy.float64 else 1e-5) * float(torch.linalg.norm(b))
+    solve = sparse.gmres_op if method == 'gmres' else sparse.bicgstab_op
+    kw = dict(atol=atol, maxiter=2000, minv=minv, precon='diag', **({'restart': 15} if method == 'gmres' else {}))
+    host_stats = {}
+    host = solve(mv_kind, op, b, chunk=None, stats=host_stats, **kw)
+    assert host_stats['driver'] == 'host' and host_stats['host_reads'] >= host[2]
+    for chunk in (1, 3, 8, 8):
+        stats = {}
+        before = {w.__name__: w.launches for w in _kernels.COUNTED}
+        graph = solve(mv_kind, op, b, chunk=chunk, stats=stats, **kw)
+        assert stats['driver'] == 'graph' and stats['c'] == chunk
+        assert graph[1:] == host[1:] and torch.equal(graph[0], host[0]), chunk
+        assert stats['host_reads'] == stats['chunks'] + stats.get('cycles', 0)
+        grown = {w.__name__: w.launches - before[w.__name__] for w in _kernels.COUNTED}
+        replayed = {}
+        for name, counts in stats['graph_launches'].items():
+            for wrapper, count in counts.items():
+                replayed[wrapper] = replayed.get(wrapper, 0) + count * stats['replays'][name]
+        if stats['t_capture'] == 0:  # a warm solve launches only its replays
+            assert all(grown[k] == replayed.get(k, 0) for k in grown), (grown, replayed)
+    if method == 'gmres':
+        assert host_stats['cycles'] >= 2 and host[2] > 15
 
 
 def _random_csr(n, rowlen, seed):
@@ -653,51 +871,170 @@ def test_csr_scatter(cuda, dtype, tol):
     assert torch.equal(got, pattern.scatter(values))
 
 
+def _bicg_state(dev, dtype, n, active=1, need=0, atol=1e-3, k=5, maxiter=1000, stall=0, claimed=0, breakdown=0,
+                lastres=1.0, seed=13, **slots):
+    """A K10 state with random scalars (rounded to ``dtype``), the given
+    flags and counts, and ``slots`` ({name: value}) over them."""
+    rng = numpy.random.default_rng(seed)
+    dt = _np(dtype)
+    s = numpy.zeros(bicgstab.HEAD)
+    s[:bicgstab.RNORM + 1] = (rng.random(bicgstab.RNORM + 1) + 0.5).astype(dt)
+    s[bicgstab.ATOL], s[bicgstab.LASTRES] = dt(atol), dt(lastres)
+    for name, value in slots.items():
+        s[getattr(bicgstab, name.upper())] = dt(value)
+    ints = s.view(numpy.int32)
+    for slot, value in ((bicgstab.ACTIVE, active), (bicgstab.NEED, need), (bicgstab.K, k),
+                        (bicgstab.MAXITER, maxiter), (bicgstab.STALL, stall), (bicgstab.CLAIMED, claimed),
+                        (bicgstab.BREAKDOWN, breakdown), (bicgstab.REFRESHES, 3)):
+        ints[slot] = value
+    st = bicgstab.new_state(n, dtype, dev)
+    st[:bicgstab.HEAD] = torch.as_tensor(s, device=dev)
+    return st
+
+
+def _k10_cases():
+    """(name, call, the state's arguments, the replay of its scalars):
+    every K10 entry with each decision it can take."""
+    B = bicgstab
+
+    def dots(two=False, start=False):
+        def call(f, v, st):
+            if start:
+                f['dots'](v['b'], v['b'], None, st, B.RR, start=True)
+            elif two:
+                f['dots'](v['t'], v['t'], v['s'], st, B.TT, B.TS)
+            else:
+                f['dots'](v['rhat'], v['v'], None, st, B.RV)
+        return call
+
+    def s_(f, v, st):
+        f['s'](v['r'], v['v'], st, v['s'])
+
+    def xr(f, v, st):
+        f['xr'](v['x'], v['r'], v['phat'], v['shat'], v['s'], v['t'], v['rhat'], st)
+
+    def refresh(f, v, st):
+        f['refresh'](v['b'], v['y'], v['r'], v['rhat'], st)
+
+    def p(f, v, st):
+        f['p'](v['p'], v['r'], v['v'], v['rhat'], st)
+
+    def start(s, k, dt):
+        s[B.RR] = k[B.RR]
+        B.start_scalars(s, k[B.RR], dt)
+
+    def claim(s, k, dt):
+        tt = dt(s[B.TT])
+        B.claim_scalars(s, k[B.RR], k[B.RHOR], dt(s[B.TS]) / (tt if tt > dt(numpy.finfo(dt).tiny * 16) else dt(1)), dt)
+
+    def decide(need):
+        def replay(s, k, dt):
+            if need:
+                s[B.RR], s[B.RHOR] = k[B.RR], k[B.RHOR]
+                s.view(numpy.int32)[B.REFRESHES] += 1
+            B.decide_plain(s, need, dt)
+        return replay
+    return [
+        ('dots', dots(), {}, None),
+        ('dots two', dots(two=True), {}, None),
+        ('dots start', dots(start=True), {'k': 0}, start),
+        ('dots start at atol', dots(start=True), {'k': 0, 'atol': 1e30}, start),
+        ('s', s_, {}, None),
+        ('s rv <= eps', s_, {'rv': 0.0}, None),
+        ('xr', xr, {}, claim),
+        ('xr tt <= eps', xr, {'tt': 0.0}, claim),
+        ('xr claimed', xr, {'atol': 1e30}, claim),
+        ('xr scheduled', xr, {'k': 63}, claim),
+        ('refresh none', refresh, {}, decide(False)),
+        ('refresh', refresh, {'need': 1, 'lastres': 1e30, 'stall': 2}, decide(True)),
+        ('refresh stalled', refresh, {'need': 1, 'lastres': 1e-30, 'stall': 3}, decide(True)),
+        ('refresh refuted claim', refresh, {'need': 1, 'claimed': 1}, decide(True)),
+        ('refresh accepted claim', refresh, {'need': 1, 'claimed': 1, 'atol': 1e30}, decide(True)),
+        ('refresh rho breakdown', refresh, {'rhor': 0.0}, decide(False)),
+        ('refresh omega breakdown', refresh, {'omega': 0.0, 'rho': 0.0}, decide(False)),
+        ('refresh capped', refresh, {'k': 999}, decide(False)),
+        ('p', p, {}, None),
+        ('p breakdown', p, {'breakdown': 1}, None),
+    ]
+
+
+K10_KERNELS = {'dots': bicgstab.bicg_dots, 's': bicgstab.bicg_s, 'xr': bicgstab.bicg_xr,
+               'refresh': bicgstab.bicg_refresh, 'p': bicgstab.bicg_p}
+K10_PLAIN = {'dots': bicgstab.dots_plain, 's': bicgstab.s_plain, 'xr': bicgstab.xr_plain,
+             'refresh': bicgstab.refresh_plain, 'p': bicgstab.p_plain}
+K10_SUMS = {bicgstab.RV: ('rhat', 'v'), bicgstab.TT: ('t', 't'), bicgstab.TS: ('t', 's'), bicgstab.RR: ('r', 'r'),
+            bicgstab.RHOR: ('rhat', 'r')}
+
+
+def _bicg_vectors(dev, dtype, n, seed=14):
+    rng = numpy.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+            for k in ('x', 'r', 'phat', 'shat', 's', 't', 'rhat', 'v', 'p', 'b', 'y')}
+
+
+def _k10_run(call, f, vectors, dev, dtype, n, kwargs):
+    v = {k: t.clone() for k, t in vectors.items()}
+    st = _bicg_state(dev, dtype, n, **kwargs)
+    call(f, v, st)
+    torch.cuda.synchronize()
+    return v, st
+
+
 @pytest.mark.parametrize('dtype,tol', TOLS)
-@pytest.mark.parametrize('breakdown', [False, True])
-def test_bicgstab_kernels(cuda, dtype, tol, breakdown):
-    # each K10 kernel against its plain version on the same inputs; sums on
-    # the scale of their terms, the rest on their largest value
-    rng = numpy.random.default_rng(10)
-    n = 100003
-    x, r, phat, shat, s, t, rhat, v, p = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
-                                          for _ in range(9))
-    sc = tbi.scalars(dtype, cuda)
-    sc[:tbi.EPS] = torch.as_tensor(rng.random(tbi.EPS) + 0.5, dtype=dtype, device=cuda)
+@pytest.mark.parametrize('n', KRYLOV_SIZES)
+def test_bicgstab_kernels(cuda, n, dtype, tol):
+    # each K10 entry against its plain version on the same state: vectors to
+    # the tolerance of their largest value, sums on the scale of their
+    # terms; the last block's decisions (the claim, the refresh, the stall,
+    # the breakdown, beta, rho, k and the exit) bit for bit the plain scalar
+    # functions' on the kernel's own sums; no ticket left
+    vectors = _bicg_vectors(cuda, dtype, n)
+    B = bicgstab
+    for name, call, kwargs, replay in _k10_cases():
+        (vk, sk), (vp, sp) = (_k10_run(call, f, vectors, cuda, dtype, n, kwargs) for f in (K10_KERNELS, K10_PLAIN))
+        for key in vp:
+            assert _close(vk[key], vp[key], tol), (name, key)
+        assert int(sk.view(torch.int32)[B.TICKET]) == 0, name
+        for slot, (a, b) in K10_SUMS.items():
+            # the sums over this run's vectors (r is the updated one)
+            va, vb = (vp[key] for key in (a, b))
+            assert abs(float(sk[slot] - sp[slot])) <= tol * float((va * vb).abs().sum()), (name, slot)
+        got = sk[:B.HEAD].cpu().numpy()
+        if replay is None:
+            want = sp[:B.HEAD].cpu().numpy().copy()
+            for slot in K10_SUMS:
+                want[slot] = got[slot]
+        else:
+            want = _bicg_state(cuda, dtype, n, **kwargs)[:B.HEAD].cpu().numpy().copy()
+            replay(want, got, _np(dtype))
+        assert numpy.array_equal(got, want), (name, numpy.flatnonzero(got != want)[:8])
 
-    def both(kernel, plain, *args):
-        a = [u.clone() if isinstance(u, torch.Tensor) else u for u in args]
-        b = [u.clone() if isinstance(u, torch.Tensor) else u for u in args]
-        kernel(*a)
-        plain(*b)
-        return a, b
 
-    def close(got, want, scale=None):
-        err = float((got - want).abs().max())
-        return err <= tol * (float(want.abs().max()) if scale is None else scale)
-
-    a, b = both(tbi.bicg_dots, tbi.dots_plain, t, t, s, sc, tbi.TT, tbi.TS)
-    assert close(a[3], b[3], float((t * t).sum() + (t * s).abs().sum()))
-    a, b = both(tbi.bicg_dots, tbi.dots_plain, rhat, v, None, sc, tbi.RV)
-    assert close(a[3], b[3], float((rhat * v).abs().sum()))
-    a, b = both(tbi.bicg_s, tbi.s_plain, r, v, sc, s, tbi.RHO[0])
-    assert close(a[3], b[3]) and close(a[2], b[2])
-    a, b = both(tbi.bicg_xr, tbi.xr_plain, x, r, phat, shat, s, t, rhat, sc)
-    assert all(close(u, w) for u, w in zip(a[:2], b[:2]))
-    assert close(a[7][:tbi.RR], b[7][:tbi.RR])
-    assert close(a[7], b[7], float((a[1] * a[1]).sum() + (a[1] * rhat).abs().sum()))
-    a, b = both(tbi.bicg_p, tbi.p_plain, p, r, v, rhat, sc, breakdown, tbi.RHO[0], tbi.RHO[1])
-    assert all(close(u, w) for u, w in zip(a[:5], b[:5]))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n', KRYLOV_SIZES)
+def test_bicgstab_kernels_are_deterministic_and_predicated(cuda, n, dtype):
+    # bitwise equal over two runs; nothing written while the active flag is
+    # clear
+    vectors = _bicg_vectors(cuda, dtype, n)
+    for name, call, kwargs, _replay in _k10_cases():
+        (v1, s1), (v2, s2) = (_k10_run(call, K10_KERNELS, vectors, cuda, dtype, n, kwargs) for _ in range(2))
+        assert all(torch.equal(v1[k], v2[k]) for k in vectors) and torch.equal(s1, s2), name
+        v, st = _k10_run(call, K10_KERNELS, vectors, cuda, dtype, n, dict(kwargs, active=0))
+        assert all(torch.equal(v[k], vectors[k]) for k in vectors), name
+        assert torch.equal(st, _bicg_state(cuda, dtype, n, **dict(kwargs, active=0))), name
 
 
 def test_cuda_ns_tri_step_goes_through_the_kernels(cuda):
     # the triangle Navier-Stokes step at 6x6 in float64 on the card: K6-K10
-    # launch, and the GMRES and BiCGStab solutions are the CPU's (plain
-    # versions) to 1e-8, in as many iterations
+    # launch, both loops replay CUDA graphs, and the GMRES and BiCGStab
+    # solutions are the CPU's (plain versions) to 1e-8, in as many
+    # iterations
     import _torch_parity as tp
     from nutils_tpu_torch.utils import config
-    wrappers = {'gmres': [tgm.gmres_project, tgm.gmres_update, tgm.gmres_normalize, tgm.gmres_combine],
-                'bicgstab': [tbi.bicg_dots, tbi.bicg_s, tbi.bicg_xr, tbi.bicg_p]}
+    wrappers = {'gmres': [gmres.gmres_project, gmres.gmres_update, gmres.gmres_normalize, gmres.gmres_start,
+                          gmres.gmres_residual, gmres.gmres_solve_combine],
+                'bicgstab': [bicgstab.bicg_dots, bicgstab.bicg_s, bicgstab.bicg_xr, bicgstab.bicg_refresh,
+                             bicgstab.bicg_p]}
     shared = [sparse.csr_scatter, sparse.csr_matvec, sparse.schur_diag_inverse_device]
     out = {}
     for device in ('cuda', 'cpu'):
@@ -716,6 +1053,8 @@ def test_cuda_ns_tri_step_goes_through_the_kernels(cuda):
     for method in wrappers:
         (xa, sa), (xb, sb) = out['cuda', method], out['cpu', method]
         assert sa['op_form'] == 'csr' and sa['accepted_on_device'] and sa['iters'] == sb['iters']
+        assert sa['driver'] == 'graph' and sb['driver'] == 'host'
+        assert sa['host_reads'] <= sa['chunks'] + sa.get('cycles', 0) + sa['rounds']
         assert numpy.linalg.norm(xa - xb) <= 1e-8 * numpy.linalg.norm(xb)
 
 
