@@ -4,7 +4,7 @@ CUDA card and check it: the quickest proof that the port still starts on
 the GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only kernels   # K1-K3, K7, K11-K14's rows alone, no solves
+    python3 chip_smoke.py --only kernels   # K1-K3, K7, K11-K15's rows alone, no solves
     python3 chip_smoke.py --only assemble  # warm assemblies alone, no solves
     python3 chip_smoke.py --only finitestrain  # the finite-strain phases alone
     python3 chip_smoke.py --only krylov    # K6/K10 rows and the Navier-Stokes GMRES/BiCGStab solves alone
@@ -13,11 +13,12 @@ Phases, each printing JSON lines (``--only kernels``: device, build, K3's
 rows at the slice's, the example's and the finite-strain grids, K1's at
 the slice's, a periodic, the example's grid and each smoothed level of
 the finite-strain hierarchy, K2's fused sweeps at those levels, the
-``assembly_kernels`` rows of the slice, NS, triangles and elasticity,
-K7's rows on the NS and triangle jacobians, the example's chunk rows and
-``elasticity_kernels``; run from another checkout's root, with this script
-copied there, it measures that checkout's kernels at the same shapes and
-inputs, K1's, K2's, K3's and K7's outputs' sha1 digests among them;
+``assembly_kernels`` rows of the slice, NS, triangles, elasticity and
+finite strain, K7's rows on the NS and triangle jacobians, the example's
+chunk rows, ``elasticity_kernels`` and K15 on the finite-strain integrand;
+run from another checkout's root, with this script copied there, it
+measures that checkout's kernels at the same shapes and inputs, K1's,
+K2's, K3's, K7's, K11's, K12's and K15's outputs' sha1 digests among them;
 ``--only assemble``: device, build
 and ``assemble_only``, many warm assemblies of each path, for comparing
 two checkouts the same way):
@@ -54,8 +55,9 @@ two checkouts the same way):
    read around the run; a warm solve's counts are its replays times each
    graph's launches, plus the refinement's residuals); then
    ``assembly_kernels``: K11 and K12 against their plain versions at the
-   slice's shapes (each K11 row with the launch plan it took,
-   ``ops/assembly.matrix_plan``, and whether two launches gave the same
+   slice's shapes (each row with the launch plan it took,
+   ``ops/assembly.matrix_plan`` / ``vector_plan``, never K12's generic
+   kernel, the sha1 of its output and whether two launches gave the same
    bits), and a profile of one warm assembly.
 5. slice_driver — on the same slice: the graph driver against the host
    loop (bitwise x, the same iterations and rounds), warm solves at chunk
@@ -158,17 +160,23 @@ two checkouts the same way):
    residual norm, the energies and relaxations of its trials, the inner
    solve's record, ``t_assemble``, ``t_value`` and the constrained solve's
    set-up and Krylov times (the methods are wrapped and timed, the log
-   lines read); K15 in every value assembly, K11/K12 and the inner MG-CG's
-   K1-K4 launched, K1 in its tiled form and K2 in its component form
-   alone, no single sweep and no plain version run, the residual at
-   1e-10; then one inner solve on the converged jacobian under the
-   profiler (wall, device-busy time, K1's and K2's device time).
+   lines read); in every value assembly exactly one K15 launch that
+   finishes the value (the segment sum folded in: no ``elem_value_sum``
+   launch), K11/K12 and the inner MG-CG's K1-K4 launched, K1 in its tiled
+   form and K2 in its component form alone, no single sweep and no plain
+   version run, the residual at 1e-10; then one inner solve on the
+   converged jacobian under the profiler (wall, device-busy time, K1's and
+   K2's device time).
 23. finitestrain_kernels — K15 (``elem_value``, ``elem_value_sum``)
    against its plain version on the converged energy's integrand (518,400
    elements of 4 points) in float32 and float64: the error, two launches
    the same bits, chunks of a multiple of the span the same partials as
    one piece, and the System's chunked value (``config.assembly_chunk``)
-   the same bits as one piece; times beside ``torch.sum``.
+   the same bits as one piece; times beside ``torch.sum``; the folded
+   launch (``elem_value(finish=)``) bit for bit the two launches it
+   replaced and timed beside them; then ``assembly_kernels`` on the
+   converged System (K11 and K12 at its block: E 518,400, Q 4, A 4, I 8,
+   float64).
 24. finitestrain_parity — the example at 16 elements a side on the card and
    on the CPU: u0 and u1 agree to 1e-10 relative, the values to 1e-12.
 25. mg_setup — every multigrid set-up of the run, by phase: how many, the
@@ -186,7 +194,10 @@ and K2's fused launches by form on each path (``launches_by_form``: the
 slice and the example tiled and 2-D, the degree-2 example 2-D, the
 elasticity squares generic, finite strain tiled and components; each
 phase asserts its own), and K1-K3's rows at the other paths' grids
-(``rows``).
+(``rows``).  ``elem_value_sum`` is off the path (its launches 0): the
+value's segment sum runs in its last ``elem_value`` launch, whose
+launches the row ``elem_value[finish]`` counts.  No launch of the run
+takes K12's generic kernel (asserted).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
@@ -240,6 +251,9 @@ KERNELS = {
     'mask_post': ('cuda', 'nutils_tpu_torch/csrc/masked.cu', 'nutils_tpu/ops/sparse.py:274'),
     'elem_value': ('cuda', 'nutils_tpu_torch/csrc/value.cu', 'nutils_tpu/solver.py:985'),
     'elem_value_sum': ('cuda', 'nutils_tpu_torch/csrc/value.cu', 'nutils_tpu/solver.py:985'),
+    # K15's segment sum folded into a value's last elem_value launch: the
+    # same wrapper, its finishing launches read on the finite-strain path
+    'elem_value[finish]': ('cuda', 'nutils_tpu_torch/csrc/value.cu', 'nutils_tpu/solver.py:985'),
 }
 # the factored assembly's element contractions run on all three paths
 ASSEMBLY_KERNELS = ('elem_matrix', 'elem_vector')
@@ -271,9 +285,11 @@ SQUARE_NELEMS = 256
 SQUARE_KERNELS = ('block_apply', 'stencil_matvec', 'cg_dot', 'cg_step', 'cg_xpby') + ASSEMBLY_KERNELS
 BLOCK_CG = {'solver': 'cg', 'precon': 'block', 'preconargs': {'blocksize': 2}}
 # the finite-strain example's energy minimization: the value through K15 on
-# every line-search trial, the jacobian and residual through K11 and K12
+# every line-search trial (one finishing elem_value a value, the segment sum
+# folded into it: elem_value_sum is not launched), the jacobian and
+# residual through K11 and K12
 FINITESTRAIN_NELEMS = 720
-VALUE_KERNELS = ('elem_value', 'elem_value_sum')
+VALUE_KERNELS = ('elem_value',)
 # the inner solves: CG from CUDA graphs (K4) with the V-cycle (K1-K3) on the
 # masked stencil operator of the vector field's grid
 FINITESTRAIN_KERNELS = VALUE_KERNELS + ASSEMBLY_KERNELS + ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict',
@@ -324,7 +340,13 @@ def wrappers():
             'bicg_xr': bicgstab.bicg_xr, 'bicg_refresh': bicgstab.bicg_refresh, 'bicg_p': bicgstab.bicg_p}
 
 
+# K12's launches on its generic kernel (an operand that vector_plan
+# refuses), summed over the run's resets: none may come from any path
+GENERIC_K12 = [0]
+
+
 def reset_launches():
+    GENERIC_K12[0] += getattr(wrappers()['elem_vector'], 'forms', {}).get('generic', 0)
     for wrapper in wrappers().values():
         wrapper.launches = 0
         if getattr(wrapper, 'forms', None):
@@ -1609,11 +1631,31 @@ def k11_plan(Bt, K, Bs):
     return dict({key: plan[key] for key in keys}, copy_vec={name: c['vec'] for name, c in plan['copies'].items()})
 
 
+def k12_plan(Bt, g):
+    """The launch plan K12 takes for these operands (``ops/assembly.
+    elem_vector_plan``), without its copies' strides: the regime, elements a
+    group, threads, the register tile, shared-memory bytes, the slices on
+    16 bytes and each operand's copy width in values.  Raises where the
+    plan refuses the operands (K12's generic kernel: no path may reach it).
+    None for a package whose K12 has no host plan (an older checkout,
+    measured with this script for a "before")."""
+    from nutils_tpu_torch.ops import assembly
+    if not hasattr(assembly, 'elem_vector_plan'):
+        return None
+    plan = assembly.elem_vector_plan(Bt, g)
+    if plan['regime'] == 'generic':
+        raise AssertionError(f'K12: operands Bt {tuple(Bt.shape)}, g {tuple(g.shape)} take the generic kernel')
+    keys = ('regime', 'G', 'threads', 'stages', 'ti', 'te', 'smem', 'shBt', 'align16')
+    return dict({key: plan[key] for key in keys}, copy_vec={name: c['vec'] for name, c in plan['copies'].items()})
+
+
 def phase_assembly_kernels(system, clean, path):
     """K11 and K12 against their plain versions (one ``torch.einsum``) at
     the shapes of every block of the path's assembly, in its precision; the library
     call is the same contraction through one ``torch.einsum`` call.  K11's
-    rows give its launch plan.  Returns {name: row} of the largest block."""
+    and K12's rows give their launch plans (K12's never the generic kernel)
+    and the sha1 of their outputs (to compare with another package's at the
+    same inputs).  Returns {name: row} of the largest block."""
     import torch
     from nutils_tpu_torch.ops import assembly
     results = {}
@@ -1641,7 +1683,7 @@ def phase_assembly_kernels(system, clean, path):
             err, relerr = _compare(got, want, scale)
             (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
             fields = row(err, ms, plain_ms, nbytes, flops, time_ms(library)[0], peak)
-            extra = dict(plan=k11_plan(Bt, K, Bs)) if name == 'elem_matrix' else {}
+            extra = dict(plan=k11_plan(Bt, K, Bs) if name == 'elem_matrix' else k12_plan(Bt, g), sha1=digest(got))
             check_row(name, f'{path} {label}', str(K.dtype).split('.')[1], relerr,
                       dict(fields, E=E, Q=Q, A=A, B=B, I=I, J=J, shared_operators=shared,
                            bitwise_repeat=bool(torch.equal(got, again)), call_ms=call_ms, **extra))
@@ -2090,7 +2132,7 @@ def phase_chunk_kernels(system, clean):
         err, relerr = _compare(got, want, scale)
         (ms, call_ms), (plain_ms, _pc) = time_ms(kernel), time_ms(plain)
         fields = row(err, ms, plain_ms, nbytes, flops, time_ms(library)[0], peak=F64_FLOPS)
-        extra = dict(plan=k11_plan(Bt, Kts, Bs)) if name == 'elem_matrix' else {}
+        extra = dict(plan=k11_plan(Bt, Kts, Bs) if name == 'elem_matrix' else k12_plan(Bt, gt), sha1=digest(got))
         check_row(name, f'laplace_example chunk {rows.start}:{rows.stop} of {E}', 'float64', relerr,
                   dict(fields, E=ce, Q=Q, A=A, B=B, I=I, J=J, in_place=in_place, other_rows_untouched=untouched,
                        bitwise_repeat=repeat, call_ms=call_ms, **extra))
@@ -2566,6 +2608,12 @@ def mg_summary(made):
     return out
 
 
+def k15_counts():
+    """[elem_value's launches, its finishing ones, elem_value_sum's]."""
+    from nutils_tpu_torch.ops import assembly
+    return [assembly.elem_value.launches, assembly.elem_value.forms.get('finish', 0), assembly.elem_value_sum.launches]
+
+
 @contextlib.contextmanager
 def solve_events(on_iter=None):
     """Record, while the block is open, what a nonlinear solve does, in
@@ -2603,7 +2651,7 @@ def solve_events(on_iter=None):
         return cls, name, fn, wrapper
 
     def value_extra(_self, out):
-        return {'value': out, 'k15': [assembly.elem_value.launches, assembly.elem_value_sum.launches]}
+        return {'value': out, 'k15': k15_counts()}
     patches = [
         timed(solver.System, 'assemble_jacobian_residual', 'jacres',
               lambda _s, out: {'resnorm': float(numpy.linalg.norm(out[1]))}),
@@ -2731,7 +2779,7 @@ def phase_finitestrain(nelems=FINITESTRAIN_NELEMS):
         emit('finitestrain_linear', t_solve_entry=t_linear, parts=iteration_summary(0, lin_events))
         reset_launches()
         iterations = []
-        k15 = [[assembly.elem_value.launches, assembly.elem_value_sum.launches]]
+        k15 = [k15_counts()]
 
         def on_iter(evs):
             for e in evs:
@@ -2744,6 +2792,7 @@ def phase_finitestrain(nelems=FINITESTRAIN_NELEMS):
             t_minimize, args1 = _sync_time(lambda: system.solve(arguments=args0, constrain=cons, method=Minimize(),
                                                                 tol=1e-10))
             launches = read_launches(tuple(wrappers()))
+            launches['elem_value[finish]'] = assembly.elem_value.forms['finish']
             # every level of the vector field's hierarchy smooths in K2's
             # component form, its operators' products in K1's tiled form
             forms = read_forms('finitestrain', {'stencil_matvec': 'tile', 'jacobi_pre': 'components',
@@ -2792,13 +2841,82 @@ def phase_finitestrain(nelems=FINITESTRAIN_NELEMS):
         raise AssertionError(f'finitestrain: jac @ v through the device operator {rel_matvec:.3e} from scipy\'s')
     if not galerkin_equal:
         raise AssertionError('finitestrain: the planned Galerkin product differs from scipy\'s')
-    short = [it['iteration'] for it in iterations if any(d[0] < 1 or d[1] != 1 for d in it['k15_per_value'])]
+    # every value assembly: one finishing elem_value launch (its only one,
+    # the functional being one part), no elem_value_sum launch
+    short = [it['iteration'] for it in iterations
+             if any(d[0] < 1 or d[1] != 1 or d[2] != 0 for d in it['k15_per_value'])]
     missing = [name for name in FINITESTRAIN_KERNELS if launches[name] <= 0]
-    if short or missing or plain or not values or launches['jacobi_smooth']:
-        raise AssertionError(f'finitestrain: K15 missing from a value assembly in iterations {short}, kernels not '
-                             f'launched {missing}, plain versions run {plain}, single sweeps '
-                             f'{launches["jacobi_smooth"]}')
+    emit('finitestrain_launches', values=len(values), elem_value=launches['elem_value'],
+         finishing=launches['elem_value[finish]'], elem_value_sum=launches['elem_value_sum'],
+         elem_matrix=launches['elem_matrix'], elem_vector=launches['elem_vector'])
+    if short or missing or plain or not values or launches['jacobi_smooth'] or launches['elem_value_sum'] \
+            or launches['elem_value[finish]'] != len(values):
+        raise AssertionError(f'finitestrain: not one finishing K15 launch in a value assembly in iterations {short} '
+                             f'({launches["elem_value[finish]"]} for {len(values)} values, elem_value_sum '
+                             f'{launches["elem_value_sum"]}), kernels not launched {missing}, plain versions run '
+                             f'{plain}, single sweeps {launches["jacobi_smooth"]}')
     return launches, system, args1, value
+
+
+def fold_row(f, label):
+    """K15 on a value of one part ``f`` [E, P] as the value assembly takes
+    it: one ``elem_value`` launch that finishes the value (``finish=``),
+    against the two launches it replaces (``elem_value`` then
+    ``elem_value_sum``, timed together from one CUDA graph) and its plain
+    version: the same bits as both, the sha1 of the partials and the value
+    (to compare with another package's at the same inputs), the time (from
+    a CUDA graph, and ``call_ms`` of eager calls, host launches included,
+    both for the two launches too), the bound (f read once, the partials
+    and the value written once) and ``torch.sum``'s time.  In a package without the fold (an older
+    checkout), the two launches' row alone.  Returns the fold's row."""
+    import inspect
+    import torch
+    from nutils_tpu_torch.ops import assembly
+    dname = str(f.dtype).split('.')[1]
+    isz = f.element_size()
+    E, P = f.shape
+    nb = assembly.value_blocks(E, P)
+    parts, total = torch.empty(nb, dtype=f.dtype, device=f.device), torch.empty(1, dtype=f.dtype, device=f.device)
+
+    def two():
+        assembly.elem_value(f, out=parts)
+        assembly.elem_value_sum(parts, [0, nb], out=total)
+    two()
+    torch.cuda.synchronize()
+    want_parts, want_total = parts.clone(), total.clone()
+    two_ms, two_call_ms = time_ms(two)
+    nbytes, flops = (E * P + nb + 1) * isz, E * P + nb
+    peak = F32_FLOPS if f.dtype == torch.float32 else F64_FLOPS
+    if 'finish' not in inspect.signature(assembly.elem_value).parameters:
+        bound_ms, _by = bound(nbytes, flops, peak)
+        emit('kernel', name='elem_value+elem_value_sum', case=label, dtype=dname, E=E, P=P, blocks=nb,
+             two_launch_ms=two_ms, two_launch_call_ms=two_call_ms, bound_ms=bound_ms, sha1=digest(want_parts),
+             value_sha1=digest(want_total))
+        return None
+
+    def fold():
+        assembly.elem_value(f, out=parts, finish=(parts, [0, nb], total))
+    before = assembly.elem_value.forms['finish']
+    parts.zero_(), total.zero_()
+    fold()
+    torch.cuda.synchronize()
+    launched = assembly.elem_value.forms['finish'] - before
+    same = bool(torch.equal(parts, want_parts) and torch.equal(total, want_total))
+    plain_parts = torch.empty_like(parts).cpu()
+    plain_total = torch.empty(1, dtype=f.dtype)
+    assembly.elem_value_plain(f.cpu(), out=plain_parts, finish=(plain_parts, [0, nb], plain_total))
+    err, relerr = _compare(total.cpu(), plain_total, f.double().abs().sum())
+    (ms, call_ms), (plain_ms, _pc) = time_ms(fold), time_ms(
+        lambda: assembly.elem_value_plain(f, out=parts, finish=(parts, [0, nb], total)))
+    fields = row(err, ms, plain_ms, nbytes, flops, time_ms(lambda: torch.sum(f))[0], peak)
+    check_row('elem_value[finish]', label, dname, relerr, dict(
+        fields, E=E, P=P, blocks=nb, call_ms=call_ms, two_launch_ms=two_ms, two_launch_call_ms=two_call_ms,
+        same_bits_as_two_launches=same,
+        finishing_launches=launched, sha1=digest(parts), value_sha1=digest(total)))
+    if not (same and launched == 1):
+        raise AssertionError(f'K15 fold ({label}, {dname}): the same bits as two launches {same}, '
+                             f'{launched} finishing launches')
+    return fields
 
 
 def phase_finitestrain_kernels(system, args, value):
@@ -2808,8 +2926,9 @@ def phase_finitestrain_kernels(system, args, value):
     partials of element chunks (multiples of the span) written into their
     rows equal to one piece's, and the same through the System
     (``config.assembly_chunk``); the time (a CUDA graph of 10 calls), the
-    bound and ``torch.sum``'s time.  Returns {name: row} in float64, the
-    path's dtype."""
+    bound and ``torch.sum``'s time; ``elem_value_sum`` (off the path) and
+    the folded launch (:func:`fold_row`).  Returns {name: row} in float64,
+    the path's dtype."""
     import numpy
     import torch
     from nutils_tpu_torch.ops import assembly
@@ -2867,6 +2986,9 @@ def phase_finitestrain_kernels(system, args, value):
                 results[name] = fields
         if not (repeat and chunk_equal):
             raise AssertionError(f'K15 ({dname}): two launches the same bits {repeat}, chunks equal {chunk_equal}')
+        fold = fold_row(f, 'finitestrain')
+        if dtype == torch.float64:
+            results['elem_value[finish]'] = fold
     emit('finitestrain_chunked_value', chunk=ce, chunks=plan['nc'] if plan else 1, value=value,
          chunked_value=chunked_value, bitwise_equal=chunked_value == value)
     if plan is None or chunked_value != value:
@@ -3009,16 +3131,34 @@ def krylov_only():
     emit('done', seconds=time.perf_counter() - t0)
 
 
+def finitestrain_system(nelems=FINITESTRAIN_NELEMS):
+    """The finite-strain energy's System at ``nelems`` squares a side in
+    float64 (as :func:`phase_finitestrain` builds it) and a displacement of
+    1e-3 standard normal entries from seed 45."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch.solver import System
+    from nutils_tpu_torch.utils import config
+    config.floatx.value = numpy.float64
+    _domain, _ns, _sqr, _energy, energy1 = tp.finitestrain_forms('nutils_tpu_torch', nelems, 'square', 'std', 1, .25,
+                                                                 20.)
+    system = System(energy1, trial='u')
+    return system, {'u': 1e-3 * numpy.random.default_rng(45).standard_normal(system.trial_shapes[0])}
+
+
 def kernels_only():
     """``--only kernels``: kernel rows alone, without the solves: K3 at the
     slice's, the example's and the finite-strain grids, K1 at the slice's,
     a periodic and the example's grid and K1 and K2's fused sweeps at every
     smoothed level of the finite-strain hierarchy; K11 and K12 at every block of the
-    slice, the NS step, the triangle step and the elasticity example and on
-    one of the Laplace example's chunks; K7 on the NS step's and the
-    triangle step's jacobians; K13 and K14 at the elasticity path's shapes
-    (its free rows from ``solve_constraints``, random nodal blocks).  K1's,
-    K2's, K3's and K7's rows carry the sha1 of their outputs.  Run from another
+    slice, the NS step, the triangle step, the elasticity example and the
+    finite-strain energy at 720^2 and on one of the Laplace example's
+    chunks; K7 on the NS step's and the triangle step's jacobians; K13 and
+    K14 at the elasticity path's shapes (its free rows from
+    ``solve_constraints``, random nodal blocks); K15 on the finite-strain
+    energy's integrand, its two launches and (where the package folds) its
+    folded one.  K1's, K2's, K3's, K7's, K11's, K12's and K15's rows carry
+    the sha1 of their outputs.  Run from another
     checkout's root (a copy of this script beside its package), it
     measures that checkout's kernels at the same shapes and inputs."""
     import _torch_parity as tp
@@ -3063,6 +3203,17 @@ def kernels_only():
         free = numpy.isnan(cons['u']).ravel()
         minv = numpy.random.default_rng(3).standard_normal((len(free) // 2, 2, 2))
         phase_elasticity_kernels(minv, free)
+        del system, cons, free, minv
+        torch.cuda.empty_cache()
+        # the finite-strain energy at 720^2 at a seeded displacement: K11,
+        # K12 and K15 (the value's launch, folded where the package folds)
+        system, args = finitestrain_system()
+        clean = system._clean(args)
+        phase_assembly_kernels(system, clean, 'finitestrain')
+        dargs = system._device_args(clean)
+        leaves = system._bound_leaves(dargs, {}, system._tables())
+        form = next(part[1] for part in system._value_parts() if part[0] == 'form')
+        fold_row(form.integrand(dargs, leaves).contiguous(), 'finitestrain')
     emit('done', seconds=time.perf_counter() - t0)
 
 
@@ -3198,12 +3349,15 @@ def main():
     launches.update({name: elasticity_launches[name] for name in ('block_apply', 'mask_pre', 'mask_post')})
     finitestrain_launches, system, args, value = phase_finitestrain()
     measured.update(phase_finitestrain_kernels(system, args, value))
+    with config.floatx(numpy.float64), config.device('cuda'):  # the example's own precision
+        finitestrain_rows = phase_assembly_kernels(system, system._clean(args), 'finitestrain')
     del system
     torch.cuda.empty_cache()
     phase_finitestrain_parity()
     by_path['finitestrain'] = {name: finitestrain_launches[name] for name in ASSEMBLY_KERNELS}
     mg_by_path['finitestrain'] = finitestrain_launches
-    launches.update({name: finitestrain_launches[name] for name in VALUE_KERNELS})
+    launches.update({name: finitestrain_launches[name] for name in VALUE_KERNELS + ('elem_value_sum',
+                                                                                    'elem_value[finish]')})
     # K1-K4: launches summed over the paths that run them, each path's
     # beside them
     for name in MG_KERNELS:
@@ -3220,12 +3374,19 @@ def main():
         measured[name] = dict(measured[name], launches_by_path=by)
     # K11 and K12: launches summed over the paths' runs, each path's beside
     # them; their float64 measurements on one of the example's element
-    # chunks, written in place, and on the elasticity example's block,
-    # beside those of the largest block
+    # chunks, written in place, on the elasticity example's block and on
+    # the finite-strain one, beside those of the largest block
     for name in ASSEMBLY_KERNELS:
         launches[name] = sum(counts[name] for counts in by_path.values())
         measured[name] = dict(measured[name], launches_by_path={path: counts[name] for path, counts in by_path.items()},
-                              float64_chunk=chunk_rows[name], elasticity_block=elasticity_rows[name])
+                              float64_chunk=chunk_rows[name], elasticity_block=elasticity_rows[name],
+                              finitestrain_block=finitestrain_rows[name])
+    # no launch of the run took K12's generic kernel
+    reset_launches()
+    emit('k12_generic_launches', launches=GENERIC_K12[0])
+    if GENERIC_K12[0]:
+        raise AssertionError(f'K12 launched its generic kernel {GENERIC_K12[0]} times: a path has operands that '
+                             'vector_plan refuses')
     emit('mg_setup', phases=mg_summary(made))
     emit('done', seconds=time.perf_counter() - t0)
     print(json.dumps({'kernels': [

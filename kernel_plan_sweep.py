@@ -30,6 +30,20 @@ constant ``PER``; one nvcc each, in parallel) and runs at the elasticity
 path's n = 1,039,682 beside the package's own launch and ``torch.mul``.
 One JSON line a case; measure with ``chip_smoke.py`` (``--only kernels``)
 once a plan is chosen.
+
+    python3 kernel_plan_sweep.py --k12
+
+K12 (the element vectors, ``ops/assembly.vector_plan``) the same way at
+the eight operand shapes of the paths' residuals (g a strided slice of the
+point gradient where the paths hand it over so): under settings of
+``VECTOR_THREADS`` (a block's least threads), ``STAGES``,
+``VECTOR_BUDGET`` and ``VECTOR_SHARED_BUDGET`` (set alike), ``VECTOR_TE`` (elements a register tile where Bt is
+shared) and ``VECTOR_GROUPS`` (groups at least), each the committed plan's
+bits; a child process (``--probe k12_copies_only``) times K12's copies
+alone; then K15's folded value launch beside the two launches it replaced
+(``chip_smoke.fold_row``) on random integrands of the finite-strain path's
+shape, float32 and float64, as committed and, in child processes
+(``--probe fold_spans<n>``), with 1, 2 or 4 spans a block.
 '''
 
 import contextlib
@@ -55,12 +69,29 @@ BLOCKS = {('ns', 'vu'): (108900, 16, 6, 6, 18, 18, 7, False, True, 'float32'),
           ('laplace_example', 'chunk'): (2097152, 4, 2, 2, 4, 4, 4, False, True, 'float64'),
           ('elasticity', 'uu'): (259200, 6, 6, 6, 12, 12, 6, True, True, 'float64')}
 
+# K12's operands: (path, residual): (E, Q, A, I, shared Bt, features a
+# point of the gradient g slices, the slice's first feature, dtype)
+VECTORS = {('ns', 'v'): (108900, 16, 6, 18, False, 14, 7, 'float32'),
+           ('ns', 'q'): (108900, 16, 1, 4, False, 14, 13, 'float32'),
+           ('ns_tri', 'v'): (217800, 12, 6, 12, True, 14, 7, 'float32'),
+           ('ns_tri', 'q'): (217800, 12, 1, 3, True, 14, 13, 'float32'),
+           ('slice', 'u'): (1048576, 4, 3, 4, False, 3, 0, 'float32'),
+           ('laplace_example', 'chunk'): (2097152, 4, 2, 4, False, 4, 2, 'float64'),
+           ('elasticity', 'u'): (259200, 6, 6, 12, True, 6, 0, 'float64'),
+           ('finitestrain', 'u'): (518400, 4, 4, 8, False, 4, 0, 'float64')}
+
 # K11's probes: label -> (text of csrc/assembly.cu as committed, its
 # replacement)
 PROBE = '    T* sV = sm + p.oV;\n'
 COPIES = '  auto issue = [&](long long grp, int slot) {\n'
 PROBES = {'copies_only': (PROBE, PROBE + '    if (E >= 0) continue;  // the copies alone\n'),
           'without_copies': (COPIES, COPIES + '    if (E >= 0) return;  // no copies\n')}
+# K12's: its copies alone
+K12_PROBE = '    T* sR = sm + p.oR;\n'
+K12_PROBES = {'k12_copies_only': (K12_PROBE, K12_PROBE + '    if (E >= 0) continue;  // the copies alone\n')}
+# K15's fold (csrc/value.cu): spans a block
+SPANS = 'constexpr int SPANS = 2;'
+FOLD_PROBES = {f'fold_spans{n}': [(SPANS, f'constexpr int SPANS = {n};')] for n in (1, 2, 4)}
 # K14's variants: vectors a thread
 PER = 'constexpr int PER = 1;'
 PERS = (1, 2, 4)
@@ -116,13 +147,16 @@ def entry(path, name):
 
 @contextlib.contextmanager
 def constants(**values):
-    '''K11's plan under other values of ops/assembly's constants.'''
+    '''K11's and K12's plans under other values of ops/assembly's
+    constants.'''
     from nutils_tpu_torch.ops import assembly
     old = {key: getattr(assembly, key) for key in values}
 
     def clear():
         assembly.matrix_plan.cache_clear()
         assembly._packed.cache_clear()
+        assembly.vector_plan.cache_clear()
+        assembly._packed_vector.cache_clear()
     for key, value in values.items():
         setattr(assembly, key, value)
     clear()
@@ -229,6 +263,121 @@ def probe_k11(label):
         torch.cuda.empty_cache()
 
 
+def vector_settings():
+    '''Settings of K12's constants: its least threads a block, the ring's
+    stages, a block's share of a multiprocessor (one or two blocks), the
+    elements of a register tile where Bt is shared (1 or 4) and the groups
+    the elements make at least, each combination; and g's slices the other
+    way (``VECTOR_ALIGN_G``).'''
+    from nutils_tpu_torch.ops import assembly
+    return [{'VECTOR_THREADS': threads, 'STAGES': stages, 'VECTOR_BUDGET': assembly.SMEM_SM // k - 1024,
+             'VECTOR_SHARED_BUDGET': assembly.SMEM_SM // k - 1024, 'VECTOR_TE': te, 'VECTOR_GROUPS': groups}
+            for threads in (0, 256, 512) for stages in (2, 3) for k in (1, 2) for te in (1, 4)
+            for groups in (264, 528, 1056)] + [{'VECTOR_ALIGN_G': not assembly.VECTOR_ALIGN_G}]
+
+
+def vector_operands(E, Q, A, I, shared, At, a0, dname):
+    '''Random Bt and g of a residual, g a slice of a gradient of At
+    features a point, and its bound in ms.'''
+    import numpy
+    import torch
+    dtype = getattr(torch, dname)
+    rng = numpy.random.default_rng(0)
+    Bt = torch.as_tensor(rng.standard_normal((1 if shared else E, Q, A, I), dtype=numpy.float32),
+                         device='cuda').to(dtype)
+    g = torch.as_tensor(rng.standard_normal((E, Q, At), dtype=numpy.float32), device='cuda').to(dtype)[..., a0:a0 + A]
+    peak = chip_smoke.F32_FLOPS if dname == 'float32' else chip_smoke.F64_FLOPS
+    bound_ms, _by = chip_smoke.bound((Bt.numel() + g.numel() + E * I) * g.element_size(), 2 * E * Q * A * I, peak)
+    return Bt, g, bound_ms
+
+
+def k12_fields(p):
+    return {key: p.get(key) for key in ('regime', 'G', 'threads', 'stages', 'ti', 'te', 'smem')}
+
+
+def sweep_k12():
+    import torch
+    from nutils_tpu_torch.ops import assembly
+    for (path, block), shape in VECTORS.items():
+        dname = shape[-1]
+        Bt, g, bound_ms = vector_operands(*shape)
+        plan = assembly.elem_vector_plan(Bt, g)
+        want = assembly.elem_vector(Bt, g)
+        base_ms = chip_smoke.time_ms(lambda: assembly.elem_vector(Bt, g, out=want))[0]
+        out = torch.empty_like(want)
+        best = (base_ms, {})
+        for setting in vector_settings():
+            with constants(**setting):
+                p = assembly.elem_vector_plan(Bt, g)
+                got = assembly.elem_vector(Bt, g, out=out)
+                torch.cuda.synchronize()
+                same_bits = bool(torch.equal(got, want))
+                ms = chip_smoke.time_ms(lambda: assembly.elem_vector(Bt, g, out=out))[0]
+            chip_smoke.emit('k12_setting', path=path, block=block, dtype=dname, setting=setting, **k12_fields(p),
+                            ms=ms, committed_ms=base_ms, bound_ms=bound_ms, same_bits_as_committed=same_bits)
+            if not same_bits:
+                raise AssertionError(f'K12 {path} {block} under {setting} differs from its committed plan')
+            if ms < best[0]:
+                best = (ms, setting)
+        chip_smoke.emit('k12_best', path=path, block=block, dtype=dname, committed_ms=base_ms, bound_ms=bound_ms,
+                        committed=k12_fields(plan), best_ms=best[0], best_setting=best[1])
+        del Bt, g, want, out
+        torch.cuda.empty_cache()
+
+
+def probe_k12(label):
+    '''``--probe k12_copies_only`` (a child process): K12's copies alone
+    (its products and writes cut out) on the committed plan at every
+    residual, beside its bound.'''
+    import shutil
+    import torch
+    from nutils_tpu_torch import _kernels
+    from nutils_tpu_torch.ops import assembly
+    csrc = sweep_dir(label, 'csrc')
+    for src in _kernels.sources():
+        shutil.copy(src, csrc / src.name)
+    (csrc / 'assembly.cu').write_text(patched('assembly.cu', *K12_PROBES[label]))
+    _kernels.CSRC, _kernels.BUILD_ROOT = csrc, csrc.parent / 'build'
+    _path, seconds, _diag = _kernels.build()
+    for (path, block), shape in VECTORS.items():
+        Bt, g, bound_ms = vector_operands(*shape)
+        out = assembly.elem_vector(Bt, g)
+        chip_smoke.emit('k12_probe', probe=label, path=path, block=block, dtype=shape[-1], nvcc_seconds=seconds,
+                        ms=chip_smoke.time_ms(lambda: assembly.elem_vector(Bt, g, out=out))[0], bound_ms=bound_ms)
+        del Bt, g, out
+        torch.cuda.empty_cache()
+
+
+def probe_fold(label):
+    '''``--probe fold_...`` (a child process): K15 built with
+    FOLD_PROBES[label] applied to csrc/value.cu, its fold and its two
+    launches timed (:func:`fold_rows`).'''
+    import shutil
+    from nutils_tpu_torch import _kernels
+    csrc = sweep_dir(label, 'csrc')
+    for src in _kernels.sources():
+        shutil.copy(src, csrc / src.name)
+    text = (_kernels.CSRC / 'value.cu').read_text()
+    for old, new in FOLD_PROBES[label]:
+        if text.count(old) != 1:
+            raise RuntimeError(f'value.cu no longer holds {old!r} once')
+        text = text.replace(old, new)
+    (csrc / 'value.cu').write_text(text)
+    _kernels.CSRC, _kernels.BUILD_ROOT = csrc, csrc.parent / 'build'
+    _kernels.build()
+    fold_rows(label)
+
+
+def fold_rows(label='committed', E=518400, P=4):
+    '''K15's folded launch beside its two launches on a random integrand of
+    the finite-strain path's shape.'''
+    import numpy
+    import torch
+    f = numpy.random.default_rng(2).standard_normal((E, P))
+    for dtype in (torch.float32, torch.float64):
+        chip_smoke.fold_row(torch.as_tensor(f, dtype=dtype, device='cuda'), f'random finitestrain shape, {label}')
+
+
 def sweep_k14(paths, n=1039682):
     import numpy
     import torch
@@ -271,9 +420,23 @@ def main():
     sys.path.insert(0, str(chip_smoke.ROOT))
     if sys.argv[1:2] == ['--probe'] and len(sys.argv) == 3 and sys.argv[2] in PROBES:
         return probe_k11(sys.argv[2])
+    if sys.argv[1:2] == ['--probe'] and len(sys.argv) == 3 and sys.argv[2] in K12_PROBES:
+        return probe_k12(sys.argv[2])
+    if sys.argv[1:2] == ['--probe'] and len(sys.argv) == 3 and sys.argv[2] in FOLD_PROBES:
+        return probe_fold(sys.argv[2])
+    if sys.argv[1:] == ['--k12']:
+        chip_smoke.phase_device()
+        chip_smoke.phase_build()
+        fold_rows()
+        sweep_k12()
+        for label in list(K12_PROBES) + list(FOLD_PROBES):
+            subprocess.run([sys.executable, __file__, '--probe', label], check=True)
+        fold_rows()
+        print(json.dumps({'done': True}), flush=True)
+        return
     if sys.argv[1:]:
-        raise SystemExit(f'kernel_plan_sweep.py: unknown arguments {sys.argv[1:]} (none, or --probe '
-                         f'{"|".join(PROBES)})')
+        raise SystemExit(f'kernel_plan_sweep.py: unknown arguments {sys.argv[1:]} (none, --k12, or --probe '
+                         f'{"|".join(list(PROBES) + list(K12_PROBES) + list(FOLD_PROBES))})')
     chip_smoke.phase_device()
     chip_smoke.phase_build()
     paths = build_k14_variants()

@@ -60,11 +60,11 @@ _SIG = {
     'ntt_csr_scatter': (_I, _P, _P, _P, _P, _I, _P),
     'ntt_csr_spmv': (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     'ntt_elem_matrix': (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _PI64, _P),
-    'ntt_elem_vector': (_I, _P, _P, _P, _I, _I, _I, _I, _PI64, _P),
+    'ntt_elem_vector': (_I, _P, _P, _P, _I, _I, _I, _I, _PI64, _PI64, _P),
     'ntt_block_apply': (_I, _P, _P, _P, _P, _I, _I, _P),
     'ntt_mask_pre': (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     'ntt_mask_post': (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    'ntt_elem_value': (_I, _P, _P, ctypes.c_int64, _I, _I, _P),
+    'ntt_elem_value': (_I, _P, _P, ctypes.c_int64, _I, _I, _P, _P, _P, _I, _P, _P),
     'ntt_elem_value_sum': (_I, _P, _P, _P, _I, _P),
     'ntt_gmres_project': (_I, _P, _P, _P, _L, _I, _I, _I, _P),
     'ntt_gmres_update': (_I, _P, _P, _P, _P, _L, _I, _I, _I, _P),

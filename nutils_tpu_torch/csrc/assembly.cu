@@ -60,13 +60,55 @@
 //   plans, and a chunked and an unchunked assembly give the same bits.  No
 //   tensor cores.
 //
-// K12 takes one thread an output, reading Bt and g from device memory
-// (neighbouring threads read neighbouring i), or, where every element
-// shares Bt, one thread an element with Bt in shared memory.
+// K12 (redesigned from one thread an output reading device memory): the
+// same machinery as K11 with g in the place of T.  Bound: bytes.  On the
+// Navier-Stokes velocity residual (E 108,900, Q 16, A 6, I 18, float32, Bt
+// per element) it reads Bt once (753 MB) and g once (42 MB): 0.240 ms at
+// 3.35 TB/s against 0.006 ms of multiply-adds.  Design (the plan is
+// ops/assembly.py vector_plan, an array of integers as K11's):
+// - Persistent blocks walk over groups of G consecutive elements.  Each
+//   group's g, and its Bt where Bt is per element, arrive by cp.async in a
+//   ring of two stages (stage_copy, with K11's copies: 16 bytes where the
+//   innermost run is contiguous and aligned, else one value), so the next
+//   group's copies are in flight while the current one computes; a Bt that
+//   every element shares is staged once a block.  One block a
+//   multiprocessor where Bt is per element, two where it is shared, at
+//   least 256 threads (more threads issue the copies), about four groups a
+//   multiprocessor or more.  A TMA bulk copy was not tried: only the
+//   per-element Bt is a contiguous slab, and it already goes by 16-byte
+//   copies.
+// - A thread owns a register tile of up to 4 outputs r[k, i..i+3] of one
+//   element, or, where every element shares Bt, of 4 elements (a broadcast
+//   value of Bt then feeds 4 fused multiply-adds: with one element a tile
+//   the shared-memory loads, not the copies, held the triangle step and
+//   elasticity).  Regime "element_lanes" (fewer than 32 tiles an element
+//   and a group of 32 elements or more: every path but the Navier-Stokes
+//   velocity residual): a warp's lanes take 32 elements, whose slices lie
+//   at odd strides in shared memory, or at odd multiples of 16 bytes where
+//   an operand goes by 16-byte copies and is read 16 bytes a lane (Bt's
+//   rows of outputs, g's runs of r = (q, a)); "tile_lanes": a warp's lanes
+//   take an element's tiles.  The group's G x I outputs go through shared
+//   memory and out contiguously.
+// - Each output is one chain of fused multiply-adds over r = (q, a)
+//   ascending from 0, starting from 0: the order of the kernel it replaced,
+//   whose acc += b * g nvcc contracted to the same fused multiply-adds, so
+//   the outputs keep that kernel's bits (the sha1 of every path's residual
+//   in chip_smoke.py --only kernels turns against it).
+// On an NVIDIA H100 80GB HBM3 at 700 W it runs at 80-85% of its bound
+// where Bt is per element, 63% on elasticity; the pressure residuals and
+// the triangles' velocity one read a slice of 1 or 6 of 14 features a
+// point of g, whose copies alone take most of their time
+// (kernel_plan_sweep.py --k12, probe k12_copies_only).
+// The generic kernel (elem_vector, one thread an output, the same order and
+// bits) stays for operands whose one element does not fit in shared memory
+// in two stages (vector_plan's regime "generic": Q * A * I above about
+// 14,000 values in float64), which no path of the port has
+// (chip_smoke.py asserts it).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <utility>
 #include <vector>
 
 namespace ntt_asm {
@@ -297,6 +339,21 @@ __device__ void phase_V(const Plan& p, const T* sBt, const T* sT, T* sV, int ne,
   }
 }
 
+// The group's ne rows of n values (staged at element stride ns) are
+// contiguous in out: neighbouring threads write neighbouring values.
+template <typename T>
+__device__ __forceinline__ void write_rows(T* __restrict__ og, const T* sv, int ns, int n, int ne, int NT) {
+  int k = threadIdx.x / n, x = threadIdx.x % n;
+  const int dk = NT / n, dx = NT % n;
+  for (int f = threadIdx.x; f < ne * n; f += NT) {
+    og[f] = sv[k * ns + x];
+    x += dx;
+    const int carry = x >= n;
+    x -= carry ? n : 0;
+    k += dk + carry;
+  }
+}
+
 #define NTT_TILES(X) \
   X(1, 1) X(1, 2) X(1, 3) X(1, 4) X(2, 1) X(2, 2) X(2, 3) X(2, 4) X(3, 1) X(3, 2) X(3, 3) X(3, 4) X(4, 1) X(4, 2) X(4, 3) X(4, 4)
 
@@ -357,23 +414,182 @@ __global__ void __launch_bounds__(MAX_THREADS)
 #undef NTT_CASE
     }
     __syncthreads();
-    // the group's rows of V are contiguous in out: neighbouring threads
-    // write neighbouring values
-    T* og = out + e0 * IJ;
-    int k = threadIdx.x / IJ, x = threadIdx.x % IJ;
-    const int dk = p.NT / IJ, dx = p.NT % IJ;
-    for (int f = threadIdx.x; f < ne * IJ; f += p.NT) {
-      og[f] = sV[k * p.nV + x];
-      x += dx;
-      const int carry = x >= IJ;
-      x -= carry ? IJ : 0;
-      k += dk + carry;
-    }
+    write_rows(out + e0 * IJ, sV, p.nV, IJ, ne, p.NT);
   }
 }
 
 #undef NTT_TILES
 
+// ------------------------------------------------------------------ K12
+
+// the plan (ops/assembly.py vector_plan, packed in the order of VECTOR_FIELDS)
+struct VPlan {
+  int G, NT, S, kfast, ti, te;
+  int nBt, ng, nr;            // an element's stride in each region (values)
+  int oBt, og, oStage, stage; // offsets in a stage (or the shared region); the ring
+  int oR, shBt;               // the outputs' region; Bt staged once a block
+  Copy cBt, cg;
+};
+
+// W16<T> consecutive values from shared memory on 16 bytes, by one 16-byte
+// load
+__device__ __forceinline__ void load16(const float* p, float* v) { load4(p, v); }
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  v[0] = a.x, v[1] = a.y;
+}
+
+// acc[e][a] (+)= sum_r X[r ldx + a] y_e[r] over TE elements' columns y_e =
+// Y + e ys, r ascending from 0, each step one fused multiply-add; VX: a row
+// of 4 read by 16-byte loads; VR: each y_e read W16 values of r at a time
+// (its start on 16 bytes, P a multiple of W16)
+template <typename T, int TM, int TE, bool VX, bool VR>
+__device__ __forceinline__ void columns(const T* __restrict__ X, int ldx, const T* __restrict__ Y, int ys, int P,
+                                        T (&acc)[TE][TM]) {
+  constexpr int W = VR ? W16<T> : 1;
+#pragma unroll 2
+  for (int r0 = 0; r0 < P; r0 += W, X += W * ldx) {
+    T y[TE][W];
+#pragma unroll
+    for (int e = 0; e < TE; ++e) {
+      if constexpr (VR)
+        load16(Y + e * ys + r0, y[e]);
+      else
+        y[e][0] = Y[e * ys + r0];
+    }
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      T x[TM];
+      if constexpr (VX) {
+        load4(X + u * ldx, x);
+      } else {
+#pragma unroll
+        for (int a = 0; a < TM; ++a) x[a] = X[u * ldx + a];
+      }
+#pragma unroll
+      for (int e = 0; e < TE; ++e)
+#pragma unroll
+        for (int a = 0; a < TM; ++a) acc[e][a] = fma_rn(x[a], y[e][u], acc[e][a]);
+    }
+  }
+}
+
+// A register tile of TM outputs r[k, m0 ..] of TE elements k = kb, kb +
+// gs, ...: each one chain of fused multiply-adds over (q, a) ascending
+// from 0.  A tile that runs past I reads the values after its row (inside
+// shared memory) into outputs it does not write.
+template <typename T, int TM, int TE>
+__device__ __forceinline__ void vector_tile(bool vx, bool vr, const T* X, int I, const T* Y, int ys, int QA, int m0,
+                                            int kb, int gs, int ne, T* sR, int nr) {
+  T acc[TE][TM];
+#pragma unroll
+  for (int e = 0; e < TE; ++e)
+#pragma unroll
+    for (int a = 0; a < TM; ++a) acc[e][a] = T(0);
+  if constexpr (TM == 4) {
+    if (vx && vr)
+      columns<T, TM, TE, true, true>(X + m0, I, Y, ys, QA, acc);
+    else if (vx)
+      columns<T, TM, TE, true, false>(X + m0, I, Y, ys, QA, acc);
+    else if (vr)
+      columns<T, TM, TE, false, true>(X + m0, I, Y, ys, QA, acc);
+    else
+      columns<T, TM, TE, false, false>(X + m0, I, Y, ys, QA, acc);
+  } else {
+    if (vr)
+      columns<T, TM, TE, false, true>(X + m0, I, Y, ys, QA, acc);
+    else
+      columns<T, TM, TE, false, false>(X + m0, I, Y, ys, QA, acc);
+  }
+#pragma unroll
+  for (int e = 0; e < TE; ++e)
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+      if (kb + e * gs < ne && m0 + a < I) sR[(kb + e * gs) * nr + m0 + a] = acc[e][a];
+}
+
+// r[k, i] = sum_(q, a) Bt[k, q, a, i] g[k, q, a] for the group's ne
+// elements; task (kb, i-tile), kb fastest where kfast, its register tile
+// the elements kb, kb + G / TE, ... (TE > 1 where every element shares Bt,
+// in element lanes: a value of Bt, one address for the whole warp, feeds TE
+// fused multiply-adds, and the lanes read neighbouring elements' g)
+template <typename T, int TM, int TE>
+__device__ void phase_r(const VPlan& p, const T* sBt, const T* sg, T* sR, int ne, int QA, int I) {
+  const int mt = (I + TM - 1) / TM, GB = p.G / TE;
+  const int bstride = p.shBt ? 0 : p.nBt;
+  const bool vx = I % W16<T> == 0 && bstride % W16<T> == 0;
+  const bool vr = QA % W16<T> == 0 && p.ng % W16<T> == 0;
+  for (int t = threadIdx.x; t < GB * mt; t += p.NT) {
+    int kb, it;
+    if (p.kfast) {
+      kb = t % GB;
+      it = t / GB;
+    } else {
+      kb = t / mt;
+      it = t % mt;
+    }
+    if (kb >= ne) continue;
+    vector_tile<T, TM, TE>(vx, vr, sBt + kb * bstride, I, sg + kb * p.ng, GB * p.ng, QA, it * TM, kb, GB, ne, sR,
+                           p.nr);
+  }
+}
+
+template <typename T, int TM>
+__device__ __forceinline__ void phase_vector(const VPlan& p, const T* sBt, const T* sg, T* sR, int ne, int QA, int I) {
+  if (p.te == 4)
+    phase_r<T, TM, 4>(p, sBt, sg, sR, ne, QA, I);
+  else
+    phase_r<T, TM, 1>(p, sBt, sg, sR, ne, QA, I);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+    elem_vector_staged(const T* __restrict__ Bt, const T* __restrict__ g, T* __restrict__ out, int E, int Q, int A,
+                       int I, const __grid_constant__ VPlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const long long groups = ((long long)E + p.G - 1) / p.G;
+  auto issue = [&](long long grp, int slot) {
+    const long long e0 = grp * p.G;
+    const int ne = (int)(E - e0 < p.G ? E - e0 : p.G);
+    T* st = sm + p.oStage + slot * p.stage;
+    if (!p.shBt) stage_copy(st + p.oBt, Bt + e0 * p.cBt.se, p.cBt, ne, p.NT);
+    stage_copy(st + p.og, g + e0 * p.cg.se, p.cg, ne, p.NT);
+  };
+  // an operator that every element shares goes with the first group's copies
+  if (p.shBt) stage_copy(sm + p.oBt, Bt, p.cBt, 1, p.NT);
+  for (int s = 0; s < p.S - 1; ++s) {
+    const long long grp = blockIdx.x + (long long)s * gridDim.x;
+    if (grp < groups) issue(grp, s);
+    cp_commit();
+  }
+  for (long long it = 0;; ++it) {
+    const long long grp = blockIdx.x + it * gridDim.x;
+    if (grp >= groups) break;
+    const long long nxt = grp + (long long)(p.S - 1) * gridDim.x;
+    if (nxt < groups) issue(nxt, (int)((it + p.S - 1) % p.S));
+    cp_commit();
+    cp_wait(p.S - 1);  // this group's copies have landed (this thread's) ...
+    __syncthreads();   // ... and every thread's
+    const long long e0 = grp * p.G;
+    const int ne = (int)(E - e0 < p.G ? E - e0 : p.G);
+    const T* st = sm + p.oStage + (int)(it % p.S) * p.stage;
+    const T* sBt = p.shBt ? sm + p.oBt : st + p.oBt;
+    T* sR = sm + p.oR;
+    switch (p.ti) {
+      case 1: phase_vector<T, 1>(p, sBt, st + p.og, sR, ne, Q * A, I); break;
+      case 2: phase_vector<T, 2>(p, sBt, st + p.og, sR, ne, Q * A, I); break;
+      case 3: phase_vector<T, 3>(p, sBt, st + p.og, sR, ne, Q * A, I); break;
+      default: phase_vector<T, 4>(p, sBt, st + p.og, sR, ne, Q * A, I); break;
+    }
+    __syncthreads();
+    write_rows(out + e0 * I, sR, p.nr, I, ne, p.NT);
+  }
+}
+
+// K12's generic kernel, for operands that vector_plan refuses: one thread an
+// output, reading Bt and g from device memory, the same chain of fused
+// multiply-adds
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     elem_vector(const T* __restrict__ Bt, const T* __restrict__ g, T* __restrict__ out, int E, int Q, int A, int I,
@@ -386,79 +602,44 @@ __global__ void __launch_bounds__(THREADS)
   const T* ge = g + e * sg.e;
   T acc = T(0);
   for (int q = 0; q < Q; ++q)
-    for (int a = 0; a < A; ++a) acc += bt[q * st.q + a * st.a] * ge[q * sg.q + a * sg.a];
+    for (int a = 0; a < A; ++a) acc = fma_rn(bt[q * st.q + a * st.a], ge[q * sg.q + a * sg.a], acc);
   out[t] = acc;
 }
 
-// K12 where every element shares Bt: Bt staged in shared memory, one thread
-// an element, its I <= MAXI outputs in registers, each summed over (q, a) in
-// the order above (so both variants give the same bits), g read once
-constexpr int MAXI = 32;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    elem_vector_shared(const T* __restrict__ Bt, const T* __restrict__ g, T* __restrict__ out, int E, int Q, int A,
-                       int I, Str st, Str sg) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sBt = reinterpret_cast<T*>(smem_raw);
-  for (int t = threadIdx.x; t < Q * A * I; t += THREADS) {
-    int i = t % I, r = t / I;
-    sBt[t] = Bt[(r / A) * st.q + (r % A) * st.a + i * st.l];
-  }
-  __syncthreads();
-  long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= E) return;
-  const T* ge = g + e * sg.e;
-  T acc[MAXI];
-#pragma unroll
-  for (int i = 0; i < MAXI; ++i) acc[i] = T(0);
-  for (int q = 0; q < Q; ++q)
-    for (int a = 0; a < A; ++a) {
-      const T gv = ge[q * sg.q + a * sg.a];
-      const T* b = sBt + (q * A + a) * I;
-#pragma unroll
-      for (int i = 0; i < MAXI; ++i)
-        if (i < I) acc[i] += b[i] * gv;
-    }
-#pragma unroll
-  for (int i = 0; i < MAXI; ++i)
-    if (i < I) out[e * I + i] = acc[i];
-}
-
-// The blocks of elem_matrix<T> resident at once on the current device for
-// a launch of `threads` and `bytes` of shared memory, queried once for each
-// (device, threads, bytes) and then kept; the kernel may take the device's
-// whole opt-in shared memory, set once a device.
-template <typename T>
-int resident_blocks(int threads, size_t bytes, long long* resident) {
+// The blocks of `kernel` resident at once on the current device for a
+// launch of `threads` and `bytes` of shared memory, queried once for each
+// (kernel, device, threads, bytes) and then kept; the kernel may take the
+// device's whole opt-in shared memory, set once a kernel and device.
+inline int resident_blocks(const void* kernel, int threads, size_t bytes, long long* resident) {
   struct Seen {
+    const void* kernel;
     int dev, threads;
     size_t bytes;
     long long resident;
   };
   static std::mutex mu;
   static std::vector<Seen> seen;
-  static std::vector<int> opted;  // devices whose shared-memory limit is set
+  static std::vector<std::pair<const void*, int>> opted;  // (kernel, device) whose limit is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   std::lock_guard<std::mutex> lock(mu);
   for (const Seen& s : seen)
-    if (s.dev == dev && s.threads == threads && s.bytes == bytes) return *resident = s.resident, 0;
-  auto kernel = elem_matrix<T>;
+    if (s.kernel == kernel && s.dev == dev && s.threads == threads && s.bytes == bytes)
+      return *resident = s.resident, 0;
   int sms = 0, optin = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   bool set = false;
-  for (int d : opted) set = set || d == dev;
+  for (const auto& o : opted) set = set || (o.first == kernel && o.second == dev);
   if (err == cudaSuccess && !set) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err == cudaSuccess) opted.push_back(dev);
+    if (err == cudaSuccess) opted.emplace_back(kernel, dev);
   }
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  seen.push_back({dev, threads, bytes, (long long)per_sm * sms});
+  seen.push_back({kernel, dev, threads, bytes, (long long)per_sm * sms});
   *resident = seen.back().resident;
   return 0;
 }
@@ -485,7 +666,7 @@ int launch_matrix(const void* Bt, const void* K, const void* Bs, void* out, int 
   }
   // persistent blocks: as many as are resident at once, at most a group each
   long long resident = 0;
-  const int err = resident_blocks<T>(p.NT, bytes, &resident);
+  const int err = resident_blocks((const void*)elem_matrix<T>, p.NT, bytes, &resident);
   if (err != cudaSuccess) return err;
   const long long groups = ((long long)E + p.G - 1) / p.G;
   const unsigned int grid = (unsigned int)(groups < resident ? groups : resident);
@@ -495,16 +676,34 @@ int launch_matrix(const void* Bt, const void* K, const void* Bs, void* out, int 
 
 template <typename T>
 int launch_vector(const void* Bt, const void* g, void* out, int E, int Q, int A, int I, const int64_t* s,
-                  cudaStream_t stream) {
-  Str st{s[0], s[1], s[2], s[3]}, sg{s[4], s[5], s[6], 0};
-  size_t bytes = (size_t)Q * A * I * sizeof(T);
-  if (st.e == 0 && I <= MAXI && bytes <= 48 * 1024) {
-    unsigned int grid = (unsigned int)(((long long)E + THREADS - 1) / THREADS);
-    elem_vector_shared<T><<<grid, THREADS, bytes, stream>>>((const T*)Bt, (const T*)g, (T*)out, E, Q, A, I, st, sg);
-  } else {
-    unsigned int grid = (unsigned int)(((long long)E * I + THREADS - 1) / THREADS);
+                  const int64_t* v, cudaStream_t stream) {
+  if (v == nullptr) {
+    const Str st{s[0], s[1], s[2], s[3]}, sg{s[4], s[5], s[6], 0};
+    const unsigned int grid = (unsigned int)(((long long)E * I + THREADS - 1) / THREADS);
     elem_vector<T><<<grid, THREADS, 0, stream>>>((const T*)Bt, (const T*)g, (T*)out, E, Q, A, I, st, sg);
+    return (int)cudaGetLastError();
   }
+  VPlan p;
+  int at = 0;
+  auto next = [&]() { return (int)v[at++]; };
+  p.G = next(), p.NT = next(), p.S = next(), p.kfast = next(), p.ti = next(), p.te = next();
+  p.nBt = next(), p.ng = next(), p.nr = next();
+  p.oBt = next(), p.og = next(), p.oStage = next(), p.stage = next(), p.oR = next(), p.shBt = next();
+  const size_t bytes = (size_t)v[at++];
+  Copy* copies[2] = {&p.cBt, &p.cg};
+  for (Copy* c : copies) {
+    for (int d = 0; d < 4; ++d) c->s[d] = v[at++];
+    c->se = v[at++];
+    for (int d = 0; d < 4; ++d) c->n[d] = next();
+    for (int d = 0; d < 4; ++d) c->d[d] = next();
+    c->kd = next(), c->vec = next();
+  }
+  long long resident = 0;
+  const int err = resident_blocks((const void*)elem_vector_staged<T>, p.NT, bytes, &resident);
+  if (err != cudaSuccess) return err;
+  const long long groups = ((long long)E + p.G - 1) / p.G;
+  const unsigned int grid = (unsigned int)(groups < resident ? groups : resident);
+  elem_vector_staged<T><<<grid, p.NT, bytes, stream>>>((const T*)Bt, (const T*)g, (T*)out, E, Q, A, I, p);
   return (int)cudaGetLastError();
 }
 
@@ -524,13 +723,15 @@ int ntt_elem_matrix(int dtype, const void* Bt, const void* K, const void* Bs, vo
 }
 
 // dtype: 0 float32, 1 float64.  strides: Bt (e, q, a, i), g (e, q, a), in
-// elements.  Returns cudaGetLastError().
+// elements (read by the generic kernel).  plan: ops/assembly.py
+// vector_plan, packed (VECTOR_FIELDS, then the copies of Bt and g), or null
+// for the generic kernel.  Returns cudaGetLastError().
 int ntt_elem_vector(int dtype, const void* Bt, const void* g, void* out, int E, int Q, int A, int I,
-                    const int64_t* strides, void* stream) {
+                    const int64_t* strides, const int64_t* plan, void* stream) {
   if (E == 0 || I == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 0 ? ntt_asm::launch_vector<float>(Bt, g, out, E, Q, A, I, strides, s)
-                    : ntt_asm::launch_vector<double>(Bt, g, out, E, Q, A, I, strides, s);
+  return dtype == 0 ? ntt_asm::launch_vector<float>(Bt, g, out, E, Q, A, I, strides, plan, s)
+                    : ntt_asm::launch_vector<double>(Bt, g, out, E, Q, A, I, strides, plan, s);
 }
 
 }  // extern "C"

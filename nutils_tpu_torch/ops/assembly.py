@@ -302,25 +302,169 @@ def elem_matrix(Bt, K, Bs, out=None):
     return out
 
 
+# ------------------------------------------------------------ K12's plan
+
+VECTOR_BUDGET = SMEM_BYTES  # K12's share of a multiprocessor: one block (kernel_plan_sweep.py --k12) ...
+VECTOR_SHARED_BUDGET = SMEM_BUDGET  # ... two blocks where every element shares Bt (only g is staged a group)
+VECTOR_THREADS = 256  # K12's least threads a block (more than its tiles: more threads issue the copies)
+VECTOR_TE = 4  # elements a register tile of K12 where every element shares Bt (a Bt value feeds TE of them)
+VECTOR_GROUPS = 4 * 132  # K12's groups, at least, where E allows: four on each multiprocessor of an H100
+VECTOR_ALIGN_G = True  # element lanes: g's slices on 16 bytes where its copies and loads allow (else odd strides)
+# the plan's scalars, in the order the kernel reads them (csrc/assembly.cu
+# launch_vector); the copies of Bt and g follow, COPY_FIELDS each
+VECTOR_FIELDS = ('G', 'threads', 'stages', 'kfast', 'ti', 'te', 'nBt', 'ng', 'nr', 'oBt', 'og', 'oStage', 'stage',
+                 'oR', 'shBt', 'smem')
+
+
+@functools.lru_cache(maxsize=256)
+def vector_plan(E, Q, A, I, itemsize, strides, aligned=(True, True)):
+    '''The launch plan of K12 for ``r[e,i] = sum_qa Bt[e,q,a,i] g[e,q,a]``
+    (a pure function; cached), on K11's pattern (:func:`matrix_plan`):
+    ``strides`` are those of Bt (e, q, a, i) and g (e, q, a) in values, an
+    element stride of 0 for an operator every element shares;
+    ``aligned``: the base of Bt and of g on 16 bytes.  Returns a dict:
+
+    - ``regime``: ``'element_lanes'`` where an element has fewer than 32
+      register tiles of outputs and a group 32 elements or more (a warp's
+      lanes take 32 elements, their slices at odd strides in shared
+      memory, or at odd multiples of 16 bytes where that lets an operand
+      go by 16-byte copies and 16-byte loads: ``align16[name]``),
+      ``'tile_lanes'`` (a warp's
+      lanes take an element's tiles, slices on 16 bytes, the elements of
+      a warp 32 / (its elements) banks apart), or ``'generic'`` where
+      one element does not fit in shared memory in two stages (the generic
+      kernel, one thread an output; no other key then);
+    - ``G`` elements a group (as many as the budget, :data:`VECTOR_BUDGET`,
+      or :data:`VECTOR_SHARED_BUDGET` where Bt is shared, holds, up to one
+      register tile a thread for MAX_THREADS threads, and no more than
+      makes :data:`VECTOR_GROUPS` groups, or 32 tiles), ``threads`` a
+      block (at least :data:`VECTOR_THREADS`), ``stages`` in the ring
+      (:data:`STAGES`); a register tile holds ``ti`` outputs (:func:`_tile`)
+      of ``te`` elements: :data:`VECTOR_TE` where every element shares Bt
+      (in element lanes; its elements kb, kb + G / te, ..., G a multiple of
+      te), else 1;
+    - each region's element stride (``nBt``, ``ng``, ``nr``: the outputs)
+      and offset in values (``oBt`` in the shared region where ``shBt``,
+      else in a stage, ``og`` in a stage, ``oStage``, ``stage``, ``oR``),
+      ``smem`` bytes (within :data:`SMEM_BYTES`);
+    - ``copies``: the copy of Bt and of g (:func:`_copy`).'''
+    st, sg = strides
+    vec = 16 // itemsize
+    shBt = st[0] == 0
+    stages = STAGES
+    budget = VECTOR_SHARED_BUDGET if shBt else VECTOR_BUDGET
+    ti = _tile(I)
+    tasks = -(-I // ti)
+
+    def up(n):
+        return -(-n // vec) * vec
+
+    # tile_lanes: a warp's lanes take epw elements; their slices start
+    # 32 / epw banks apart (at least 4: 16-byte copies stay aligned)
+    epw = 1 << (max(1, 32 // tasks) - 1).bit_length()
+    shift = max(4, 32 // epw) if epw > 1 else 0
+
+    def strides_of(kfast, align):
+        def pad(n, a16):
+            if kfast and a16:
+                return up(n) + vec * (up(n) // vec % 2 == 0)
+            if kfast:
+                return n | 1
+            n = up(n)
+            while shift and n * itemsize // 4 % 32 != shift:
+                n += vec
+            return n
+        return pad(Q * A * I, align[0]), pad(Q * A, align[1]), pad(I, False)
+    def layout(G, kfast, align):
+        nBt, ng, nr = strides_of(kfast, align)
+        # the operator staged once a block, then the ring, then the outputs
+        oStage = up(Q * A * I) if shBt else 0
+        og = 0 if shBt else up(G * nBt)
+        stage = up(og + G * ng)
+        oR = oStage + stages * stage
+        return dict(nBt=nBt, ng=ng, nr=nr, oBt=0, og=og, oStage=oStage, stage=stage, oR=oR,
+                    smem=(oR + G * nr) * itemsize)
+
+    def group(kfast, align, te=1):
+        nBt, ng, nr = strides_of(kfast, align)
+        per = stages * ((0 if shBt else nBt) + ng) + nr
+        G = max(1, min(E, MAX_THREADS // tasks * te, budget // itemsize // per,
+                       max(32 * te, -(-E // VECTOR_GROUPS))))
+        while G > 1 and layout(G, kfast, align)['smem'] > budget:
+            G -= 1
+        return G if G < te else G // te * te
+
+    def copies_of(G, lay):
+        return {'Bt': _copy([(G, st[0], lay['nBt'], True)] * (not shBt)
+                            + [(Q, st[1], A * I, False), (A, st[2], I, False), (I, st[3], 1, False)], vec, aligned[0]),
+                'g': _copy([(G, sg[0], lay['ng'], True), (Q, sg[1], A, False), (A, sg[2], 1, False)], vec,
+                           aligned[1])}
+    kfast = tasks < 32 and group(True, (False, False)) >= 32
+    # element lanes: an operand's slices on odd multiples of 16 bytes where
+    # that lets it go by 16-byte copies and be read 16 bytes a lane (Bt's
+    # rows of outputs, g's runs of r = (q, a): Q A a multiple of 16 bytes),
+    # without bank conflicts; at odd strides otherwise
+    probe = copies_of(1, layout(1, True, (True, True)))
+    align = (kfast and probe['Bt']['vec'] > 1 and probe['Bt']['kd'] >= 0,
+             VECTOR_ALIGN_G and kfast and probe['g']['vec'] > 1 and Q * A % vec == 0)
+    te = VECTOR_TE if shBt and kfast else 1
+    G = group(kfast, align, te)
+    te = min(te, G)
+    lay = layout(G, kfast, align)
+    if lay['smem'] > SMEM_BYTES:
+        return dict(regime='generic')
+    threads = min(MAX_THREADS, max(VECTOR_THREADS, 32 * -(-(G // te) * tasks // 32)))
+    return dict(regime='element_lanes' if kfast else 'tile_lanes', G=G, threads=threads, stages=stages,
+                kfast=int(kfast), align16=dict(zip(('Bt', 'g'), align)), ti=ti, te=te, shBt=int(shBt),
+                copies=copies_of(G, lay), **lay)
+
+
+@functools.lru_cache(maxsize=256)
+def _packed_vector(*key):
+    plan = vector_plan(*key)
+    if plan['regime'] == 'generic':
+        return None
+    vals = [plan[f] for f in VECTOR_FIELDS] + [plan['copies'][name][f] for name in ('Bt', 'g') for f in COPY_FIELDS]
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _vector_key(Bt, g):
+    E, Q, A = g.shape
+    return (E, Q, A, Bt.shape[-1], g.element_size(), (_strides(Bt, E), _strides(g, E)),
+            tuple(t.data_ptr() % 16 == 0 for t in (Bt, g)))
+
+
+def elem_vector_plan(Bt, g):
+    '''The plan (:func:`vector_plan`) on which :func:`elem_vector` launches
+    for these operands.'''
+    return vector_plan(*_vector_key(Bt, g))
+
+
 def elem_vector(Bt, g, out=None):
     '''Element vectors ``r[e, i] = sum_qa Bt[e,q,a,i] g[e,q,a]``, kernel
     K12: ``[E, I]``, contiguous, in ``out`` where given.  ``g`` is ``[E, Q,
-    A]``, ``Bt`` ``[E or 1, Q, A, I]``, any strides.  One thread an output,
-    summing over ``q, a`` in a fixed order.'''
+    A]``, ``Bt`` ``[E or 1, Q, A, I]``, any strides.  Persistent blocks
+    stage groups of elements by asynchronous copies (:func:`vector_plan`;
+    the generic kernel where one element does not fit), each output one
+    chain of fused multiply-adds over ``q, a`` in a fixed order: no
+    atomics, bitwise reproducible, the same bits on every plan.  Counts its
+    launches by regime (``elem_vector.forms``).'''
     if g.device.type == 'cpu':
         return elem_vector_plain(Bt, g, out)
     E, Q, A = g.shape
     I = Bt.shape[-1]
     _check('elem_vector', g, Bt=(Bt, (None, Q, A, I)))
     out = _output('elem_vector', g, (E, I), out)
-    strides = (ctypes.c_int64 * 7)(*_strides(Bt, E), *_strides(g, E))
-    _kernels.call('ntt_elem_vector', g, [Bt, g, out], scalars=(E, Q, A, I, strides))
-    elem_vector.launches += 1
+    if E * I:
+        key = _vector_key(Bt, g)
+        strides = (ctypes.c_int64 * 7)(*_strides(Bt, E), *_strides(g, E))
+        _kernels.call('ntt_elem_vector', g, [Bt, g, out], scalars=(E, Q, A, I, strides, _packed_vector(*key)))
+        _kernels.count(elem_vector, vector_plan(*key)['regime'])
     return out
 
 
 _kernels.counted(elem_matrix)
-_kernels.counted(elem_vector)
+_kernels.counted(elem_vector, forms=('element_lanes', 'tile_lanes', 'generic'))
 
 
 # ------------------------------------------------------------ K15
@@ -361,10 +505,13 @@ def _lane_sums(x, rounds):
     return acc[:, 0]
 
 
-def elem_value_plain(f, out=None):
+def elem_value_plain(f, out=None, finish=None):
     '''Plain torch version of :func:`elem_value`, in the kernel's order of
-    sums.'''
+    sums; with ``finish``, then :func:`elem_value_sum_plain`.'''
     E, P = f.shape
+    if finish is not None:
+        partials, offsets, total = finish
+        out = _last_rows(partials, value_blocks(E, P)) if out is None else out
     span = value_span(P) * P
     nb = value_blocks(E, P)
     rounds = -(-span // VALUE_THREADS)
@@ -375,7 +522,10 @@ def elem_value_plain(f, out=None):
     if full < nb:
         x[full, :E * P - full * span] = flat[full * span:]
     parts = _lane_sums(x, rounds)
-    return parts if out is None else out.copy_(parts)
+    out = parts if out is None else out.copy_(parts)
+    if finish is not None:
+        elem_value_sum_plain(partials, offsets, out=total)
+    return out
 
 
 def elem_value_sum_plain(partials, offsets, out=None):
@@ -391,21 +541,77 @@ def elem_value_sum_plain(partials, offsets, out=None):
     return total if out is None else out.copy_(total)
 
 
-def elem_value(f, out=None):
+def _last_rows(partials, n):
+    '''The last ``n`` entries of ``partials`` (a view).'''
+    return partials[partials.shape[0] - n:]
+
+
+def _segments(name, partials, offsets):
+    '''``offsets`` as ints, checked to cut ``partials`` [N] into one or
+    more segments.'''
+    offsets = [int(o) for o in offsets]
+    if len(offsets) < 2 or offsets[0] != 0 or offsets[-1] != partials.shape[0] \
+            or any(b < a for a, b in zip(offsets[:-1], offsets[1:])):
+        raise ValueError(f'{name}: offsets {tuple(offsets)} do not cut {partials.shape[0]} partials into segments')
+    return offsets
+
+
+_TICKETS = {}
+
+
+def _ticket(device):
+    '''The fold's int32 counter on ``device``, made once at 0 (its last
+    drawer sets it back to 0): make it, by a first call, before a CUDA
+    graph's capture.  One counter a device: folded launches of one device
+    run on one stream.'''
+    ticket = _TICKETS.get(device)
+    if ticket is None:
+        ticket = _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return ticket
+
+
+def elem_value(f, out=None, finish=None):
     '''Partial sums of a functional's integrand ``f`` [E, P], kernel K15:
     ``[value_blocks(E, P)]``, partial b the sum over the elements [b span,
     (b + 1) span) (span :func:`value_span`), contiguous, in ``out`` where
     given.  Each block sums its values in a fixed order: no atomics, bitwise
-    reproducible, the plain version's bits.'''
-    if f.device.type == 'cpu':
-        return elem_value_plain(f, out)
+    reproducible, the plain version's bits.
+
+    ``finish=(partials, offsets, total)`` makes this the value's last
+    launch: ``partials`` [N] holds every part's partials in its segment
+    [offsets[s], offsets[s + 1]), ``out`` its last rows (by default the last
+    ``value_blocks(E, P)``), and the launch's last block writes their sum,
+    :func:`elem_value_sum`'s bits, into ``total`` [1].  Such a launch has
+    at least one block, for an empty ``f`` too.  Counts its launches by
+    form (``elem_value.forms``: ``'partials'``, ``'finish'``).'''
     E, P = f.shape
+    if finish is not None:
+        partials, offsets, total = finish
+        offsets = _segments('elem_value', partials, offsets)
+        finish = partials, offsets, total
+    if f.device.type == 'cpu':
+        return elem_value_plain(f, out, finish)
     _kernels.check_operands('elem_value', f, (E, P), f.dtype)
-    out = _output('elem_value', f, (value_blocks(E, P),), out)
-    if E * P:
-        span = value_span(P) * P
-        _kernels.call('ntt_elem_value', f, [f, out], scalars=(E * P, span, -(-span // VALUE_THREADS)))
-        elem_value.launches += 1
+    nb = value_blocks(E, P)
+    span = value_span(P) * P
+    scalars = (E * P, span, -(-span // VALUE_THREADS))
+    if finish is None:
+        out = _output('elem_value', f, (nb,), out)
+        if E * P:
+            _kernels.call('ntt_elem_value', f, [f, out], scalars=(*scalars, None, None, None, 0, None))
+            _kernels.count(elem_value, 'partials')
+        return out
+    _kernels.check_operands('elem_value', f, (E, P), f.dtype, partials=(partials, (offsets[-1],)),
+                            total=(total, (1,)))
+    out = _output('elem_value', f, (nb,), _last_rows(partials, nb) if out is None else out)
+    isz = f.element_size()
+    if nb and (out.data_ptr() + nb * isz != partials.data_ptr() + offsets[-1] * isz
+               or out.data_ptr() < partials.data_ptr()):
+        raise ValueError('elem_value: out is not the last rows of the partials that finish sums')
+    _kernels.call('ntt_elem_value', f, [f, out], scalars=(
+        *scalars, partials.data_ptr(), _segment_table(offsets, f.device).data_ptr(), total.data_ptr(),
+        len(offsets) - 1, _ticket(f.device).data_ptr()))
+    _kernels.count(elem_value, 'finish')
     return out
 
 
@@ -429,12 +635,10 @@ def _segment_table(offsets, device):
 def elem_value_sum(partials, offsets, out=None):
     '''The sum of ``partials`` [N] in segments [offsets[s], offsets[s + 1])
     (one or more), kernel K15: each segment reduced in a fixed order, the
-    segments' values added in order; ``[1]``, in ``out`` where given.'''
-    offsets = [int(o) for o in offsets]
-    if len(offsets) < 2 or offsets[0] != 0 or offsets[-1] != partials.shape[0] \
-            or any(b < a for a, b in zip(offsets[:-1], offsets[1:])):
-        raise ValueError(f'elem_value_sum: offsets {tuple(offsets)} do not cut {partials.shape[0]} partials into '
-                         'segments')
+    segments' values added in order; ``[1]``, in ``out`` where given.  The
+    value assembly folds this sum into its last :func:`elem_value` launch
+    (``finish=``); this launch of its own stays for tests and checks.'''
+    offsets = _segments('elem_value_sum', partials, offsets)
     if partials.device.type == 'cpu':
         return elem_value_sum_plain(partials, offsets, out)
     _kernels.check_operands('elem_value_sum', partials, (offsets[-1],), partials.dtype)
@@ -445,5 +649,5 @@ def elem_value_sum(partials, offsets, out=None):
     return out
 
 
-_kernels.counted(elem_value)
+_kernels.counted(elem_value, forms=('partials', 'finish'))
 _kernels.counted(elem_value_sum)

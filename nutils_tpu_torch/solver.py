@@ -1764,47 +1764,75 @@ class System:
         self._cache['valueparts'] = key, parts
         return parts
 
+    def _value_sizes(self, parts, plan):
+        '''The partials of each value part (:meth:`_value_parts`) and the
+        launches of K15 that write them, from the parts' static shapes.'''
+        sizes, launches = [], 0
+        for part in parts:
+            if part[0] == 'term':
+                lead = part[2]
+                sizes.append(1 if lead is None else assembly.value_blocks(int(lead[0]), int(numpy.prod(lead[1:]))))
+                launches += 1
+                continue
+            lead = part[1]._base._lifted[0].shape
+            P = int(numpy.prod(lead[1:]))
+            if plan is not None and id(part[1]) in plan['forms']:
+                sizes.append(plan['nc'] * assembly.value_blocks(plan['ce'], P))
+                launches += plan['nc']
+            else:
+                sizes.append(assembly.value_blocks(int(lead[0]), P))
+                launches += 1
+        return sizes, launches
+
     def _assemble_value(self, args, tables):
         '''The functional's value, a ``[1]`` tensor: each part's integrand
-        at the points summed to block partials by kernel K15, the partials
-        of all parts reduced once, each part's in a fixed order and the
-        parts' values added in order.  A factored form on the element chunks
-        of :meth:`_chunk_plan` is evaluated a chunk at a time, each chunk's
-        partials written into its rows of the form's buffer: where the chunk
-        size is a multiple of K15's span, the same bits as one piece.  A
-        term with no point integrand adds its value as one partial; terms
+        at the points summed to block partials by kernel K15, written into
+        the part's segment of one buffer, the last launch summing the
+        segments (each in a fixed order, the parts' values added in order:
+        ``elem_value(finish=)``).  A factored form on the element chunks of
+        :meth:`_chunk_plan` is evaluated a chunk at a time, each chunk's
+        partials written into its rows of the form's segment: where the
+        chunk size is a multiple of K15's span, the same bits as one piece.
+        A term with no point integrand adds its value as one partial; terms
         off the factored route are evaluated in one piece.'''
         plan = self._chunk_plan()
         if plan is not None and plan['consts']:
             tables = {**tables, **_device_tables(plan['consts'], plan)}
         leaves = self._bound_leaves(args, {}, tables)
-        bufs = []
-        for part in self._value_parts():
-            if part[0] == 'term':
-                _kind, comp, lead = part
-                f = comp.trace(args, leaves)
-                bufs.append(assembly.elem_value(f.reshape(1, 1) if lead is None else f.reshape(lead[0], -1)))
-                continue
-            form = part[1]
-            chunked = plan is not None and id(form) in plan['forms']
-            if not chunked:
-                bufs.append(assembly.elem_value(form.integrand(args, leaves)))
-                continue
-            E, ce = plan['E'], plan['ce']
-            buf = None
-            for c, lo in enumerate(range(0, E, ce)):
-                rows = slice(lo, lo + ce)
-                f = plan['forms'][id(form)].integrand(args, _chunk_leaves(leaves, plan['keys'], rows), rows)
-                nbc = assembly.value_blocks(*f.shape)
-                if buf is None:
-                    buf = f.new_empty(plan['nc'] * nbc)
-                assembly.elem_value(f, out=buf[c * nbc:(c + 1) * nbc])
-                del f
-            bufs.append(buf)
-        if not bufs:
+        parts = self._value_parts()
+        if not parts:
             return torch.zeros(1, dtype=config.torch_dtype(float), device=config.torch_device())
-        offsets = numpy.cumsum([0] + [len(b) for b in bufs]).tolist()
-        return assembly.elem_value_sum(torch.cat(bufs) if len(bufs) > 1 else bufs[0], offsets)
+        sizes, nlaunch = self._value_sizes(parts, plan)
+        offsets = numpy.cumsum([0] + sizes).tolist()
+
+        def pieces():
+            '''(its first partial, its integrand [E, P], its part's end) of
+            each launch, in order.'''
+            for k, part in enumerate(parts):
+                if part[0] == 'term':
+                    _kind, comp, lead = part
+                    f = comp.trace(args, leaves)
+                    shape = (1, 1) if lead is None else (int(lead[0]), int(numpy.prod(lead[1:])))
+                    yield offsets[k], f.reshape(shape), offsets[k + 1]
+                elif plan is None or id(part[1]) not in plan['forms']:
+                    yield offsets[k], part[1].integrand(args, leaves), offsets[k + 1]
+                else:
+                    form, nbc = plan['forms'][id(part[1])], sizes[k] // plan['nc']
+                    for c, lo in enumerate(range(0, plan['E'], plan['ce'])):
+                        rows = slice(lo, lo + plan['ce'])
+                        f = form.integrand(args, _chunk_leaves(leaves, plan['keys'], rows), rows)
+                        yield offsets[k] + c * nbc, f, offsets[k] + (c + 1) * nbc
+                        del f
+        partials = total = None
+        for i, (lo, f, hi) in enumerate(pieces()):
+            if partials is None:
+                partials, total = f.new_empty(offsets[-1]), f.new_empty(1)
+            if lo + assembly.value_blocks(*f.shape) != hi:
+                raise AssertionError(f'value assembly: an integrand {tuple(f.shape)} does not fill its partials '
+                                     f'[{lo}, {hi})')
+            assembly.elem_value(f, out=partials[lo:hi], finish=(partials, offsets, total) if i == nlaunch - 1 else None)
+            del f
+        return total
 
     # -------------------------------------------------------- public assembly
 

@@ -1,7 +1,8 @@
-'''The launch plans of kernels K11 (``ops/assembly.matrix_plan``) and K14
-(``ops/sparse.mask_plan``): pure functions of shapes, strides and
-addresses, checked here on the CPU by walking their index maps as the CUDA
-kernels walk them (``csrc/assembly.cu``, ``csrc/masked.cu``).'''
+'''The launch plans of kernels K11 (``ops/assembly.matrix_plan``), K12
+(``ops/assembly.vector_plan``) and K14 (``ops/sparse.mask_plan``): pure
+functions of shapes, strides and addresses, checked here on the CPU by
+walking their index maps as the CUDA kernels walk them
+(``csrc/assembly.cu``, ``csrc/masked.cu``).'''
 
 import numpy
 import pytest
@@ -202,6 +203,162 @@ def test_matrix_plan_single_element_and_alignment(itemsize):
 def test_matrix_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError):
         assembly.matrix_plan(10, 64, 32, 32, 64, 64, 8, ((0, 1, 1, 1),) * 3)
+
+
+# (Q, A, I, shared Bt, features a point of the gradient g slices, the
+# slice's first feature, E) of K12 on the paths: the Navier-Stokes step's
+# velocity and pressure residuals, the triangle step's, the Laplace
+# slice's, one chunk of the Laplace example's, the elasticity example's
+# and the finite-strain example's, at their element counts
+VECTOR_SHAPES = {'ns_v': (16, 6, 18, False, 14, 7, 108900), 'ns_q': (16, 1, 4, False, 14, 13, 108900),
+                 'tri_v': (12, 6, 12, True, 14, 7, 217800), 'tri_q': (12, 1, 3, True, 14, 13, 217800),
+                 'laplace': (4, 3, 4, False, 3, 0, 1048576), 'example': (4, 2, 4, False, 4, 2, 2097152),
+                 'elasticity': (6, 6, 12, True, 6, 0, 259200), 'finitestrain': (4, 4, 8, False, 4, 0, 518400)}
+# K12's constants as the source sets them, and settings the sweep
+# (kernel_plan_sweep.py --k12) tries
+VECTOR_SETTINGS = {'default': {}, 'tiles of one element': {'VECTOR_TE': 1},
+                   'three stages, two blocks': {'STAGES': 3, 'VECTOR_BUDGET': 115712},
+                   'one block where Bt is shared': {'VECTOR_SHARED_BUDGET': 232448},
+                   'g at odd strides': {'VECTOR_ALIGN_G': False}}
+
+
+def vector_operands(E, Q, A, I, shared, At, a0, itemsize):
+    '''Strides (in values) of Bt and of g as the factored assembly hands
+    them over (g a slice of a gradient of At features a point), and whether
+    each base lies on 16 bytes (Bt's does, g's where its first feature
+    does).'''
+    return ((0 if shared else Q * A * I, A * I, I, 1), (Q * At, At, 1)), (True, a0 * itemsize % 16 == 0)
+
+
+def cover_vector(plan, E, I):
+    '''How many times each output r[e, i] is written, as the kernel's
+    phase maps tasks to register tiles of ``ti`` outputs and ``te``
+    elements.'''
+    r = numpy.zeros((E, I), int)
+    G, ti, te = plan['G'], plan['ti'], plan['te']
+    mt = -(-I // ti)
+    for e0 in range(0, E, G):
+        ne = min(G, E - e0)
+        GB = G // te
+        t = numpy.arange(GB * mt)
+        if te > 1:
+            kb, it = t % GB, t // GB
+        elif plan['kfast']:
+            kb, it = t % G, t // G
+        else:
+            kb, it = t // mt, t % mt
+        keep = kb < ne
+        kb, it = kb[keep], it[keep]
+        for e in range(te):
+            k = kb + e * GB
+            for a in range(ti):
+                m = it * ti + a
+                ok = (k < ne) & (m < I)
+                numpy.add.at(r, (e0 + k[ok], m[ok]), 1)
+    return r
+
+
+def vector_regions(plan, Q, A, I):
+    '''[(start, stop)] in values of K12's shared-memory regions.'''
+    G, QA, out = plan['G'], Q * A, []
+    if plan['shBt']:
+        out.append((plan['oBt'], plan['oBt'] + QA * I))
+    for s in range(plan['stages']):
+        base = plan['oStage'] + s * plan['stage']
+        if not plan['shBt']:
+            out.append((base + plan['oBt'], base + plan['oBt'] + G * plan['nBt']))
+        out.append((base + plan['og'], base + plan['og'] + G * plan['ng']))
+    out.append((plan['oR'], plan['oR'] + G * plan['nr']))
+    return out
+
+
+@pytest.fixture
+def vector_setting(request, monkeypatch):
+    for name, value in VECTOR_SETTINGS[request.param].items():
+        monkeypatch.setattr(assembly, name, value)
+    assembly.vector_plan.cache_clear()
+    yield request.param
+    assembly.vector_plan.cache_clear()
+
+
+@pytest.mark.parametrize('vector_setting', list(VECTOR_SETTINGS), indirect=True)
+@pytest.mark.parametrize('size', ['path', 'ragged'])
+@pytest.mark.parametrize('itemsize', ITEMSIZES)
+@pytest.mark.parametrize('case', list(VECTOR_SHAPES))
+def test_vector_plan(case, itemsize, size, vector_setting):
+    # every path's residual gets a plan within 227 KB whose regions do not
+    # overlap, whose tasks write every output exactly once (for a ragged
+    # last group too), and whose copies move every value of Bt (once a
+    # block where it is shared) and of the strided slice g once from where
+    # it lies, 16 bytes at a time where the runs allow
+    Q, A, I, shared, At, a0, E = VECTOR_SHAPES[case]
+    strides, aligned = vector_operands(E, Q, A, I, shared, At, a0, itemsize)
+    plan = assembly.vector_plan(E, Q, A, I, itemsize, strides, aligned)
+    if size == 'ragged':  # the plan of E = 2 G + 1: two groups and a ragged one
+        E = 2 * plan['G'] + 1
+        plan = assembly.vector_plan(E, Q, A, I, itemsize, strides, aligned)
+        assert E % plan['G'] or plan['G'] == 1
+    assert plan['regime'] in ('element_lanes', 'tile_lanes') and plan['stages'] == assembly.STAGES
+    assert plan['smem'] <= assembly.SMEM_BYTES and plan['threads'] <= assembly.MAX_THREADS
+    assert plan['threads'] % 32 == 0 and plan['threads'] >= assembly.VECTOR_THREADS
+    assert plan['G'] % plan['te'] == 0 and plan['te'] in (1, assembly.VECTOR_TE)
+    assert plan['te'] == 1 or (shared and plan['kfast'])
+    spans = sorted(vector_regions(plan, Q, A, I))
+    assert plan['smem'] == max(stop for _start, stop in spans) * itemsize
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    # a tile running past a row of Bt reads inside shared memory
+    assert spans[0][0] + Q * A * I + plan['ti'] - 1 <= plan['smem'] // itemsize
+    assert (cover_vector(plan, E, I) == 1).all()
+    if not plan['kfast']:  # tile lanes: slices on 16 bytes
+        assert all(plan[f'n{x}'] * itemsize % 16 == 0 for x in ('Bt', 'g', 'r'))
+    if plan['kfast']:  # odd strides, or odd multiples of 16 bytes
+        assert plan['nr'] % 2
+        for name in ('Bt', 'g'):
+            n = plan['nBt'] if name == 'Bt' else plan['ng']
+            if plan['align16'][name]:
+                assert n * itemsize % 32 == 16 and plan['copies'][name]['vec'] == 16 // itemsize
+                assert name == 'Bt' or Q * A * itemsize % 16 == 0
+            elif name == 'g' or not shared:
+                assert n % 2
+    for ne in {plan['G'], E % plan['G'] or plan['G']}:
+        for name, sh in (('Bt', shared), ('g', False)):
+            c = plan['copies'][name]
+            k = 1 if sh else ne
+            moved = walk_copy(c, k, plan['threads'])
+            if name == 'Bt':
+                st, n, L = strides[0], plan['nBt'], A * I
+                want = {(e * n + (q * A + a) * I + i, e * st[0] + q * st[1] + a * st[2] + i)
+                        for e in range(k) for q in range(Q) for a in range(A) for i in range(I)}
+            else:
+                sg, n = strides[1], plan['ng']
+                want = {(e * n + q * A + a, e * sg[0] + q * sg[1] + a * sg[2])
+                        for e in range(k) for q in range(Q) for a in range(A)}
+            assert len(moved) == len(set(moved)) and set(moved) == want
+            assert (c['kd'] == -1) == sh
+
+
+@pytest.mark.parametrize('itemsize', ITEMSIZES)
+def test_vector_plan_single_element_and_alignment(itemsize):
+    # E = 1 takes one group of one element; a base off 16 bytes copies one
+    # value at a time; g's runs of A values A_total apart go by single
+    # values, a contiguous g by 16 bytes
+    Q, A, I = 16, 6, 18
+    strides, _aligned = vector_operands(1, Q, A, I, False, 14, 7, itemsize)
+    plan = assembly.vector_plan(1, Q, A, I, itemsize, strides, (True, False))
+    assert plan['G'] == 1 and (cover_vector(plan, 1, I) == 1).all()
+    assert plan['copies']['Bt']['vec'] == 16 // itemsize and plan['copies']['g']['vec'] == 1
+    off = assembly.vector_plan(1, Q, A, I, itemsize, strides, (False, False))
+    assert off['copies']['Bt']['vec'] == 1
+    moved = walk_copy(off['copies']['Bt'], 1, off['threads'])
+    assert len(set(moved)) == Q * A * I
+    contiguous = ((Q * A * I, A * I, I, 1), (Q * A, A, 1))
+    assert assembly.vector_plan(1001, Q, A, I, itemsize, contiguous, (True, True))['copies']['g']['vec'] > 1
+
+
+def test_vector_plan_refuses_what_does_not_fit():
+    # one element of Q A I = 131,072 values: the generic kernel
+    plan = assembly.vector_plan(10, 64, 32, 64, 8, ((0, 2048, 64, 1), (2048, 32, 1)))
+    assert plan == {'regime': 'generic'}
 
 
 @pytest.mark.parametrize('itemsize', ITEMSIZES)

@@ -8,6 +8,7 @@ Without a card every test skips.  Tolerances: float32 1e-6 and float64 1e-14
 of the largest plain value (the sums run in another order, with fused
 multiply-adds); reductions on the scale of their terms.'''
 
+import ctypes
 import hashlib
 
 import numpy
@@ -1204,6 +1205,77 @@ def test_assembly_contractions_into_chunk_rows(cuda, case, dtype, tol):
             kernel(*operands, out=buf[rows].transpose(0, -1))
 
 
+def _generic_vector(Bt, g):
+    """K12's generic kernel (one thread an output, the order of sums of the
+    kernel the staged one replaced), launched directly."""
+    E, Q, A = g.shape
+    I = Bt.shape[-1]
+    out = torch.empty((E, I), dtype=g.dtype, device=g.device)
+    strides = (ctypes.c_int64 * 7)(*assembly._strides(Bt, E), *assembly._strides(g, E))
+    _kernels.call('ntt_elem_vector', g, [Bt, g, out], scalars=(E, Q, A, I, strides, None))
+    return out
+
+
+# K12's operands on the paths ((Q, A, I, shared Bt, g's features a point),
+# g a slice of them at an offset: the residual's view of the point
+# gradient): the Navier-Stokes velocity and pressure residuals, the
+# triangles', the slice's, the example's, the elasticity example's and the
+# finite-strain example's
+VECTOR_CASES = {'ns_v': (16, 6, 18, False, 14, 7), 'ns_q': (16, 1, 4, False, 14, 13),
+                'tri_v': (12, 6, 12, True, 14, 7), 'tri_q': (12, 1, 3, True, 14, 13),
+                'laplace': (4, 3, 4, False, 3, 0), 'example': (4, 2, 4, False, 4, 2),
+                'elasticity': (6, 6, 12, True, 6, 0), 'finitestrain': (4, 4, 8, False, 4, 0)}
+
+
+@pytest.mark.parametrize('size', ['1001', 'one element', 'ragged'])
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('case', list(VECTOR_CASES))
+def test_elem_vector_staged_is_the_generic_kernel(cuda, case, dtype, tol, size):
+    # K12 on its plan (element lanes or tile lanes; Bt per element or
+    # shared; g a strided slice) against its plain version, and bit for bit
+    # the generic kernel, whose order of sums is that of the kernel it
+    # replaced; a chunk's rows of a buffer written in place, the rest left
+    # alone; launches counted by regime
+    Q, A, I, shared, width, offset = VECTOR_CASES[case]
+
+    def operands(E):
+        rng = numpy.random.default_rng(8)
+        Bt = torch.as_tensor(rng.standard_normal((1 if shared else E, Q, A, I)), dtype=dtype, device=cuda)
+        g = torch.as_tensor(rng.standard_normal((E, Q, width)), dtype=dtype, device=cuda)[..., offset:offset + A]
+        return Bt, g
+    E = {'1001': 1001, 'one element': 1}.get(size)
+    if E is None:
+        E = 3 * assembly.elem_vector_plan(*operands(1001))['G'] + 1
+    Bt, g = operands(E)
+    plan = assembly.elem_vector_plan(Bt, g)
+    assert plan['regime'] in ('element_lanes', 'tile_lanes')
+    forms = dict(assembly.elem_vector.forms)
+    r = assembly.elem_vector(Bt, g)
+    assert assembly.elem_vector.forms[plan['regime']] == forms[plan['regime']] + 1
+    assert torch.equal(r, _generic_vector(Bt, g)) and torch.equal(r, assembly.elem_vector(Bt, g))
+    scale = assembly.elem_vector_plain(Bt.abs(), g.abs()).max()
+    assert float((r - assembly.elem_vector_plain(Bt, g)).abs().max() / scale) <= tol
+    buf = torch.zeros((3 * E, I), dtype=dtype, device=cuda)
+    got = assembly.elem_vector(Bt, g, out=buf[E:2 * E])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf[E].data_ptr() and torch.equal(buf[E:2 * E], r)
+    assert not buf[:E].any() and not buf[2 * E:].any()
+
+
+def test_elem_vector_generic_regime(cuda):
+    # an element too large for shared memory in two stages: the plan says
+    # so, and the wrapper launches the generic kernel
+    rng = numpy.random.default_rng(9)
+    Bt = torch.as_tensor(rng.standard_normal((1, 64, 32, 64)), device=cuda, dtype=torch.float64)
+    g = torch.as_tensor(rng.standard_normal((10, 64, 32)), device=cuda, dtype=torch.float64)
+    assert assembly.elem_vector_plan(Bt, g)['regime'] == 'generic'
+    before = assembly.elem_vector.forms['generic']
+    r = assembly.elem_vector(Bt, g)
+    assert assembly.elem_vector.forms['generic'] == before + 1
+    assert torch.equal(r, _generic_vector(Bt, g))
+    assert _close(r, assembly.elem_vector_plain(Bt, g), 1e-14, assembly.elem_vector_plain(Bt.abs(), g.abs()).max())
+
+
 @pytest.mark.parametrize('case', ['laplace', 'ns', 'ns_tri'])
 def test_cuda_chunked_assembly_is_the_unchunked(cuda, case):
     # each path at a small size in float64 in element chunks on the card:
@@ -1385,10 +1457,74 @@ def test_elem_value_sum_segments(cuda):
             assert torch.equal(assembly.elem_value_sum(parts, offsets), assembly.elem_value_sum_plain(parts, offsets))
 
 
+def _value_parts(rng, shapes, dtype, device):
+    """Integrands of a functional's parts, [E, P] each."""
+    return [torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=device) for shape in shapes]
+
+
+def _fold(fs, total=None):
+    """The value of parts ``fs`` as the solver takes it: every part's
+    partials into its segment of one buffer, the last launch finishing."""
+    sizes = [assembly.value_blocks(*f.shape) for f in fs]
+    offsets = numpy.cumsum([0] + sizes).tolist()
+    partials = fs[0].new_empty(offsets[-1])
+    total = fs[0].new_empty(1) if total is None else total
+    for k, f in enumerate(fs):
+        assembly.elem_value(f, out=partials[offsets[k]:offsets[k + 1]],
+                            finish=(partials, offsets, total) if k == len(fs) - 1 else None)
+    return partials, offsets, total
+
+
+# parts of a value: one (the finite-strain path's), two, 40 (a functional
+# of that many terms, some of one element), and two whose last is empty
+FOLDS = {'one': [(518, 4)], 'two': [(300, 9), (1, 1)], 'forty': [(37 * k % 300 + 1, 1 + k % 6) for k in range(40)],
+         'empty last': [(1024, 4), (0, 4)]}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('parts', list(FOLDS))
+def test_elem_value_fold_is_the_two_launches(cuda, parts, dtype):
+    # the folded launch: the partials and the value bit for bit those of
+    # elem_value followed by elem_value_sum over the segments, one finishing
+    # launch, no elem_value_sum launch, the counter back at 0
+    fs = _value_parts(numpy.random.default_rng(41), FOLDS[parts], dtype, cuda)
+    before = dict(assembly.elem_value.forms), assembly.elem_value_sum.launches
+    partials, offsets, total = _fold(fs)
+    torch.cuda.synchronize()
+    assert assembly.elem_value.forms['finish'] == before[0]['finish'] + 1
+    assert assembly.elem_value_sum.launches == before[1]
+    want = torch.cat([assembly.elem_value(f) for f in fs])
+    assert torch.equal(partials, want)
+    assert torch.equal(total, assembly.elem_value_sum(want, offsets))
+    assert torch.equal(total, assembly.elem_value_sum_plain(want, offsets))
+    assert int(assembly._ticket(cuda)[0]) == 0
+
+
+def test_elem_value_fold_replays(cuda):
+    # ten replays of a CUDA graph holding a folded value of three parts: the
+    # same bits each time (the counter starts each replay at 0), counted
+    # at each replay
+    fs = _value_parts(numpy.random.default_rng(43), [(518, 4), (1, 1), (2048, 4)], torch.float64, cuda)
+    partials, offsets, total = _fold(fs)  # the counter and the segment table, made before the capture
+    want = total.clone()
+    torch.cuda.synchronize()
+    total.zero_()
+    graph = _kernels.Graph(lambda: _fold(fs, total))
+    before = assembly.elem_value.forms['finish']
+    for k in range(10):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(total, want), k
+        total.zero_()
+    assert assembly.elem_value.forms['finish'] == before + 10
+    assert int(assembly._ticket(cuda)[0]) == 0
+
+
 def test_cuda_value_goes_through_k15(cuda):
     # the finite-strain energy at 8 elements a side: assemble_value through
     # K15 on the card equals the CPU's (plain versions) to 1e-12, and a
-    # Minimize solve on the card launches K15 on every trial
+    # Minimize solve on the card launches K15 on every trial, each value
+    # finished in its last launch
     import _torch_parity as tp
     from nutils_tpu_torch import solver
     from nutils_tpu_torch.utils import config
@@ -1403,7 +1539,9 @@ def test_cuda_value_goes_through_k15(cuda):
                 assert assembly.elem_value.launches > before
     assert abs(values['cuda'] - values['cpu']) <= 1e-12 * abs(values['cpu'])
     with config.device('cuda'), config.floatx(numpy.float64):
-        before = assembly.elem_value_sum.launches
+        before = assembly.elem_value.forms['finish'], assembly.elem_value_sum.launches
         _cons, _u0, u1, system = tp.finitestrain('nutils_tpu_torch', 8)
-        assert assembly.elem_value_sum.launches > before + 1
+        # one finishing launch a value, the segment sum folded into it
+        assert assembly.elem_value.forms['finish'] > before[0] + 1
+        assert assembly.elem_value_sum.launches == before[1]
         assert numpy.isfinite(u1).all()

@@ -8,6 +8,9 @@ K15's span and one piece (the partials of a block depend on its values
 only); 1e-13 where the order of the sums differs (the generic route's
 integrand, chunks off the span).'''
 
+import contextlib
+from unittest import mock
+
 import numpy
 import pytest
 import torch
@@ -237,3 +240,95 @@ def test_value_of_many_terms():
     assert nparts >= 18
     for value in (got, generic):
         assert abs(value - want) <= 1e-12 * abs(want), (value, want)
+
+
+def _parent_route(system, args):
+    """The value as the port took it before K15's fold: each part's
+    partials in a buffer of its own (a chunked form's chunk by chunk into
+    its rows), the buffers concatenated, then one elem_value_sum over the
+    parts' segments: the reference of the folded route's bits."""
+    plan = system._chunk_plan()
+    tables = system._tables()
+    if plan is not None and plan['consts']:
+        tables = {**tables, **solver._device_tables(plan['consts'], plan)}
+    dargs = system._device_args(system._clean(args))
+    leaves = system._bound_leaves(dargs, {}, tables)
+    bufs = []
+    for part in system._value_parts():
+        if part[0] == 'term':
+            _kind, comp, lead = part
+            f = comp.trace(dargs, leaves)
+            bufs.append(assembly.elem_value(f.reshape((1, 1) if lead is None else (lead[0], int(numpy.prod(lead[1:]))))))
+        elif plan is None or id(part[1]) not in plan['forms']:
+            bufs.append(assembly.elem_value(part[1].integrand(dargs, leaves)))
+        else:
+            chunks = []
+            for lo in range(0, plan['E'], plan['ce']):
+                rows = slice(lo, lo + plan['ce'])
+                chunks.append(assembly.elem_value(plan['forms'][id(part[1])].integrand(
+                    dargs, solver._chunk_leaves(leaves, plan['keys'], rows), rows)))
+            bufs.append(torch.cat(chunks))
+    offsets = numpy.cumsum([0] + [len(b) for b in bufs]).tolist()
+    return float(assembly.elem_value_sum(torch.cat(bufs), offsets))
+
+
+class _EmptyTerm:
+    """A term whose integrand has no elements (a part of P = 4 values a
+    point over no element)."""
+
+    def trace(self, args, leaves):
+        return torch.zeros((0, 4), dtype=torch.float64)
+
+
+@pytest.mark.parametrize('case', ['one part', 'eighteen parts', 'chunks', 'chunks and parts', 'empty last part'])
+def test_folded_value_is_the_parent_route(case):
+    # the value through one buffer and a finishing launch (the plain
+    # versions here) has the bits of the route it replaced (a buffer a part,
+    # their concatenation, elem_value_sum), and the JAX package's value to
+    # 1e-12
+    if case == 'eighteen parts' or case == 'chunks and parts':
+        sj = _many_terms('nutils_tpu', 18)
+        with config.device('cpu'):
+            st = _many_terms('nutils_tpu_torch', 18)
+    else:
+        sj = solver_jax().System(tp.finitestrain_forms('nutils_tpu', 32, 'square', 'std', 1)[4], trial='u')
+        with config.device('cpu'):
+            st = _finite_system(32)
+    args = _args(sj, 47, .1)
+    want = float(sj.assemble_value(args))
+    with config.device('cpu'), contextlib.ExitStack() as stack:
+        if case in ('chunks', 'chunks and parts'):
+            stack.enter_context(config.assembly_chunk(256 if case == 'chunks' else 8))
+            assert st._chunk_plan()['nc'] > 1
+        if case == 'eighteen parts':
+            stack.enter_context(st._generic_route())
+            assert len(st._value_parts()) == 18
+        if case == 'empty last part':
+            parts = st._value_parts() + [('term', _EmptyTerm(), (0, 4))]
+            stack.enter_context(mock.patch.object(st, '_value_parts', lambda: parts))
+        got = st.assemble_value(args)
+        assert got == _parent_route(st, args)
+    assert abs(got - want) <= 1e-12 * abs(want)
+
+
+@pytest.mark.parametrize('dtype', (torch.float32, torch.float64))
+def test_elem_value_finish_plain(dtype):
+    # the plain fold over parts of 1,024 x 4, 300 x 9, 1 x 1 and an empty
+    # last part: each part's partials in its segment, the value the bits of
+    # elem_value_sum over them; out defaults to the partials' last rows;
+    # offsets that do not cut the partials raise
+    rng = numpy.random.default_rng(53)
+    fs = [torch.as_tensor(rng.standard_normal(shape), dtype=dtype) for shape in ((1024, 4), (300, 9), (1, 1), (0, 4))]
+    sizes = [assembly.value_blocks(*f.shape) for f in fs]
+    offsets = numpy.cumsum([0] + sizes).tolist()
+    partials, total = torch.full((offsets[-1],), numpy.nan, dtype=dtype), torch.empty(1, dtype=dtype)
+    for k, f in enumerate(fs[:-1]):
+        assembly.elem_value(f, out=partials[offsets[k]:offsets[k + 1]])
+    assert assembly.elem_value(fs[-1], finish=(partials, offsets, total)).shape == (0,)
+    want = torch.cat([assembly.elem_value(f) for f in fs])
+    assert torch.equal(partials, want) and torch.equal(total, assembly.elem_value_sum(want, offsets))
+    last = assembly.elem_value(fs[0], finish=(want[:sizes[0]], [0, sizes[0]], total))
+    assert torch.equal(last, want[:sizes[0]]) and torch.equal(total, assembly.elem_value_sum(want[:sizes[0]],
+                                                                                           [0, sizes[0]]))
+    with pytest.raises(ValueError):
+        assembly.elem_value(fs[0], finish=(partials, [0, 3], total))
