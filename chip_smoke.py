@@ -8,6 +8,7 @@ the GPU.
     python3 chip_smoke.py --only assemble  # warm assemblies alone, no solves
     python3 chip_smoke.py --only finitestrain  # the finite-strain phases alone
     python3 chip_smoke.py --only krylov    # K6/K10 rows and the Navier-Stokes GMRES/BiCGStab solves alone
+    python3 chip_smoke.py --only timestep  # ns_steps, heat_steps and timestep_parity alone
 
 Phases, each printing JSON lines (``--only kernels``: device, build, K3's
 rows at the slice's, the example's and the finite-strain grids, K1's at
@@ -125,7 +126,33 @@ two checkouts the same way):
    Navier-Stokes step's System to 1e-5 of its first residual norm in at
    most 8 iterations: each iteration's norm, time, inner tolerance and
    solve record; every inner solve must be accepted on the device.
-18. elasticity — examples/elasticity.py on ``unitsquare(360, 'triangle')``
+18. ns_steps — ``System.step`` on the Navier-Stokes step written as
+   examples/cylinderflow.py writes it (the history ``u0`` and the timestep
+   ``dt`` arguments, ``timearg='t'`` unread), 983,403 dofs in float32:
+   three steps of 0.01 from the seeded state, Newton each to 1e-5 of the
+   first residual norm; per step its time, and per Newton iteration
+   ``t_assemble``, ``t_solve``, ``t_capture`` and the solve record; the
+   layout (``System._jac_layout``) and K5's plan made once over the run
+   (their calls counted and timed, ``ns_steps_setup``), each inner solve
+   on the card from CUDA graphs, no plain version run, each step's history
+   the previous state bit for bit.
+19. heat_steps — ``solver.cranknicolson`` on the heat equation (∇v·∇u,
+   inertia v u) at 1024^2 squares (1,050,625 dofs), float32 assembly, from
+   the nodal values of cos(πx) cos(πy): five steps of 1e-3, each a
+   ``Direct`` solve sent to the card by ``auto`` (MG-GMRES on the stencil
+   operator); per step the method, preconditioner and operator form, the
+   residual norm beside newtontol and the set-up calls so far (the
+   layout, prolongations and level stencils in step 1 alone, the Galerkin
+   plans in step 2 alone, asserted); each step's L2 norm ratio within
+   1e-3 of the continuous Crank-Nicolson factor.
+20. timestep_parity — the time-stepping cases of ``tests/_torch_parity.py``
+   (``Pseudotime``, ``Arnoldi``, the legacy functions, the theta method,
+   ``System.step`` with its halving, a Taylor-Hood history step) on the
+   card and on the CPU, to 1e-10; the matrix algebra (``+``, ``-``, ``*``,
+   ``/``, ``T``) on stencil-, block-grid- and CSR-form jacobians, to 1e-12
+   with the same pattern; the CSR jacobian's scalar product on the card
+   with the host product's bits.
+21. elasticity — examples/elasticity.py on ``unitsquare(360, 'triangle')``
    at degree 2 (259,200 triangles, 1,039,682 dofs) in float64 through the
    port's entry points: ``solve_constraints``, then ``System.solve(
    constrain=cons, method=Direct(solver='cg', precon='block',
@@ -140,19 +167,19 @@ two checkouts the same way):
    around K9), the same free rows as the public solve to 1e-8, its set-up
    beside the public one's.  Then ``assembly_kernels`` on its System in
    float64 (P2 vector triangles, I = J = 12, one shared operator).
-19. elasticity_kernels — K13 and K14 against their plain versions at that
+22. elasticity_kernels — K13 and K14 against their plain versions at that
    path's shapes, in float32 and float64, beside ``torch.bmm`` and
    ``torch.mul`` (``mask_post``: ``torch.mul`` then ``torch.addcmul``);
    each row with two launches the same bits, and K14's with its split
    (``ops/sparse.mask_plan``: scalar head, 16-byte vectors, scalar tail)
    and the same pass on views one entry in (n - 1 entries), equal to the
    plain version.
-20. elasticity_square — the example on 256^2 squares at degree 2 (526,338
+23. elasticity_square — the example on 256^2 squares at degree 2 (526,338
    dofs): its masked operator has the 3-D stencil form of 75 slots, so the
    CG graphs hold K13 beside the 3-D K1.
-21. elasticity_parity — the example at 16 elements a side, triangles and
+24. elasticity_parity — the example at 16 elements a side, triangles and
    squares, on the card and on the CPU: u and t agree to 1e-10 relative.
-22. finitestrain — examples/finitestrain.py untrimmed on 720^2 squares at
+25. finitestrain — examples/finitestrain.py untrimmed on 720^2 squares at
    degree 1 (1,039,682 dofs) in float64 through the port's entry points:
    ``solve_constraints``, the linear ``System.solve(constrain=cons)``, then
    ``System.solve(arguments=args0, constrain=cons, method=Minimize(),
@@ -167,7 +194,7 @@ two checkouts the same way):
    version run, the residual at 1e-10; then one inner solve on the
    converged jacobian under the profiler (wall, device-busy time, K1's and
    K2's device time).
-23. finitestrain_kernels — K15 (``elem_value``, ``elem_value_sum``)
+26. finitestrain_kernels — K15 (``elem_value``, ``elem_value_sum``)
    against its plain version on the converged energy's integrand (518,400
    elements of 4 points) in float32 and float64: the error, two launches
    the same bits, chunks of a multiple of the span the same partials as
@@ -177,9 +204,9 @@ two checkouts the same way):
    replaced and timed beside them; then ``assembly_kernels`` on the
    converged System (K11 and K12 at its block: E 518,400, Q 4, A 4, I 8,
    float64).
-24. finitestrain_parity — the example at 16 elements a side on the card and
+27. finitestrain_parity — the example at 16 elements a side on the card and
    on the CPU: u0 and u1 agree to 1e-10 relative, the values to 1e-12.
-25. mg_setup — every multigrid set-up of the run, by phase: how many, the
+28. mg_setup — every multigrid set-up of the run, by phase: how many, the
    K1 launches their levels' power-step estimates made (set-up, not solve;
    the slice's are also in ``slice_setup``), and each level shape's
    Gershgorin bounds and estimates and how often its diagonals were
@@ -188,8 +215,10 @@ two checkouts the same way):
 Each path's assembly line also gives ``t_assemble_generic``: the same
 System with every chunk on the generic ``vmap(jvp)`` route, in the same
 call.  The kernels line gives K1-K4's launches summed over the paths that
-run them (the slice, the example, the degree-2 example, finite strain)
-with each path's beside them (``launches_by_path``), as K11/K12's, K1's
+run them (the slice, the example, the degree-2 example, finite strain,
+the heat steps) with each path's beside them (``launches_by_path``), as
+K5's, K6's, K7's, K11's and K12's (the time-stepping paths' among them,
+each of their steps' launches in ``launches_by_step``), K1's
 and K2's fused launches by form on each path (``launches_by_form``: the
 slice and the example tiled and 2-D, the degree-2 example 2-D, the
 elasticity squares generic, finite strain tiled and components; each
@@ -2266,6 +2295,298 @@ def plain_calls():
             setattr(mod, name, fn)
 
 
+# ------------------------------------------------------------ time stepping
+
+# the Navier-Stokes history step: three System.step calls of the step's
+# System (Newton to 1e-5 of the first step's first residual norm, as
+# ns_newton sets it)
+NS_STEPS = 3
+NS_DT = 0.01
+# the heat equation's Crank-Nicolson steps at 1024^2 squares: each step is
+# Direct's solve, on the card (above config.device_solve_min); newtontol is
+# the bound on its residual norm |r - J dx|: the device solve aims at 1e-11
+# |r| or at _accept's floor 16 eps ||J||_inf |dx|, both near 1e-13 here
+# (|r| ~ 1e-2, ||J||_inf ~ 2.7, |dx| ~ 10), so the theta method's default
+# 1e-10 holds with room
+HEAT_NELEMS = 1024
+HEAT_STEPS = 5
+HEAT_DT = 1e-3
+HEAT_NEWTONTOL = 1e-10
+SETUP_NAMES = ('jac_layout', 'k5_plan', 'level_stencil', 'prolongation', 'galerkin_plan')
+
+
+@contextlib.contextmanager
+def counted_set_up():
+    """Time, while the block is open, each call of the set-up that a System
+    makes once for its pattern: the jacobian layout
+    (``System._jac_layout``: the pattern sort and value plans), K5's compact
+    plan (``ops/blockgrid.compact_plan``), the multigrid's level stencil
+    inferences (``ops/stencil.from_csr_grid``), prolongations
+    (``ops/mg._prolong_1d``) and Galerkin plans (``ops/mg.galerkin_plan``):
+    {name: [seconds of each call]}.  Nothing of the package changes."""
+    import functools
+    from nutils_tpu_torch import solver
+    from nutils_tpu_torch.ops import blockgrid, mg, stencil
+    made = {name: [] for name in SETUP_NAMES}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t, out = _sync_time(lambda: fn(*args, **kwargs))
+            made[name].append(t)
+            return out
+        return wrapper
+    layout = solver.System.__dict__['_jac_layout']
+    prop = functools.cached_property(timed('jac_layout', layout.func))
+    prop.__set_name__(solver.System, '_jac_layout')
+    patched = [(blockgrid, 'compact_plan', 'k5_plan'), (stencil, 'from_csr_grid', 'level_stencil'),
+               (mg, '_prolong_1d', 'prolongation'), (mg, 'galerkin_plan', 'galerkin_plan')]
+    saved = [getattr(mod, attr) for mod, attr, _name in patched]
+    solver.System._jac_layout = prop
+    for (mod, attr, name), fn in zip(patched, saved):
+        setattr(mod, attr, timed(name, fn))
+    try:
+        yield made
+    finally:
+        solver.System._jac_layout = layout
+        for (mod, attr, _name), fn in zip(patched, saved):
+            setattr(mod, attr, fn)
+
+
+def phase_ns_steps(nelems=330, steps=NS_STEPS, device='cuda'):
+    """``System.step`` on the Navier-Stokes step written as
+    ``examples/cylinderflow.py`` writes it (the history ``u0`` and the
+    timestep ``dt`` arguments, ``timearg='t'`` unread), 983,403 dofs in
+    float32, from build_ns's seeded state: ``steps`` steps of 0.01, Newton
+    each to 1e-5 of the first step's first residual norm.  One line a step
+    (its time, Newton iterations and, for each, ``t_assemble``,
+    ``t_solve``, ``t_capture`` and the solve record; launches), one of the
+    set-up.  Asserts: each step converges at its timestep (no halving),
+    every inner solve on the card from CUDA graphs, the layout and K5's
+    plan made once over the run, no plain version, K5-K7, K11 and K12
+    launched in every step, each step's history the previous step's state,
+    bit for bit.  Returns each step's launches."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch import matrix
+    from nutils_tpu_torch.utils import config
+    names = NS_KERNELS + ('csr_scatter',)
+    lines = []
+    with config.device(device), counted_set_up() as made, plain_calls() as plain:
+        t_system, (system, args) = _sync_time(
+            lambda: tp.taylor_hood_history('nutils_tpu_torch', nelems, numpy.float32))
+        ndofs = sum(int(numpy.prod(s)) for s in system.trial_shapes)
+        check_routes('ns_steps', system)
+        t_r0, r0 = _sync_time(lambda: system.assemble_residual(dict(args, u0=args['u'], dt=NS_DT)))
+        tol = 1e-5 * float(numpy.linalg.norm(r0))
+        iterations, dts = [], []
+        assemble, solve_leniently, solve = system.assemble_jacobian_residual, matrix.Matrix.solve_leniently, \
+            system.solve
+
+        def timed_assembly(*a, **k):
+            t, (jac, res) = _sync_time(lambda: assemble(*a, **k))
+            iterations.append(dict(t_assemble=t, resnorm=float(numpy.linalg.norm(res))))
+            return jac, res
+
+        def timed_solve(jac, res, **kw):
+            t, dx = _sync_time(lambda: solve_leniently(jac, res, **kw))
+            stats = dict(jac._solve_stats)
+            iterations[-1].update(t_solve=t, t_capture=stats.get('t_capture', 0.), inner_rtol=kw.get('rtol'),
+                                  solve_stats=stats)
+            return dx
+
+        def counted_solve(**kw):
+            dts.append(float(kw['arguments']['dt']))
+            return solve(**kw)
+        system.assemble_jacobian_residual = timed_assembly
+        system.solve = counted_solve
+        matrix.Matrix.solve_leniently = timed_solve
+        try:
+            for k in range(steps):
+                iterations.clear()
+                reset_launches()
+                t_step, out = _sync_time(lambda: system.step(timestep=NS_DT, timearg='t', timesteparg='dt', suffix='0',
+                                                             arguments=args, tol=tol, maxiter=8))
+                lines.append(dict(step=k, t=out['t'], t_step=t_step, newton_iterations=len(iterations) - 1,
+                                  iterations=list(iterations), launches=read_launches(names),
+                                  history_is_state=out['u0'] is args['u'] and numpy.array_equal(out['u0'], args['u'])))
+                emit('ns_steps', **lines[-1])
+                args = out
+        finally:
+            matrix.Matrix.solve_leniently = solve_leniently
+            del system.assemble_jacobian_residual, system.solve
+    emit('ns_steps_setup', ndofs=ndofs, tol=tol, t_first_residual=t_r0, t_system=t_system,
+         t_pattern=made['jac_layout'], t_k5_plan=made['k5_plan'], timesteps=dts, plain_calls=plain)
+    if dts != [NS_DT] * steps:
+        raise AssertionError(f'ns_steps: the solves ran at timesteps {dts}, expected {steps} of {NS_DT}')
+    for line in lines:
+        its = line['iterations']
+        if not its[-1]['resnorm'] <= tol or not line['history_is_state']:
+            raise AssertionError(f'ns_steps step {line["step"]}: residuals {[it["resnorm"] for it in its]} '
+                                 f'for {tol:.3e}, history the state: {line["history_is_state"]}')
+        for j, it in enumerate(its[:-1]):
+            if not it['solve_stats']['accepted_on_device']:
+                raise AssertionError(f'ns_steps step {line["step"]}: inner solve {j} left the device')
+            check_driver(f'ns_steps step {line["step"]} iteration {j}', it['solve_stats'])
+        missing = [name for name in NS_KERNELS if line['launches'][name] <= 0]
+        if missing:
+            raise AssertionError(f'ns_steps step {line["step"]}: kernels not launched: {missing}')
+    if len(made['jac_layout']) != 1 or len(made['k5_plan']) != 1 or plain:
+        raise AssertionError(f'ns_steps: {len(made["jac_layout"])} layouts and {len(made["k5_plan"])} K5 plans '
+                             f'over {steps} steps (1 each expected), plain versions {plain}')
+    return [line['launches'] for line in lines]
+
+
+def phase_heat_steps(nelems=HEAT_NELEMS, steps=HEAT_STEPS, device='cuda'):
+    """``solver.cranknicolson('u:v', ∇v·∇u, v u, timestep=1e-3)`` on
+    ``nelems`` squares a side, degree 1 (1,050,625 dofs), float32 assembly,
+    from the nodal values of the Neumann mode cos(πx) cos(πy): ``steps``
+    steps, each a ``Direct`` solve that ``auto`` sends to the card.  One
+    line a step (its time, the solve's method, preconditioner, operator
+    form and record, its residual norm against newtontol, the set-up calls
+    so far, launches, the L2 norm's ratio).  Asserts: every solve accepted
+    on the card from CUDA graphs, the layout, prolongations and level
+    stencils made in the first step alone, the Galerkin plans in the second
+    alone, no plain version, the assembly's and the solve's kernels
+    launched in every step, and each step's L2 norm ratio within 1e-3
+    relative of the continuous Crank-Nicolson factor (1 - λΔt/2) /
+    (1 + λΔt/2), λ = 2π².  Returns each step's launches."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch import function, matrix, solver
+    from nutils_tpu_torch.utils import config
+    names = MG_KERNELS + GMRES_KERNELS + ASSEMBLY_KERNELS
+    lines, states = [], []
+    with config.device(device), config.floatx(numpy.float32), counted_set_up() as made, plain_calls() as plain:
+        topo, geom, u, res, inertia, u0 = tp.heat('nutils_tpu_torch', nelems)
+        records = []
+        direct = solver.Direct.__call__
+
+        def recorded(self, system, **kw):
+            args, resnorm = direct(self, system, **kw)
+            records.append(resnorm)
+            return args, resnorm
+        solve = matrix.Matrix.solve
+
+        def recorded_solve(self, *a, **k):
+            x = solve(self, *a, **k)
+            records.append(dict(self._solve_stats))
+            return x
+        solver.Direct.__call__ = recorded
+        matrix.Matrix.solve = recorded_solve
+        try:
+            t_system, steps_ = _sync_time(lambda: solver.cranknicolson('u:v', res, inertia, timestep=HEAT_DT,
+                                                                         newtontol=HEAT_NEWTONTOL,
+                                                                         arguments={'u': u0}))
+            states.append(next(steps_))
+            for k in range(steps):
+                records.clear()
+                reset_launches()
+                t_step, x = _sync_time(lambda: next(steps_))
+                states.append(x)
+                stats, resnorm = records
+                lines.append(dict(step=k, t_step=t_step, method=stats['method'], precon=stats['precon'],
+                                  op_form=stats['op_form'], resnorm=resnorm, newtontol=HEAT_NEWTONTOL,
+                                  set_up={name: len(calls) for name, calls in made.items()},
+                                  launches=read_launches(names), solve_stats=stats))
+        finally:
+            solver.Direct.__call__ = direct
+            matrix.Matrix.solve = solve
+    with config.device(device), config.floatx(numpy.float64):
+        l2 = topo.integral(u ** 2 * function.J(geom), degree=2)
+        norms = [float(l2.eval({'u': x})) ** .5 for x in states]
+    lam_dt = 2 * numpy.pi ** 2 * HEAT_DT
+    factor = (1 - lam_dt / 2) / (1 + lam_dt / 2)
+    for line, n0, n1 in zip(lines, norms, norms[1:]):
+        line.update(ratio=n1 / n0, ratio_rel_err=n1 / n0 / factor - 1)
+        emit('heat_steps', **line)
+    emit('heat_steps_setup', ndofs=int(u0.size), t_system=t_system, factor=factor, norms=norms,
+         set_up_seconds=made, plain_calls=plain)
+    for line in lines:
+        stats = line['solve_stats']
+        if not stats['accepted_on_device'] or stats['op_form'] != 'stencil' or stats['precon'] != 'mg':
+            raise AssertionError(f'heat_steps step {line["step"]}: solved through {stats}')
+        check_driver(f'heat_steps step {line["step"]}', stats)
+        kernels = ('stencil_matvec', 'jacobi_pre', 'jacobi_post', 'mg_restrict', 'mg_prolong_add') \
+            + (GMRES_KERNELS if stats['method'] == 'gmres' else ('cg_dot', 'cg_step', 'cg_xpby')) + ASSEMBLY_KERNELS
+        missing = [name for name in kernels if line['launches'][name] <= 0]
+        if missing or not abs(line['ratio_rel_err']) <= 1e-3:
+            raise AssertionError(f'heat_steps step {line["step"]}: kernels not launched {missing}, '
+                                 f'L2 ratio {line["ratio"]} against {factor}')
+    first, second, last = lines[0]['set_up'], lines[1]['set_up'], lines[-1]['set_up']
+    if not (first['jac_layout'] == last['jac_layout'] == 1 and 0 < first['prolongation'] == last['prolongation']
+            and 0 < first['level_stencil'] == last['level_stencil']
+            and first['galerkin_plan'] == 0 < second['galerkin_plan'] == last['galerkin_plan']) or plain:
+        raise AssertionError(f'heat_steps: set-up calls after steps 1, 2 and {steps}: {first}, {second}, {last} '
+                             f'(the layout, prolongations and level stencils in step 1 alone, the Galerkin plans in '
+                             f'step 2 alone); plain versions {plain}')
+    return [line['launches'] for line in lines]
+
+
+def phase_timestep_parity(devices=('cuda', 'cpu')):
+    """The time-stepping cases of ``tests/_torch_parity.py`` (``Pseudotime``,
+    ``Arnoldi``, the legacy functions, ``thetamethod`` and
+    ``cranknicolson``, ``System.step`` on the Taylor-Hood history step) in
+    float64 on the card and on the CPU: their results agree to 1e-10
+    relative; ``System.step``'s halving makes the same calls on both; the
+    matrix algebra on the stencil-, block-grid- and CSR-form jacobians
+    agrees to 1e-12 with the same pattern, and a scalar product of the CSR
+    jacobian's values on the card keeps the host product's bits."""
+    import _torch_parity as tp
+    import numpy
+    import torch
+    from nutils_tpu_torch.utils import config
+    rel, halving, algebra = {}, {}, {}
+    with config.floatx(numpy.float64):
+        for case, fn in tp.TIMESTEP_CASES.items():
+            out = {}
+            for device in devices:
+                with config.device(device):
+                    out[device] = fn('nutils_tpu_torch')
+            a, b = (out[d] for d in devices)
+            rel[case] = max(tp.rel(numpy.nan_to_num(a[key]), numpy.nan_to_num(b[key])) for key in a)
+        for device in devices:
+            with config.device(device):
+                calls, state = tp.step_with_failures('nutils_tpu_torch', *tp.decay('nutils_tpu_torch', read_t=False),
+                                                     timesteparg='dt')
+            halving[device] = calls, state['u']
+        jacobians = {}
+        for form in ('stencil', 'blockgrid', 'csr'):
+            for device in devices:
+                with config.device(device):
+                    jacobians[form, device] = tp.spd_jacobian('nutils_tpu_torch', form)[0]
+            for op, fn in tp.MATRIX_OPS.items():
+                a, b = (fn(jacobians[form, d]).export('csr') for d in devices)
+                same = all(numpy.array_equal(x, y) for x, y in zip(a[1:], b[1:]))
+                algebra[f'{form}:{op}'] = tp.rel(a[0], b[0]) if same else None
+    csr = jacobians['csr', devices[0]]
+    on_card = isinstance(csr.data, torch.Tensor) and csr.data.device.type == 'cuda'
+    product = csr * 0.3
+    product_bits = on_card and product.data.device.type == 'cuda' \
+        and product.data.cpu().numpy().tobytes() == (csr.data.cpu().numpy() * 0.3).tobytes()
+    same_halving = halving[devices[0]][0] == halving[devices[1]][0] \
+        and tp.rel(halving[devices[0]][1], halving[devices[1]][1]) <= 1e-10
+    emit('timestep_parity', devices=list(devices), rel=rel, tol=1e-10, halving_calls=halving[devices[0]][0],
+         halving_same=same_halving, algebra_rel=algebra, algebra_tol=1e-12, csr_product_on_card=bool(product_bits))
+    bad = [case for case, r in rel.items() if not r <= 1e-10] + [key for key, r in algebra.items()
+                                                                 if r is None or not r <= 1e-12]
+    if bad or not same_halving or not product_bits:
+        raise AssertionError(f'timestep_parity: card and CPU differ in {bad}; halving the same {same_halving}; '
+                             f'the CSR product on the card with the host bits {product_bits}')
+
+
+def timestep_only():
+    """``--only timestep``: device, build and the three time-stepping
+    phases alone."""
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    track_mg()
+    phase_ns_steps()
+    phase_heat_steps()
+    phase_timestep_parity()
+    emit('done', seconds=time.perf_counter() - t0)
+
+
 def phase_elasticity(nelems=ELASTICITY_NELEMS):
     """examples/elasticity.py at ``nelems`` triangles a side, degree 2, in
     float64, through the port's entry points: ``solve_constraints`` on the
@@ -3284,9 +3605,11 @@ def main():
         return finitestrain_only()
     if sys.argv[1:] == ['--only', 'krylov']:
         return krylov_only()
+    if sys.argv[1:] == ['--only', 'timestep']:
+        return timestep_only()
     if sys.argv[1:]:
         raise SystemExit(f'chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --only kernels, --only assemble, '
-                         '--only finitestrain or --only krylov)')
+                         '--only finitestrain, --only krylov or --only timestep)')
     t0 = time.perf_counter()
     phase_device()
     phase_build()
@@ -3335,7 +3658,17 @@ def main():
     mg_by_path['laplace_example_p2'] = phase_laplace_example_p2()
     phase_ns_newton()
     torch.cuda.empty_cache()
+    # time stepping: launches of each step of the two paths
+    by_step = {'ns_steps': phase_ns_steps()}
+    torch.cuda.empty_cache()
+    by_step['heat_steps'] = phase_heat_steps()
+    torch.cuda.empty_cache()
+    phase_timestep_parity()
+    step_sums = {path: {name: sum(step.get(name, 0) for step in steps) for name in KERNELS}
+                 for path, steps in by_step.items()}
+    mg_by_path['heat_steps'] = step_sums['heat_steps']
     by_path['laplace_example'] = {name: example_launches[name] for name in ASSEMBLY_KERNELS}
+    by_path.update({path: {name: sums[name] for name in ASSEMBLY_KERNELS} for path, sums in step_sums.items()})
     elasticity_launches, minv, free, system, clean = phase_elasticity()
     with config.floatx(numpy.float64):  # the example's own precision
         elasticity_rows = phase_assembly_kernels(system, clean, 'elasticity')
@@ -3358,6 +3691,12 @@ def main():
     mg_by_path['finitestrain'] = finitestrain_launches
     launches.update({name: finitestrain_launches[name] for name in VALUE_KERNELS + ('elem_value_sum',
                                                                                     'elem_value[finish]')})
+    # K5 and K7 on block-grid jacobians: the Navier-Stokes step's and its
+    # history steps'
+    for name in ('blockgrid_matvec', 'schur_diag_inverse_device'):
+        by = {'ns': ns_launches[name], 'ns_steps': step_sums['ns_steps'][name]}
+        launches[name] = sum(by.values())
+        measured[name] = dict(measured[name], launches_by_path=by)
     # K1-K4: launches summed over the paths that run them, each path's
     # beside them
     for name in MG_KERNELS:
@@ -3369,7 +3708,8 @@ def main():
     # K6: launches summed over the paths that run GMRES, each path's beside
     # them
     for name in GMRES_KERNELS:
-        by = {'ns': ns_launches[name], 'ns_tri': tri_launches[name], 'laplace_example': example_launches[name]}
+        by = {'ns': ns_launches[name], 'ns_tri': tri_launches[name], 'laplace_example': example_launches[name],
+              'ns_steps': step_sums['ns_steps'][name], 'heat_steps': step_sums['heat_steps'][name]}
         launches[name] = sum(by.values())
         measured[name] = dict(measured[name], launches_by_path=by)
     # K11 and K12: launches summed over the paths' runs, each path's beside
@@ -3381,6 +3721,11 @@ def main():
         measured[name] = dict(measured[name], launches_by_path={path: counts[name] for path, counts in by_path.items()},
                               float64_chunk=chunk_rows[name], elasticity_block=elasticity_rows[name],
                               finitestrain_block=finitestrain_rows[name])
+    # each step's launches of the time-stepping paths, beside the sums
+    for name in KERNELS:
+        steps = {path: [step[name] for step in steps] for path, steps in by_step.items() if name in steps[0]}
+        if steps:
+            measured[name] = dict(measured[name], launches_by_step=steps)
     # no launch of the run took K12's generic kernel
     reset_launches()
     emit('k12_generic_launches', launches=GENERIC_K12[0])

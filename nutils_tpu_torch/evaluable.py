@@ -1520,27 +1520,37 @@ def fixed_parts(root):
     '''The largest subtrees of ``root`` that depend on no argument and on no
     leaf but those with a default binding (coordinate and constant tables):
     a functional's geometry, weights and coefficient functions, the same at
-    every call.'''
+    every call.  Below a derivative (``Grad``, ``LeafGrad``) that depends on
+    an argument, a subtree that depends on the leaf it differentiates by is
+    not taken: bound as a leaf, it would differentiate to zero (the basis
+    under the gradient of a field that is an argument but no trial).'''
     out = []
     seen = set()
 
-    def rec(node):
-        if node in seen:
+    def rec(node, wrt):
+        if (node, wrt) in seen:
             return
-        seen.add(node)
-        if not node.arguments and all(l.value is not None for l in node.leafdeps):
+        seen.add((node, wrt))
+        if not node.arguments and all(l.value is not None for l in node.leafdeps) \
+                and not any(l.key in wrt for l in node.leafdeps):
             if node.children:
                 out.append(node)
             return
+        if isinstance(node, Grad):
+            wrt = wrt | {node.wrt.key}
+        elif isinstance(node, LeafGrad):
+            wrt = wrt | {node.key}
         for c in node.children:
-            rec(c)
-    rec(root)
-    return out
+            rec(c, wrt)
+    rec(root, frozenset())
+    return list(dict.fromkeys(out))
 
 
 def feature_leaves(nodes):
-    '''{node: a new Leaf of its shape}, to bind point-level features.'''
-    return {n: Leaf(('feature', next(_feature_counter)), n.shape, float) for n in nodes}
+    '''{node: a new Leaf of its shape and dtype}, to bind point-level
+    features and call-invariant parts (an integer one: the dof table of a
+    field that is an argument but no trial, such as a time step's history).'''
+    return {n: Leaf(('feature', next(_feature_counter)), n.shape, n.dtype) for n in nodes}
 
 
 def feature_cut(expr, leaf, npt=2):

@@ -35,7 +35,11 @@ package: the device Krylov methods solve the masked operator
 to its stencil, block-grid or CSR form like any other matrix; the other
 methods solve the free submatrix.  The device solvers' ``_isfree=``
 keyword solves ``m A(m x) + (1 - m) x`` instead, the operator wrapped on
-the device by the mask (kernel K14).  The matrix algebra is ROADMAP A3.
+the device by the mask (kernel K14).  The constructors (``assemble_csr``,
+``assemble_coo``, ``empty``, ``diag``, ``eye``, ``assemble_block_csr``) and
+the algebra (``+``, ``-``, scalar ``*`` and ``/``, ``T``) are the JAX
+package's host scipy, bit for bit; a scalar product of values on the device
+stays there.
 '''
 
 import time
@@ -173,6 +177,53 @@ def blockgrid_plan(pattern, meta, woff, csr_map):
     return plan
 
 
+def assemble_csr(data, indices, indptr, shape):
+    '''CSR constructor (reference: ``nutils_tpu/matrix.py:89``).
+
+    >>> import numpy
+    >>> from nutils_tpu_torch import matrix
+    >>> A = matrix.assemble_csr(numpy.array([2., -1., -1., 2.]),
+    ...                         numpy.array([0, 1, 0, 1]),
+    ...                         numpy.array([0, 2, 4]), (2, 2))
+    >>> x = A.solve(numpy.array([1., 1.]))
+    >>> numpy.round(x, 12).tolist()
+    [1.0, 1.0]
+    '''
+    return Matrix(indptr, indices, numpy.asarray(data), shape)
+
+
+def assemble_coo(data, rows, cols, shape):
+    '''COO constructor, duplicates summed into CSR in their order
+    (reference: ``nutils_tpu/matrix.py:104``).
+
+    >>> import numpy
+    >>> from nutils_tpu_torch import matrix
+    >>> A = matrix.assemble_coo(numpy.array([1., 1., 3.]),
+    ...                         numpy.array([0, 0, 1]),
+    ...                         numpy.array([0, 0, 1]), (2, 2))
+    >>> A.export('dense').tolist()
+    [[2.0, 0.0], [0.0, 3.0]]
+    '''
+    pattern = SparsePattern(numpy.asarray(rows), numpy.asarray(cols), shape)
+    out = numpy.zeros(pattern.nnz)
+    numpy.add.at(out, pattern.slot, numpy.asarray(data, dtype=float))
+    return Matrix.from_pattern(pattern, out)
+
+
+def empty(shape):
+    return Matrix(numpy.zeros(shape[0] + 1, dtype=int), numpy.zeros(0, dtype=int), numpy.zeros(0), shape)
+
+
+def diag(d):
+    d = numpy.asarray(d, dtype=float)
+    n = len(d)
+    return Matrix(numpy.arange(n + 1), numpy.arange(n), d, (n, n))
+
+
+def eye(n):
+    return diag(numpy.ones(n))
+
+
 class Matrix:
     '''Square or rectangular CSR matrix with a solve (reference:
     matrix/_base.py:33).  ``data`` is a numpy array or a tensor (assembly
@@ -208,6 +259,54 @@ class Matrix:
 
     def __matmul__(self, vec):
         return self._scipy() @ numpy.asarray(vec)
+
+    # the algebra (reference: ``nutils_tpu/matrix.py:175-207``) is scipy's
+    # on the host, as in the JAX package, whatever form the operands have:
+    # the result is a plain CSR matrix of host values with scipy's pattern
+    # (a sum drops the entries it makes zero)
+
+    @staticmethod
+    def _from_scipy(m):
+        m = m.tocsr()
+        return Matrix(m.indptr, m.indices, m.data, m.shape)
+
+    def __add__(self, other):
+        if not isinstance(other, Matrix):
+            return NotImplemented
+        return self._from_scipy(self._scipy() + other._scipy())
+
+    def __sub__(self, other):
+        if not isinstance(other, Matrix):
+            return NotImplemented
+        return self._from_scipy(self._scipy() - other._scipy())
+
+    def __mul__(self, scale):
+        if not numpy.isscalar(scale):
+            return NotImplemented
+        if isinstance(self.data, torch.Tensor):
+            # values on the device stay there where the product keeps
+            # their dtype: one multiply an entry, the host product's bits
+            dtype = torch.empty(0, dtype=self.data.dtype).numpy().dtype
+            if numpy.result_type(dtype, scale) == dtype:
+                m = Matrix(self.indptr, self.indices, self.data * scale, self.shape)
+                for name in ('_pattern', '_field_offsets', '_field_grids'):
+                    if getattr(self, name, None) is not None:
+                        setattr(m, name, getattr(self, name))
+                return m
+        return Matrix(self.indptr, self.indices, _host(self.data) * scale, self.shape)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, scale):
+        return self * (1. / scale)
+
+    def __neg__(self):
+        return self * -1.
+
+    @property
+    def T(self):
+        t = self._scipy().T.tocsr()
+        return Matrix(t.indptr, t.indices, t.data, (self.shape[1], self.shape[0]))
 
     def diagonal(self):
         return self._scipy().diagonal()
@@ -1020,3 +1119,12 @@ class _BlockGridMatrix(Matrix):
             plan = self._k5_plan()
             cached = self._device_op_cache = (('blockgrid', plan), (_bg.pack(self._weights(), plan),))
         return cached
+
+
+def assemble_block_csr(blocks):
+    '''Stitch a dense 2-D grid of Matrix blocks into one CSR matrix on the
+    host (reference: ``nutils_tpu/matrix.py:1089``).'''
+    import scipy.sparse
+    grid = [[b._scipy() for b in row] for row in blocks]
+    out = scipy.sparse.bmat(grid, format='csr')
+    return Matrix(out.indptr, out.indices, out.data, out.shape)

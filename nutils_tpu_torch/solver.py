@@ -33,8 +33,13 @@ its integrand at the points summed by kernel K15.  ``System.solve`` (with
 :class:`Direct`, :class:`Newton`, :class:`ReuseNewton`,
 :class:`LinesearchNewton` under :class:`NormBased` or
 :class:`MedianBased`, and :class:`Minimize`) and
-``System.solve_constraints`` are the reference's; ``Arnoldi``,
-``Pseudotime``, ``System.step`` and the legacy wrappers are ROADMAP A5.
+``System.solve_constraints`` are the reference's, as are ``System.step``
+(time stepping with timestep-halving retry), :class:`Arnoldi`,
+:class:`Pseudotime` and the legacy functions (``solve_linear``, ``newton``,
+``minimize``, ``pseudotime``, ``thetamethod``, ``impliciteuler``,
+``cranknicolson``, ``optimize``).  Every step of a time loop passes its
+history, time and timestep as arguments of the assembly, so one System's
+layout, plans and feature operators serve the whole run.
 '''
 
 import contextlib
@@ -1098,9 +1103,9 @@ class System:
 
     The port carries assembly (``assemble_jacobian_residual`` and friends)
     in stencil, block-grid and CSR form, the value (``assemble_value``),
-    ``solve`` with :class:`Direct`, the Newton family and :class:`Minimize`,
-    and ``solve_constraints``; ``step`` and the other methods are ROADMAP
-    A5.
+    ``solve`` with :class:`Direct`, the Newton family, :class:`Minimize`,
+    :class:`Arnoldi` and :class:`Pseudotime`, ``step`` and
+    ``solve_constraints``.
     '''
 
     def __init__(self, residual, /, trial, test=None):
@@ -2071,6 +2076,36 @@ class System:
                 raise SolverError('residual diverged')
         return self._user_args(arguments)
 
+    def step(self, *, arguments, suffix, timearg=None, timesteparg=None, timestep=None, maxretry=2, **solveargs):
+        '''Advance one time step with timestep-halving retry (reference:
+        ``nutils_tpu/solver.py:2032``).  The history (``<trial><suffix>``,
+        ``<timearg><suffix>``), the time and the timestep are arguments of
+        the assembly, passed anew at every step: nothing of them is kept in
+        the System, whose layout, plans and operators serve every step.'''
+        arguments = dict(arguments)
+        for t in self.trials:
+            if t in arguments:
+                arguments[t + suffix] = arguments[t]
+        if timearg or timesteparg:
+            if timestep is None:
+                raise ValueError('timearg/timesteparg require timestep')
+            if timesteparg:
+                arguments[timesteparg] = timestep
+            if timearg:
+                tval = arguments.get(timearg, 0.)
+                arguments[timearg + suffix] = tval
+                arguments[timearg] = tval + timestep
+        try:
+            return self.solve(arguments=arguments, **solveargs)
+        except (SolverError, matrix.MatrixError) as e:
+            if (timearg not in self.arguments and timesteparg not in self.arguments) or maxretry <= 0:
+                raise
+            log.error(f'error: {e}; retrying with timestep {timestep/2}')
+            half = dict(solveargs, timestep=timestep / 2, timearg=timearg, timesteparg=timesteparg,
+                        suffix=suffix, maxretry=maxretry - 1)
+            halfway = self.step(arguments=arguments, **half)
+            return self.step(arguments=halfway, **half)
+
     @log.withcontext
     def solve_constraints(self, *, droptol, arguments=None, constrain=None, linargs=None):
         '''Solve a possibly singular linear system, returning NaN for the
@@ -2302,3 +2337,363 @@ class Minimize:
                 if relax <= self.failrelax:
                     raise SolverError('stuck in local minimum')
             x = newx
+
+
+class Arnoldi:
+    '''Linear solve with subspace recycling across parameter changes
+    (reference: ``nutils_tpu/solver.py:2286``).
+
+    First use is a solve of the jacobian.  On reuse with a changed matrix
+    A(y), the cached matrix P acts as a preconditioner: the solution is
+    projected on the growing subspace [P b, P (A P) b, ...], each P solve
+    direct on the host, until tolerance or ``maxiter``, after which the new
+    matrix is solved and cached.'''
+
+    def __init__(self, maxiter=2, **linargs):
+        self.maxiter = maxiter
+        self.linargs = linargs
+        self._cached = None
+
+    def __str__(self):
+        return 'arnoldi'
+
+    def __call__(self, system, *, arguments, constrain):
+        if not system.is_linear:
+            raise SolverError('problem is not linear')
+        arguments, x = system.deconstruct(arguments, constrain)
+        jac, res = system.assemble_jacobian_residual(arguments, x)
+        yield system.construct(arguments, x), float(numpy.linalg.norm(res))
+
+        approx = self._cached
+        if approx is not None and approx.shape == jac.shape:
+            dx_space = numpy.empty((self.maxiter, len(res)))
+            dres_space = numpy.empty((self.maxiter, len(res)))
+            for i in range(self.maxiter):
+                try:
+                    dx_space[i] = approx.solve(res, solver='direct', symmetric=system.is_symmetric, **self.linargs)
+                    dres_space[i] = jac @ dx_space[i]
+                    w, res2, *_ = numpy.linalg.lstsq(dres_space[:i + 1].T, res, rcond=None)
+                    resnorm = float(numpy.sqrt(res2[0])) if len(res2) else float(
+                        numpy.linalg.norm(res - w @ dres_space[:i + 1]))
+                except Exception as e:
+                    log.warning(f'subspace solve failed: {e}')
+                    break
+                x = x - w @ dx_space[:i + 1]
+                yield system.construct(arguments, x), resnorm
+                res = res - w @ dres_space[:i + 1]
+
+        log.info('updating cached jacobian')
+        self._cached = jac
+        dx = jac.solve(res, symmetric=system.is_symmetric, **self.linargs)
+        x = x - dx
+        yield system.construct(arguments, x), float(numpy.linalg.norm(res - jac @ dx))
+
+
+class Pseudotime:
+    '''Inertia-assisted Newton: solves ``(J(x) + dJ/dt) dx = r(x)`` with the
+    timestep growing as the residual shrinks (reference:
+    ``nutils_tpu/solver.py:2335``).
+
+    ``inertia`` is given in the same form as the system residual: a scalar
+    functional carrying the system's test arguments, or a list of residual
+    vectors (entries may be None) aligned with the trial arguments.  The
+    sum ``jac + djac / timestep`` is the matrix algebra's, on the host.'''
+
+    def __init__(self, inertia, timestep, **linargs):
+        self.inertia = inertia
+        self.timestep = timestep
+        self.linargs = dict(linargs)
+        self.linargs.setdefault('rtol', 1e-3)
+
+    def __str__(self):
+        return 'pseudotime'
+
+    def _inertia_jacobian(self, system, arguments, free):
+        '''Assemble the inertia jacobian over the full trial space, embedding
+        sub-blocks for trials the inertia does not reference.'''
+        import scipy.sparse
+        inertia = self.inertia
+        if isinstance(inertia, (tuple, list)) and system._synthetic_tests:
+            pairs = [(i, f) for i, f in enumerate(inertia) if f is not None]
+            isys = System([f for _, f in pairs], trial=[system.trials[i] for i, _ in pairs])
+            rowmap = [i for i, _ in pairs]
+        else:
+            if isinstance(inertia, (tuple, list)):
+                val = None
+                for f in inertia:
+                    if f is not None:
+                        val = f if val is None else function.add(val, f)
+                inertia = val
+            present = set(function.arguments_for(inertia))
+            idx = [i for i, (t, s) in enumerate(zip(system.trials, system.tests)) if t in present and s in present]
+            isys = System(inertia, trial=[system.trials[i] for i in idx], test=[system.tests[i] for i in idx])
+            rowmap = idx
+        full = system.construct(arguments, numpy.zeros(int(free.sum())))
+        sub = isys._jac_matrix(isys._clean({k: v for k, v in full.items() if k in isys.arguments})) \
+            if set(isys.arguments) <= set(full) else isys.assemble_jacobian(full)
+        m = sub._scipy().tocoo()
+        # embed at the full system's (row, col) offsets
+        roff = numpy.array([system._test_slices[i].start for i in rowmap])
+        coff = numpy.array([system._trial_slices[i].start for i in rowmap])
+        rstart = numpy.cumsum([0] + [int(numpy.prod(isys.test_shapes[j], dtype=numpy.int64)) for j in range(len(rowmap))])
+        cstart = numpy.cumsum([0] + [int(numpy.prod(isys.trial_shapes[j], dtype=numpy.int64)) for j in range(len(rowmap))])
+        rows = m.row.copy()
+        cols = m.col.copy()
+        for j in range(len(rowmap)):
+            rsel = (m.row >= rstart[j]) & (m.row < rstart[j + 1])
+            rows[rsel] += roff[j] - rstart[j]
+            csel = (m.col >= cstart[j]) & (m.col < cstart[j + 1])
+            cols[csel] += coff[j] - cstart[j]
+        n = system._ntrial
+        emb = scipy.sparse.coo_matrix((m.data, (rows, cols)), shape=(n, n)).tocsr()
+        emb = matrix.Matrix(emb.indptr, emb.indices, emb.data, emb.shape)
+        return emb.submatrix(free, free)
+
+    def __call__(self, system, *, arguments, constrain):
+        arguments, x = system.deconstruct(arguments, constrain)
+        _, free = system.construct(arguments, x, return_free=True)
+        djac = self._inertia_jacobian(system, arguments, free)
+        resnorm0 = None
+        while True:
+            jac, res = system.assemble_jacobian_residual(arguments, x)
+            resnorm = float(numpy.linalg.norm(res))
+            yield system.construct(arguments, x), resnorm
+            if resnorm0 is None:
+                resnorm0 = resnorm
+            timestep = self.timestep * (resnorm0 / resnorm)
+            log.debug(f'timestep: {timestep:.0e}')
+            x = x - (jac + djac * (1. / timestep)).solve_leniently(res, **self.linargs)
+
+
+# ------------------------------------------------------------ legacy wrappers
+
+def _split_trial_test(target):
+    '''Split 'u:v,p:q' / ['u:v'] / 'u,p' targets into (trial, test)
+    (reference: ``nutils_tpu/solver.py:2411``).'''
+    if isinstance(target, str):
+        target = target.rstrip(',')
+        target = target.split(',') if target else []
+    if not target:
+        raise ValueError('no targets specified')
+    parts = [item.split(':') if isinstance(item, str) else list(item) for item in target]
+    n = len(parts[0])
+    if not all(len(p) == n for p in parts):
+        raise ValueError('inconsistent targets')
+    if n == 1:
+        return [p[0] for p in parts], None
+    if n == 2:
+        return [p[0] for p in parts], [p[1] for p in parts]
+    raise ValueError('invalid targets')
+
+
+def _is_single(target):
+    return isinstance(target, str) and ',' not in target
+
+
+def _as_cons(target, constrain):
+    if constrain is None:
+        return {}
+    if isinstance(constrain, dict):
+        return constrain
+    name = target.split(':')[0] if isinstance(target, str) else target
+    return {name: constrain}
+
+
+def _make_system(target, residual):
+    trial, test = _split_trial_test(target)
+    if test is not None:
+        if isinstance(residual, (tuple, list)):
+            # list of scalar functionals sharing the test arguments: sum them
+            val = None
+            for r in residual:
+                if r is not None:
+                    val = r if val is None else function.add(val, r)
+            residual = val
+        return System(residual, trial=trial, test=test)
+    if not isinstance(residual, (tuple, list)):
+        residual = [residual]
+    return System(list(residual), trial=trial)
+
+
+def _strip_lin(kwargs):
+    '''Extract 'lin'-prefixed keyword arguments (reference:
+    ``nutils_tpu/solver.py:2459``).'''
+    lin = {key[3:]: kwargs.pop(key) for key in list(kwargs) if key.startswith('lin')}
+    if kwargs:
+        raise TypeError('unexpected keyword arguments: {}'.format(', '.join(kwargs)))
+    return lin
+
+
+class _with_solve:
+    '''Iterator over (arguments, resnorm) pairs with a ``.solve`` method
+    (reference: ``nutils_tpu/solver.py:2467``).'''
+
+    def __init__(self, system, method, arguments, constrain, item=None):
+        self.system = system
+        self.method = method
+        self.arguments = arguments
+        self.constrain = constrain
+        self.item = item
+
+    def __getitem__(self, item):
+        assert self.item is None
+        return _with_solve(self.system, self.method, self.arguments, self.constrain, item)
+
+    def __iter__(self):
+        class _info:
+            def __init__(self, resnorm):
+                self.resnorm = resnorm
+        for arguments, resnorm in self.method(self.system, arguments=self.arguments, constrain=self.constrain):
+            yield (arguments if self.item is None else arguments[self.item]), _info(resnorm)
+
+    def solve(self, tol, maxiter=float('inf'), miniter=0):
+        lhs, info = self.solve_withinfo(tol, maxiter=maxiter, miniter=miniter)
+        return lhs
+
+    def solve_withinfo(self, tol, maxiter=float('inf'), miniter=0):
+        if miniter > maxiter:
+            raise ValueError('miniter cannot exceed maxiter')
+        it = enumerate(iter(self))
+        iiter, (lhs, info) = next(it)
+        while info.resnorm > tol or iiter < miniter:
+            if iiter >= maxiter:
+                raise SolverError(f'failed to reach target tolerance in {maxiter} iterations')
+            iiter, (lhs, info) = next(it)
+        log.info(f'converged in {iiter} iterations to residual {info.resnorm:.1e}')
+        info.niter = iiter
+        return lhs, info
+
+
+def solve_linear(target, residual, *, constrain=None, arguments=None, **kwargs):
+    '''Legacy functional API (reference: ``nutils_tpu/solver.py:2507``).'''
+    if _is_single(target):
+        name = target.split(':')[0]
+        sys_ = _make_system(target, residual)
+        return sys_.solve(constrain=_as_cons(target, constrain), arguments=arguments or {}, method=Direct(**_strip_lin(kwargs)))[name]
+    sys_ = _make_system(target, residual)
+    return sys_.solve(constrain=constrain or {}, arguments=arguments or {}, method=Direct(**_strip_lin(kwargs)))
+
+
+def newton(target, residual, *, relax0=1., constrain=None, linesearch='normbased', failrelax=1e-6, arguments=None, **kwargs):
+    '''Iteratively solve a nonlinear problem by Newton descent; returns an
+    iterator with a ``.solve(tol)`` method (reference:
+    ``nutils_tpu/solver.py:2517``).'''
+    if linesearch == 'normbased':
+        linesearch = NormBased()
+    linargs = _strip_lin(kwargs)
+    system = _make_system(target, residual)
+    method = Newton(**linargs) if not linesearch \
+        else LinesearchNewton(strategy=linesearch, relax0=relax0, failrelax=failrelax, **linargs)
+    ws = _with_solve(system, method, arguments or {}, _as_cons(target, constrain))
+    return ws[target] if _is_single(target) and ':' not in target else ws
+
+
+def minimize(target, energy, *, constrain=None, rampup=.5, rampdown=-1., failrelax=-10., arguments=None, **kwargs):
+    '''Iteratively minimize a scalar functional; returns an iterator with a
+    ``.solve(tol)`` method (reference: ``nutils_tpu/solver.py:2530``).'''
+    trial, test = _split_trial_test(target)
+    assert test is None, 'minimize does not accept test targets'
+    system = System(energy, trial=trial)
+    method = Minimize(rampup=rampup, rampdown=rampdown, failrelax=failrelax, **_strip_lin(kwargs))
+    ws = _with_solve(system, method, arguments or {}, _as_cons(target, constrain))
+    return ws[target] if _is_single(target) else ws
+
+
+def pseudotime(target, residual, inertia, timestep, *, constrain=None, arguments=None, **kwargs):
+    '''Iteratively solve a nonlinear problem by pseudo-time stepping; returns
+    an iterator with a ``.solve(tol)`` method (reference:
+    ``nutils_tpu/solver.py:2541``).'''
+    system = _make_system(target, residual)
+    method = Pseudotime(inertia=inertia, timestep=timestep, **_strip_lin(kwargs))
+    ws = _with_solve(system, method, arguments or {}, _as_cons(target, constrain))
+    return ws[target] if _is_single(target) and ':' not in target else ws
+
+
+def thetamethod(target, residual, inertia, timestep, theta, *, constrain=None, newtontol=1e-10,
+                arguments=None, newtonargs=None, timetarget='_thetamethod_time', time0=0., historysuffix='0'):
+    '''Time stepping by the theta method: theta=1 implicit Euler, theta=.5
+    Crank-Nicolson (reference: ``nutils_tpu/solver.py:2550``).  Yields the
+    argument dict per timestep, starting with the initial condition.  One
+    System serves every step: the history and the time are arguments of
+    its assembly (:meth:`System.step`).'''
+    trial, test = _split_trial_test(target)
+    residuals = list(residual) if isinstance(residual, (tuple, list)) else [residual]
+    inertias = list(inertia) if isinstance(inertia, (tuple, list)) else [inertia]
+    assert len(residuals) == len(inertias), 'one inertia term per residual'
+
+    argspecs = function.arguments_for(*[f for f in residuals + inertias if f is not None])
+    targ = function.Argument(timetarget, ())
+    subs0 = {t: function.Argument(t + historysuffix, argspecs[t].shape, argspecs[t].dtype) for t in trial if t in argspecs}
+    subs0[timetarget] = function.Argument(timetarget + historysuffix, ())
+    dt = function.subtract(targ, subs0[timetarget])
+
+    combined = []
+    for res, inert in zip(residuals, inertias):
+        term = function.add(function.multiply(function.asarray(theta), res),
+                            function.multiply(function.asarray(1. - theta), function.replace_arguments(res, subs0)))
+        if inert is not None:
+            term = function.add(term, function.divide(
+                function.subtract(inert, function.replace_arguments(inert, subs0)), dt))
+        combined.append(term)
+
+    if test is not None:
+        value = None
+        for term in combined:
+            value = term if value is None else function.add(value, term)
+        system = System(value, trial=trial, test=test)
+    else:
+        system = System(combined, trial=trial)
+
+    arguments = dict(arguments or {})
+    arguments.setdefault(timetarget, time0)
+    newtonargs = dict(newtonargs or {})
+    linesearch = newtonargs.pop('linesearch', NormBased())
+    method = None if system.is_linear else Newton() if linesearch is None \
+        else LinesearchNewton(strategy=linesearch, **newtonargs)
+    constrain = _as_cons(target, constrain)
+    single = _is_single(target)
+    name = target.split(':')[0] if isinstance(target, str) else None
+
+    def steps(arguments):
+        while True:
+            yield arguments[name] if single else arguments
+            arguments = system.step(arguments=arguments, timestep=timestep, timearg=timetarget,
+                                    suffix=historysuffix, constrain=constrain, tol=newtontol, method=method)
+    return steps(arguments)
+
+
+impliciteuler = functools.partial(thetamethod, theta=1.)
+cranknicolson = functools.partial(thetamethod, theta=.5)
+
+
+def optimize(target, functional, *, tol=0., droptol=None, constrain=None, arguments=None,
+             relax0=1., linesearch='normbased', failrelax=1e-6, **kwargs):
+    '''Find the minimizer of a functional (reference:
+    ``nutils_tpu/solver.py:2605``).'''
+    single = _is_single(target)
+    trial, test = _split_trial_test(target)
+    constrain = _as_cons(target, constrain)
+    arguments = arguments or {}
+    present = set(function.arguments_for(functional))
+    missing = [t for t in trial if t not in present]
+    if missing:
+        if not droptol:
+            raise ValueError(f'target {", ".join(missing)} does not occur in the functional; consider setting droptol>0')
+        keep = [i for i, t in enumerate(trial) if t not in missing]
+        trial = [trial[i] for i in keep]
+        if test is not None:
+            test = [test[i] for i in keep]
+        if not trial:
+            return {}
+    linargs = _strip_lin(kwargs)
+    sys_ = System(functional, trial=trial, test=test)
+    if droptol is not None:
+        cons = sys_.solve_constraints(droptol=droptol, arguments=arguments, constrain=constrain, linargs=linargs or None)
+        return cons[target] if single else cons
+    if linesearch == 'normbased':
+        linesearch = NormBased()
+    method = Direct(**linargs) if sys_.is_linear \
+        else Newton(**linargs) if linesearch is None \
+        else LinesearchNewton(strategy=linesearch, relax0=relax0, failrelax=failrelax, **linargs)
+    out = sys_.solve(constrain=constrain, arguments=arguments, tol=tol, method=method)
+    return out[target] if single else out

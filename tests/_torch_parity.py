@@ -2,6 +2,7 @@
 (tests/test_torch_*.py): the same problem through ``nutils_tpu`` and
 ``nutils_tpu_torch``.  Holds no tests.'''
 
+import functools
 import importlib
 
 import numpy
@@ -330,3 +331,270 @@ def rel(a, b):
     a = numpy.asarray(a, dtype=numpy.float64)
     b = numpy.asarray(b, dtype=numpy.float64)
     return float(numpy.linalg.norm(a - b) / max(numpy.linalg.norm(b), 1e-300))
+
+
+# ------------------------------------------------------------ time stepping
+# the cases of tests/test_solver.py that step in time or use the legacy
+# solver functions, and the port's own: each runs through package ``pkg``
+# and returns its results {name: array} (tests/test_torch_timestep.py holds
+# them against nutils_tpu, chip_smoke.py's timestep_parity the card against
+# the CPU)
+
+def _square(pkg):
+    '''``tests/test_solver.py``'s fixture: 3 x 3 squares, a degree-1 field
+    ``u`` and its test field ``v``.'''
+    function, mesh, _solver, _config = modules(pkg)
+    topo, geom = mesh.unitsquare(3, 'square')
+    u = topo.field('u', btype='std', degree=1)
+    v = topo.field('v', btype='std', degree=1)
+    return function, topo, geom, u, v
+
+
+def _energy(pkg):
+    '''``tests/test_solver.py``'s nonlinear energy and its constraints.'''
+    function, topo, geom, u, v = _square(pkg)
+    g = function.grad(u, geom)
+    E = topo.integral(((1 + u ** 2) * (g @ g) / 2 + u ** 2 / 2 - u) * function.J(geom), degree=3)
+    cons = {'u': numpy.concatenate([numpy.zeros(4), numpy.full(12, numpy.nan)])}
+    return E, cons
+
+
+def _case_step_theta(pkg):
+    function, topo, geom, u, v = _square(pkg)
+    s = modules(pkg)[2]
+    u0 = function.replace_arguments(u, {'u': function.Argument('u0', (16,))})
+    res = topo.integral(((u - u0) / 0.1 + u) * v * function.J(geom), degree=2)
+    out = s.System(res, trial='u', test='v').step(arguments={'u': numpy.ones(16)}, suffix='0', tol=1e-10)
+    numpy.testing.assert_allclose(out['u'], 1 / 1.1, rtol=1e-10)
+    return {'u': out['u']}
+
+
+def _case_pseudotime(pkg):
+    function, topo, geom, u, v = _square(pkg)
+    s = modules(pkg)[2]
+    E, cons = _energy(pkg)
+    system = s.System(function.linearize(E, 'u:v'), trial='u', test='v')
+    inertia = topo.integral(u * v * function.J(geom), degree=2)
+    out = system.solve(constrain=cons, tol=1e-10, method=s.Pseudotime(inertia=inertia, timestep=.5))
+    assert numpy.linalg.norm(system.assemble_residual(out)[4:]) < 1e-10
+    return {'u': out['u']}
+
+
+def _case_arnoldi_reuse(pkg):
+    function, topo, geom, u, v = _square(pkg)
+    s = modules(pkg)[2]
+    k = function.Argument('k', ())
+    res = topo.integral(((1 + k) * (function.grad(v, geom) @ function.grad(u, geom)) + u * v - v) * function.J(geom),
+                        degree=2)
+    system = s.System(res, trial='u', test='v')
+    method = s.Arnoldi()
+    first = system.solve(arguments={'k': 0.}, tol=1e-10, method=method)
+    assert numpy.linalg.norm(system.assemble_residual(first)) < 1e-10
+    # a perturbed parameter: the cached jacobian preconditions the subspace
+    second = system.solve(arguments={'k': 0.01, 'u': first['u']}, tol=1e-10, method=method)
+    assert numpy.linalg.norm(system.assemble_residual(second)) < 1e-10
+    return {'first': first['u'], 'second': second['u']}
+
+
+def _case_newton_wrapper(pkg):
+    function, topo, geom, u, v = _square(pkg)
+    s = modules(pkg)[2]
+    E, cons = _energy(pkg)
+    out = s.newton('u:v', function.linearize(E, 'u:v'), constrain=cons['u']).solve(tol=1e-10)
+    assert numpy.linalg.norm(s.System(E, trial='u').assemble_residual({'u': out['u']})[4:]) < 1e-10
+    return {'u': out['u']}
+
+
+def _case_minimize_wrapper(pkg):
+    s = modules(pkg)[2]
+    E, cons = _energy(pkg)
+    lhs = s.minimize('u', E, constrain=cons['u']).solve(tol=1e-10)
+    assert numpy.linalg.norm(s.System(E, trial='u').assemble_residual({'u': lhs})[4:]) < 1e-10
+    return {'u': lhs}
+
+
+def _case_solve_linear_wrapper(pkg):
+    function, topo, geom, u, v = _square(pkg)
+    s = modules(pkg)[2]
+    res = topo.integral((function.grad(v, geom) @ function.grad(u, geom) + v) * function.J(geom), degree=2)
+    cons = numpy.concatenate([numpy.zeros(4), numpy.full(12, numpy.nan)])
+    lhs = s.solve_linear('u:v', res, constrain=cons)
+    assert numpy.linalg.norm(s.System(res, trial='u', test='v').assemble_residual({'u': lhs})[4:]) < 1e-10
+    return {'u': lhs}
+
+
+def _case_thetamethod(pkg):
+    function, topo, geom, u, v = _square(pkg)
+    s = modules(pkg)[2]
+    res = topo.integral(u * v * function.J(geom), degree=2)
+    out = {}
+    gen = s.impliciteuler('u:v', res, res, timestep=.1, newtontol=1e-12, arguments={'u': numpy.ones(16)})
+    for k in range(3):
+        out[f'ie{k}'] = next(gen)
+        numpy.testing.assert_allclose(out[f'ie{k}'], 1 / 1.1 ** k, rtol=1e-10)
+    gen = s.cranknicolson('u:v', res, res, timestep=.1, newtontol=1e-12, arguments={'u': numpy.ones(16)})
+    next(gen)
+    out['cn'] = next(gen)
+    numpy.testing.assert_allclose(out['cn'], .95 / 1.05, rtol=1e-10)
+    return out
+
+
+def _case_optimize_droptol(pkg):
+    function, topo, geom, u, v = _square(pkg)
+    s = modules(pkg)[2]
+    sqr = topo.boundary['left'].integral(u ** 2 * function.J(geom), degree=2)
+    cons = s.optimize('u', sqr, droptol=1e-13)
+    assert numpy.isnan(cons).sum() == 12
+    numpy.testing.assert_allclose(cons[:4], 0, atol=1e-12)
+    return {'cons': cons}
+
+
+def taylor_hood_history(pkg, nelems=12, dtype=numpy.float64):
+    '''``build_ns``'s Navier-Stokes step at ``nelems`` squares a side,
+    written as ``examples/cylinderflow.py`` writes its history and
+    timestep: ``u0`` and ``dt`` are arguments, the state the same seeded
+    one.  (System, arguments.)  Leaves ``config.floatx`` at ``dtype``.'''
+    function, mesh, s, config_ = modules(pkg)
+    config_.floatx.value = dtype
+    topo, geom = mesh.unitsquare(nelems, 'square')
+    ns = _taylor_hood_namespace(pkg, topo, geom)
+    ns.u0 = function.replace_arguments(ns.u, 'u:u0')
+    ns.dt = function.field('dt')
+    ns.nu = 0.001
+    ns.eps = 0.001
+    res = topo.integral('(v_i (u_i - u0_i) / dt + v_i u_j ∇_j(u_i) + nu ∇_j(v_i) ∇_j(u_i)'
+                        ' - p ∇_i(v_i) + q ∇_i(u_i) + eps p q) dV' @ ns, degree=6)
+    system = s.System(res, trial='u,p', test='v,q')
+    rng = numpy.random.default_rng(0)
+    args = {t: 0.1 * rng.standard_normal(shape) for t, shape in zip(system.trials, system.trial_shapes)}
+    return system, args
+
+
+def _case_taylor_hood_steps(pkg):
+    system, args = taylor_hood_history(pkg)
+    out = {}
+    for k in range(2):
+        prev = args
+        args = system.step(timestep=0.01, timearg='t', timesteparg='dt', suffix='0', arguments=args, tol=1e-9)
+        # the history is the previous step's state, the very array
+        assert args['u0'] is prev['u'] and args['t'] == 0.01 * (k + 1) and args['t0'] == 0.01 * k
+        out[f'u{k}'], out[f'p{k}'] = args['u'], args['p']
+    return out
+
+
+def heat(pkg, nelems):
+    '''The heat equation on ``nelems`` squares a side, degree 1: the
+    residual ``∇v·∇u``, the inertia ``v u`` and the nodal values of the
+    Neumann mode cos(πx) cos(πy).'''
+    function, mesh, _s, _config = modules(pkg)
+    topo, geom = mesh.unitsquare(nelems, 'square')
+    u = topo.field('u', btype='std', degree=1)
+    v = topo.field('v', btype='std', degree=1)
+    J = function.J(geom)
+    res = topo.integral((function.grad(v, geom) @ function.grad(u, geom)) * J, degree=2)
+    inertia = topo.integral(u * v * J, degree=2)
+    c = numpy.cos(numpy.pi * numpy.linspace(0, 1, nelems + 1))
+    return topo, geom, u, res, inertia, numpy.outer(c, c).ravel()
+
+
+def _case_cranknicolson_heat(pkg):
+    function, _mesh, s, _config = modules(pkg)
+    topo, geom, u, res, inertia, u0 = heat(pkg, 16)
+    gen = s.cranknicolson('u:v', res, inertia, timestep=1e-3, newtontol=1e-12, arguments={'u': u0})
+    l2 = topo.integral(u ** 2 * function.J(geom), degree=2)
+    out, norms = {}, []
+    for k in range(4):
+        out[f'u{k}'] = next(gen)
+        norms.append(float(l2.eval({'u': out[f'u{k}']})) ** .5)
+    # each step damps the mode by about the continuous Crank-Nicolson
+    # factor, the discrete eigenvalue O(h^2) above 2 pi^2
+    lam_dt = 2 * numpy.pi ** 2 * 1e-3
+    ratio = numpy.array(norms[1:]) / norms[:-1]
+    numpy.testing.assert_allclose(ratio, (1 - lam_dt / 2) / (1 + lam_dt / 2), rtol=1e-3)
+    return out
+
+
+def decay(pkg, read_t=True):
+    '''``tests/test_solver.py``'s 1-D diffusion step with the timestep
+    ``dt`` an argument, and (``read_t``) a source that reads the time
+    ``t``.  (System, arguments.)'''
+    function, mesh, s, _config = modules(pkg)
+    topo, geom = mesh.rectilinear([4])
+    u = topo.field('u', btype='std', degree=1)
+    v = function.replace_arguments(u, 'u:v')
+    u0 = function.replace_arguments(u, 'u:u0')
+    dt = function.Argument('dt', (), float)
+    J = function.J(geom)
+    f = v * (u - u0) / dt + function.grad(v, geom) @ function.grad(u, geom)
+    if read_t:
+        f = f - v * function.Argument('t', (), float)
+    system = s.System(topo.integral(f * J, degree=2), trial='u', test='v')
+    return system, {'u': numpy.sin(numpy.linspace(0, numpy.pi, 5))}
+
+
+def _case_timestep_change(pkg):
+    system, args = decay(pkg)
+    step = functools.partial(system.step, suffix='0', timearg='t', timesteparg='dt', tol=1e-12)
+    first = step(arguments=args, timestep=0.1)
+    second = step(arguments=first, timestep=0.05)
+    # a fresh System's step at 0.05 from the same state: no value of the
+    # first step (dt 0.1, t 0.1) stays in the reused one
+    fresh, _args = decay(pkg)
+    again = fresh.step(arguments=first, timestep=0.05, suffix='0', timearg='t', timesteparg='dt', tol=1e-12)
+    assert second['dt'] == 0.05 and abs(second['t'] - 0.15) < 1e-15
+    if pkg == 'nutils_tpu_torch':
+        assert numpy.array_equal(second['u'], again['u'])
+    else:
+        numpy.testing.assert_allclose(second['u'], again['u'], rtol=1e-14)
+    return {'first': first['u'], 'second': second['u']}
+
+
+def _case_unread_timearg(pkg):
+    # cylinderflow passes timearg='t' to a residual that never reads t
+    system, args = decay(pkg, read_t=False)
+    assert 't' not in system.arguments
+    out = system.step(arguments=args, timestep=0.1, timearg='t', timesteparg='dt', suffix='0', tol=1e-12)
+    plain = system.step(arguments=dict(args, dt=0.1), suffix='0', tol=1e-12)
+    numpy.testing.assert_allclose(out['u'], plain['u'], rtol=1e-14)
+    assert out['t'] == 0.1 and out['t0'] == 0.
+    return {'u': out['u']}
+
+
+TIMESTEP_CASES = {name[6:]: fn for name, fn in globals().items() if name.startswith('_case_')}
+
+
+def step_with_failures(pkg, system, args, maxretry=2, **step):
+    '''``System.step`` of ``system`` (package ``pkg``) from ``args`` with
+    timestep 0.1 in ``dt`` (``tests/test_solver.py``'s halving case), its
+    solves failing above dt 0.026: (the timesteps of the solves, the
+    state).'''
+    s = modules(pkg)[2]
+    calls = []
+    solve = s.System.solve
+
+    def failing_solve(self, *, arguments, **kw):
+        calls.append(float(arguments['dt']))
+        if calls[-1] > 0.026:
+            raise s.SolverError('synthetic divergence at large dt')
+        return solve(self, arguments=arguments, **kw)
+    s.System.solve = failing_solve
+    try:
+        out = system.step(arguments=args, suffix='0', timestep=0.1, maxretry=maxretry, **step)
+    except s.SolverError:
+        out = None
+    finally:
+        s.System.solve = solve
+    return calls, out
+
+
+# the matrix algebra on one operand (tests/test_torch_matrix_algebra.py,
+# chip_smoke.py's timestep_parity)
+MATRIX_OPS = {
+    'add': lambda a: a + a.T,
+    'sub': lambda a: a - a * 2.,
+    'mul': lambda a: a * 0.3,
+    'rmul': lambda a: 0.3 * a,
+    'truediv': lambda a: a / 3.,
+    'neg': lambda a: -a,
+    'transpose': lambda a: a.T,
+}
