@@ -10,6 +10,7 @@ the GPU.
     python3 chip_smoke.py --only krylov    # K6/K10 rows and the Navier-Stokes GMRES/BiCGStab solves alone
     python3 chip_smoke.py --only timestep  # ns_steps, heat_steps and timestep_parity alone
     python3 chip_smoke.py --only fcm       # the finite cell phases and hier_parity alone
+    python3 chip_smoke.py --only cahnhilliard  # cahnhilliard and cahnhilliard_parity alone
 
 Phases, each printing JSON lines (``--only kernels``: device, build, K3's
 rows at the slice's, the example's and the finite-strain grids, K1's at
@@ -231,7 +232,26 @@ two checkouts the same way):
 31. hier_parity — examples/adaptivity.py at ``nrefine=2`` (THB, square
    elements, degree 2) on the card and the CPU to 1e-10, and its
    ``test_square_quadratic`` assertions.
-32. mg_setup — every multigrid set-up of the run, by phase: how many, the
+32. cahnhilliard — examples/cahnhilliard.py's problem (the example's
+   defaults, degree 1) on ``unitcircle(200, 'multipatch')``, 5 x 200^2
+   elements, 400,802 unknowns in float64: the mesh (its spline
+   projection solved on the card), the locate of the flux plot's points
+   on a grid of spacing 1/20 (Newton over candidate elements), the
+   System (factored, CSR),
+   three ``System.step`` calls with GMRES and K7's diagonal (auto's CG is
+   demoted to the host on the indefinite Hessian), per Newton iteration
+   its assembly, solve, iterations, driver and host reads; the energy
+   split before each step, the flux after it, the third step profiled;
+   asserts every inner solve run on the card from graphs (none demoted to
+   the host) and accepted in the Newton runs a step keeps, the mass
+   conserved to the bound the eta equation gives, K6-K9, K11, K12 in every
+   step.
+33. cahnhilliard_parity — the example's ``test_multipatchcircle`` (3
+   elements, degree 2, two steps) with ``main``'s locate on the 1/20
+   grid, on the card and the CPU: the located elements exactly, their
+   coordinates to 1e-12, the flux there and the fields to 1e-10, and its
+   regression data.
+34. mg_setup — every multigrid set-up of the run, by phase: how many, the
    K1 launches their levels' power-step estimates made (set-up, not solve;
    the slice's are also in ``slice_setup``), and each level shape's
    Gershgorin bounds and estimates and how often its diagonals were
@@ -3687,6 +3707,271 @@ def phase_hier_parity(devices=('cuda', 'cpu')):
     emit('hier_regression', example='adaptivity', method='test_square_quadratic', device=devices[0], ok=True)
 
 
+# ------------------------------------------------------------ cahnhilliard
+
+# examples/cahnhilliard.py on the multipatch unit circle: the example's
+# defaults (size 10 cm, epsilon 1 mm, so its nmin is 100) at twice its
+# interface resolution, degree 1: 5 x 200^2 elements, 400,802 unknowns.  At
+# 400 (1,601,602 unknowns) the three steps took 653 s on the card (GMRES
+# 3,000-60,000 iterations a solve), more than the whole script's limit
+# leaves (PERF.md)
+CH_NELEMS = 200
+CH_STEPS = 3
+# the inner solves: GMRES with K7's Schur-aware diagonal, passed through
+# step's solve arguments; auto's CG on the indefinite Hessian (a positive
+# phi block, a negative eta block) misses its tolerance and is demoted to a
+# host direct solve (ROADMAP Queue C)
+CH_SOLVER = 'gmres'
+CH_KERNELS = ('csr_scatter', 'csr_matvec', 'schur_diag_inverse_device') + GMRES_KERNELS + ASSEMBLY_KERNELS
+
+
+def cahnhilliard_runs(events):
+    """The Newton runs of a step (one, or three and more where it halved)
+    from its ``solve_events`` and the ``run``, ``run_end`` and
+    ``newton_solve`` events the phase adds: each run's timestep, whether it
+    converged, and its iterations (the assembly's time and residual norm,
+    the value assemblies' time, the inner solve's time, tolerance,
+    iterations, driver, host reads, acceptance and record)."""
+    runs, cur = [], None
+    for e in events:
+        if e['ev'] == 'run':
+            runs.append(dict(dt=e['dt'], converged=None, iterations=[]))
+        elif not runs:
+            continue
+        elif e['ev'] == 'run_end':
+            runs[-1]['converged'] = e['ok']
+        elif e['ev'] == 'jacres':
+            cur = dict(t_assemble=e['t'], resnorm=e['resnorm'], t_value=0.)
+            runs[-1]['iterations'].append(cur)
+        elif cur is None:
+            continue
+        elif e['ev'] == 'value':
+            cur['t_value'] += e['t']
+        elif e['ev'] == 'newton_solve':
+            stats = e['stats']
+            cur.update(t_solve=e['t'], rtol=e['rtol'], iters=stats.get('iters'), driver=stats.get('driver'),
+                       host_reads=stats.get('host_reads'), accepted=stats.get('accepted_on_device'),
+                       solve_stats=stats)
+    return runs
+
+
+# the example's defaults; the flux plot's points located on a grid of
+# spacing 1/20, not main's 1/40: a point outside the disk runs every
+# candidate rank (32 x 30 Newton evaluations, host-bound), and at 1/40 the
+# locate took 91 s, which put the two phases over their 180 s (PERF.md)
+CH_PROBLEM = dict(degree=1, epsilon='1mm', mobility='1mL*s/kg', timestep='.1s', gridstep=1/20)
+
+
+def phase_cahnhilliard(nelems=CH_NELEMS, steps=CH_STEPS, problem=CH_PROBLEM):
+    """examples/cahnhilliard.py's problem on ``unitcircle(nelems,
+    'multipatch')`` at degree 1 with the example's defaults, built through
+    the port on the card in float64 as ``main`` builds it
+    (``_torch_parity.cahnhilliard``, no figures): the mesh (its spline
+    projection a System.solve on the card), the energies, the locate of
+    the flux plot's points (Newton over candidate elements; a grid of
+    spacing 1/20, ``CH_PROBLEM``), the
+    System on the factored route with a CSR jacobian, then ``steps`` of
+    ``main``'s ``System.step`` with GMRES and K7's diagonal passed through
+    the step (``CH_SOLVER``), the energy split before each step and the
+    flux at the located points after it; the third step profiled.
+    Asserts every inner solve run on the card from CUDA graphs (no
+    ``fallback_from``) and, in the Newton runs a step keeps, accepted there
+    (a run that fails is retried at half the timestep by ``step`` itself,
+    as the example does, and its solves are recorded), the kernels
+    launched in every step, and the mass conserved: the change of the
+    integral of phi over a Newton run is ``-mass_scale`` times the sum of
+    the eta residual's entries (exactly: the eta equation tested with a
+    constant), so a step's is at most ``mass_scale sqrt(n_eta)`` times the
+    Newton tolerance of 1 for each run it keeps.  Returns the launches of
+    each step."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch import function, matrix, solver, unstructured
+    from nutils_tpu_torch.utils import config
+    times, locate_stats, events = {}, {}, {}
+    lines = []
+
+    def clock(name, fn):
+        if name == 'unitcircle':
+            with solve_events() as evs:
+                times[name], out = _sync_time(fn)
+            events[name] = [e['stats'] for e in evs if e['ev'] == 'krylov']
+            return out
+        times[name], out = _sync_time(fn)
+        return out
+    newton_locate = unstructured.newton_locate
+    unstructured.newton_locate = lambda *a, **k: newton_locate(*a, _stats=locate_stats, **k)
+    try:
+        with config.floatx(numpy.float64), config.device('cuda'):
+            with counted_set_up() as made, plain_calls() as plain:
+                prob = tp.cahnhilliard('nutils_tpu_torch', nelems=nelems, clock=clock, **problem)
+                system, domain = prob['system'], prob['domain']
+                nphi = int(numpy.prod(system.trial_shapes[0]))
+                neta = int(numpy.prod(system.trial_shapes[1]))
+                smp = domain.sample('gauss', 4)
+                parts = [dict(E=s.nelems, P=s.npoints_per_elem, kind=str(s.batch_key))
+                         for s in getattr(smp, 'samples', [smp])]
+                emit('cahnhilliard_setup', nelems=nelems, elements=len(domain), ndofs=[nphi, neta],
+                     t_unitcircle=times['unitcircle'], unitcircle_solves=events['unitcircle'],
+                     t_locate=times['locate'], located=locate_stats.get('found'), points=prob['grid'].npoints,
+                     locate=locate_stats, t_system=times['system'], parts=parts)
+                check_routes('cahnhilliard', system)
+                t_layout, (_meta, lazy, jplan) = _sync_time(lambda: system._jac_layout)
+                t_sort, pattern = _sync_time(lazy.get)
+                if jplan is not None:
+                    raise AssertionError(f'cahnhilliard: planned a {jplan["form"]} jacobian, expected CSR')
+                args = prob['args']
+                method = solver.Newton(solver=CH_SOLVER)
+                sink = [[]]
+                solve_leniently, system_solve = matrix.Matrix.solve_leniently, system.solve
+
+                def recorded(jac, res, **kw):
+                    t, out = _sync_time(lambda: solve_leniently(jac, res, **kw))
+                    sink[0].append({'ev': 'newton_solve', 't': t, 'rtol': kw.get('rtol'),
+                                    'stats': dict(jac._solve_stats)})
+                    return out
+
+                def marked(**kw):
+                    sink[0].append({'ev': 'run', 'dt': float(kw['arguments']['dt'])})
+                    try:
+                        out = system_solve(**kw)
+                    except Exception:
+                        sink[0].append({'ev': 'run_end', 'ok': False})
+                        raise
+                    sink[0].append({'ev': 'run_end', 'ok': True})
+                    return out
+                matrix.Matrix.solve_leniently = recorded
+                system.solve = marked
+                try:
+                    for k in range(steps):
+                        energies = prob['energies'](args)
+                        mass0 = prob['mass'](args)
+                        reset_launches()
+                        run = lambda: prob['step'](args, method=method)
+                        with solve_events() as evs:
+                            sink[0] = evs
+                            if k == steps - 1:
+                                t_step, kernels, _full, new = profiled(run)
+                                busy = busy_s(kernels)
+                            else:
+                                t_step, new = _sync_time(run)
+                                busy = None
+                        launches = read_launches(CH_KERNELS + VALUE_KERNELS)
+                        runs = cahnhilliard_runs(evs)
+                        kept = [run for run in runs if run['converged']]
+                        t_flux, flux = _sync_time(lambda: prob['flux'](new))
+                        dmass = prob['mass'](new) - mass0
+                        r = numpy.asarray(system.assemble_residual(dict(new, dt=new['dt'])))
+                        lines.append(dict(step=k, t_step=t_step,
+                                          newton_iterations=sum(len(run['iterations']) - 1 for run in kept),
+                                          retries=len(runs) - len(kept), timesteps=[run['dt'] for run in runs],
+                                          runs=runs, energies=energies, mass=mass0, dmass=dmass,
+                                          dmass_last_run=-prob['mass_scale'] * float(r[nphi:].sum()),
+                                          dmass_bound=prob['mass_scale'] * neta ** .5 * len(kept),
+                                          t_flux=t_flux, flux_max=float(numpy.hypot(*flux.T).max()),
+                                          busy_s=busy, busy_share=None if busy is None else busy / t_step,
+                                          launches=launches))
+                        emit('cahnhilliard', **lines[-1])
+                        args = new
+                finally:
+                    matrix.Matrix.solve_leniently = solve_leniently
+                    del system.solve
+            energies = prob['energies'](args)
+            phi = args['φ']
+    finally:
+        unstructured.newton_locate = newton_locate
+    records = [(line['step'], run, it['solve_stats']) for line in lines for run in line['runs']
+               for it in run['iterations'] if 'solve_stats' in it]
+    emit('cahnhilliard_summary', nelems=nelems, ndofs=nphi + neta, nnz=int(pattern.nnz), t_pattern=t_layout + t_sort,
+         t_pattern_sort=t_sort, pattern_backend=pattern.backend, op_form=sorted({r['op_form'] for _k, _r, r in records}),
+         solves=len(records), solves_missed=sum(not r['accepted_on_device'] for _k, _r, r in records),
+         assembly_routes=sorted(set(system._assembly_routes.values())), solver=f'{CH_SOLVER} with K7\'s diagonal',
+         energies=energies, set_up=made, plain_calls=plain)
+    if phi.shape != (nphi,) or not numpy.isfinite(phi).all() or not numpy.isfinite(energies).all():
+        raise AssertionError('cahnhilliard: the phase field or its energies are not finite')
+    if sorted(set(system._assembly_routes.values())) != ['factored']:
+        raise AssertionError(f'cahnhilliard: assembly routes {system._assembly_routes}')
+    if pattern.backend != 'native' or plain:
+        raise AssertionError(f'cahnhilliard: pattern sorted by {pattern.backend}, plain versions run {plain}')
+    for k, run, record in records:
+        # every inner solve ran on the card from graphs, none was demoted to
+        # the host; those of the runs a step keeps met their tolerance (a
+        # run that failed, and that the step retried at half its timestep,
+        # may hold solves that missed theirs)
+        if 'fallback_from' in record or (record['method'], record['op_form']) != (CH_SOLVER, 'csr') \
+                or record.get('driver') != 'graph':
+            raise AssertionError(f'cahnhilliard step {k}: {record}')
+        if run['converged']:
+            check_driver(f'cahnhilliard step {k}', record)
+    for line in lines:
+        if not abs(line['dmass']) <= line['dmass_bound']:
+            raise AssertionError(f'cahnhilliard step {line["step"]}: mass changed by {line["dmass"]:.3e}, bound '
+                                 f'{line["dmass_bound"]:.3e}')
+        missing = [name for name in CH_KERNELS if line['launches'][name] <= 0]
+        if missing:
+            raise AssertionError(f'cahnhilliard step {line["step"]}: kernels not launched: {missing}')
+    return [line['launches'] for line in lines]
+
+
+def phase_cahnhilliard_parity(devices=('cuda', 'cpu')):
+    """examples/cahnhilliard.py's ``test_multipatchcircle`` (nelems 3,
+    degree 2, two steps of an hour) on the card and through the port's CPU
+    path, in float64, with ``main``'s locate of the flux plot's points on
+    the phase's grid (``CH_PROBLEM``'s spacing): the located elements
+    agree exactly and their coordinates to 1e-12, the flux at the located
+    points (both devices at the card's final state) to 1e-10, phi and eta
+    to 1e-10 (both sides' inner solves are host direct solves at this
+    size, so they differ only in the assembly's last bits), and the card's
+    pass the test's regression data (``testing.assertAlmostEqual64``), the
+    CPU's too."""
+    import _torch_parity as tp
+    import numpy
+    from nutils_tpu_torch import testing
+    from nutils_tpu_torch.utils import config
+    out = {}
+    with config.floatx(numpy.float64):
+        for device in devices:
+            with config.device(device):
+                t0 = time.perf_counter()
+                prob = tp.cahnhilliard('nutils_tpu_torch', gridstep=CH_PROBLEM['gridstep'])
+                t_build = time.perf_counter() - t0
+                args = prob['args']
+                for _ in range(2):
+                    args = prob['step'](args)
+                out[device] = prob, args, t_build, time.perf_counter() - t0 - t_build
+        flux = []
+        for device in devices:
+            with config.device(device):
+                flux.append(out[device][0]['flux'](out[devices[0]][1]))
+    (pa, a, ba, ta), (pb, b, bb, tb) = (out[d] for d in devices)
+    (ea, xa), (eb, xb) = tp.located(pa['grid']), tp.located(pb['grid'])
+    dx = float(numpy.abs(xa - xb).max()) if len(xa) == len(xb) else None
+    rel = {name: tp.rel(a[name], b[name]) for name in ('φ', 'η')}
+    rel_flux = tp.rel(*flux)
+    emit('cahnhilliard_parity', ndofs=int(a['φ'].size), located=[len(ea), len(eb)],
+         elements_equal=bool(numpy.array_equal(ea, eb)), coords_max_abs=dx, rel_flux=rel_flux, rel=rel, tol=1e-10,
+         seconds_build=[ba, bb], seconds_steps=[ta, tb], devices=list(devices))
+    if not numpy.array_equal(ea, eb) or not dx <= 1e-12:
+        raise AssertionError(f'card and CPU locate differ: {len(ea)} / {len(eb)} points, coordinates {dx}')
+    if not (rel_flux <= 1e-10 and max(rel.values()) <= 1e-10):
+        raise AssertionError(f'card and CPU cahnhilliard differ: flux {rel_flux}, {rel}')
+    for device in devices:
+        tp.example_assertions('cahnhilliard', 'test_multipatchcircle', testing, args=out[device][1])
+    emit('cahnhilliard_regression', example='cahnhilliard', method='test_multipatchcircle', devices=list(devices),
+         ok=True)
+
+
+def cahnhilliard_only():
+    """``--only cahnhilliard``: device, build and the two cahnhilliard
+    phases alone."""
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    phase_cahnhilliard()
+    phase_cahnhilliard_parity()
+    emit('done', seconds=time.perf_counter() - t0)
+
+
 def fcm_only():
     """``--only fcm``: device, build and the finite cell phases alone (the
     solve at FCM_NELEMS^2 with K8's and K9's rows at its shapes and K11's
@@ -3973,9 +4258,11 @@ def main():
         return timestep_only()
     if sys.argv[1:] == ['--only', 'fcm']:
         return fcm_only()
+    if sys.argv[1:] == ['--only', 'cahnhilliard']:
+        return cahnhilliard_only()
     if sys.argv[1:]:
         raise SystemExit(f'chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --only kernels, --only assemble, '
-                         '--only finitestrain, --only krylov, --only timestep or --only fcm)')
+                         '--only finitestrain, --only krylov, --only timestep, --only fcm or --only cahnhilliard)')
     t0 = time.perf_counter()
     phase_device()
     phase_build()
@@ -4077,6 +4364,14 @@ def main():
     phase_fcm_parity()
     phase_hier_parity()
     by_path['fcm'] = {name: fcm_launches[name] for name in ASSEMBLY_KERNELS}
+    # cahnhilliard's time steps on the multipatch circle: K8, K9, K7, K6,
+    # K11, K12 (and K15, which Newton does not launch) in every step
+    ch_steps = phase_cahnhilliard()
+    torch.cuda.empty_cache()
+    phase_cahnhilliard_parity()
+    ch_sums = {name: sum(step[name] for step in ch_steps) for name in CH_KERNELS + VALUE_KERNELS}
+    by_path['cahnhilliard'] = {name: ch_sums[name] for name in ASSEMBLY_KERNELS}
+    by_step['cahnhilliard'] = ch_steps
     # K5 and K7 on block-grid jacobians: the Navier-Stokes step's and its
     # history steps'
     for name in ('blockgrid_matvec', 'schur_diag_inverse_device'):
@@ -4119,6 +4414,15 @@ def main():
         measured[name] = dict(measured[name], launches_by_path=by)
     for name, fields in fcm_rows.items():
         measured[name] = dict(measured[name], fcm=fields)
+    # the cahnhilliard path's launches of its other kernels, beside those
+    # counted above
+    for name in CH_KERNELS + VALUE_KERNELS:
+        if name in ASSEMBLY_KERNELS:
+            continue
+        by = dict(measured[name].get('launches_by_path') or {'earlier paths': launches[name]})
+        by['cahnhilliard'] = ch_sums[name]
+        launches[name] = sum(by.values())
+        measured[name] = dict(measured[name], launches_by_path=by)
     # each step's launches of the time-stepping paths, beside the sums
     for name in KERNELS:
         steps = {path: [step[name] for step in steps] for path, steps in by_step.items() if name in steps[0]}

@@ -2263,12 +2263,59 @@ class _Derivative(Array):
 
 
 class Custom(Array):
-    '''User-defined array operation (``nutils_tpu.function.Custom``).  Its
-    evaluation contract is jax-traceable code; the port's torch contract is
-    ROADMAP A8.'''
+    '''User-defined array operation with custom evaluation and derivatives
+    (reference: function.py:665).
+
+    Subclass and provide a static method ``evalf(*args)`` written in torch
+    operations: it receives each constructor argument as a tensor with ONE
+    leading axis of evaluation points prepended to the argument's declared
+    shape, and must return a tensor of shape ``(npoints,) + shape``.
+    Derivatives (grad, solver AD) flow through ``torch.func`` of ``evalf``;
+    optionally provide a static method ``partial_derivative(iarg, *args)``
+    returning d evalf / d args[iarg] of shape ``(npoints,) + shape +
+    args[iarg].shape`` (torch operations too) to override them, through a
+    ``torch.autograd.Function``.
+
+    This is a deliberate deviation from ``nutils_tpu.function.Custom``,
+    whose ``evalf`` is written in ``jax.numpy``: a subclass written for one
+    package does not run in the other.
+
+    >>> import torch
+    >>> from nutils_tpu_torch import function
+    >>> from nutils_tpu_torch.utils import config
+    >>> class Sigmoid(function.Custom):
+    ...     @staticmethod
+    ...     def evalf(x):
+    ...         return 1 / (1 + torch.exp(-x))
+    >>> x = function.Argument('x', (3,))
+    >>> s = Sigmoid(args=[x], shape=(3,))
+    >>> import numpy
+    >>> with config.device('cpu'):
+    ...     bool(numpy.allclose(s.eval(x=numpy.zeros(3)), 0.5))
+    True
+    '''
 
     def __init__(self, args, shape, dtype=float):
-        raise NotImplementedError('function.Custom needs a torch-traceable contract (ROADMAP A8)')
+        ops = tuple(asarray(a) for a in args)
+        assert all(op.dtype != complex for op in ops), 'complex Custom arguments are not supported'
+        self._custom_operands = ops
+        super().__init__(tuple(shape), dtype, _merge_spaces(ops), _merge_args(ops))
+
+    @staticmethod
+    def evalf(*args):
+        raise NotImplementedError('Custom subclasses must implement evalf')
+
+    partial_derivative = None
+
+    def lower(self, args):
+        lowered = []
+        nprefix = len(args.points_shape)
+        for op in self._custom_operands:
+            node = op.lower(args)
+            assert node.ndim == nprefix + op.ndim
+            lowered.append(node)
+        cls = type(self)
+        return ev.CustomNode(cls.evalf, lowered, self.shape, self.dtype, nprefix, cls.partial_derivative)
 
 
 def factor(func):

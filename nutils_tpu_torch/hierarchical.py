@@ -755,8 +755,126 @@ class HierarchicalTopology(Topology):
 
     # ------------------------------------------------------------ locate
 
-    def locate(self, geom, coords, **kwargs):
-        raise NotImplementedError('point location is not ported yet (ROADMAP A6)')
+    def locate(self, geom, coords, *, tol=None, eps=0, arguments=None, maxiter=None,
+               maxdist=None, skip_missing=False, weights=None):
+        '''Sample at the active (level, element) cells containing the given
+        physical points (reference: topology.py:777 ``Topology.locate``,
+        which resolves hierarchical membership through
+        ``transforms.index_with_tail``).
+
+        Root coordinates are recovered once through the base structured
+        topology's affine-probe/Newton machinery; hierarchical membership is
+        then pure integer arithmetic — at level l the candidate cell is
+        floor(xi * 2^l), active iff it belongs to this topology's per-level
+        index set (the active cells partition the domain, so exactly one
+        level matches per point).'''
+        fam = self.family
+        base = fam.base
+        coords = numpy.asarray(coords, dtype=float)
+        if coords.ndim == 1:
+            coords = coords[:, None]
+        npts = len(coords)
+        out_level = numpy.full(npts, -1, dtype=int)
+        out_elem = numpy.zeros(npts, dtype=int)
+        out_local = numpy.zeros((npts, self.ndims))
+        if not fam.structured:
+            # unstructured parents: locate in the base mesh (Newton over
+            # candidate elements), then walk the refinement tree — at each
+            # level test the point's frame coordinates against the children's
+            # local frames until an active (level, element) cell is reached
+            # (the role of the reference's chain->(element, tail) lookup,
+            # transformseq.py:15 index_with_tail)
+            from .unstructured import newton_locate
+            felem, fxi = newton_locate(base, geom, coords, tol=tol, eps=eps,
+                                       arguments=arguments, maxiter=maxiter,
+                                       maxdist=maxdist, skip_missing=skip_missing,
+                                       _raw=True)
+            active_sets = [set(map(int, numpy.asarray(idx))) for idx in self._ipl]
+            nlev = len(self._ipl)
+            for i in range(npts):
+                e = int(felem[i])
+                if e < 0:
+                    continue
+                frame = fxi[i]
+                loc = frame  # level-0 local == frame coordinates
+                for l in range(nlev):
+                    if l < len(active_sets) and e in active_sets[l]:
+                        out_level[i] = l
+                        out_elem[i] = e
+                        out_local[i] = loc
+                        break
+                    if l + 1 >= nlev:
+                        break
+                    ch = fam.children_of(l, [e])
+                    lin, off = fam.to_local(numpy.full(len(ch), l + 1), ch)
+                    locs = lin @ frame + off
+                    pick = -1
+                    for slack in (eps + 1e-12, 1e-9, 1e-6, 1e-3):
+                        for ci, c in enumerate(ch):
+                            if element.inside(fam.ref_of(l + 1, int(c)), locs[ci], slack):
+                                pick = ci
+                                break
+                        if pick >= 0:
+                            break
+                    if pick < 0:
+                        break
+                    e = int(ch[pick])
+                    loc = locs[pick]
+            found = out_level >= 0
+            if not found.all() and not skip_missing:
+                raise ValueError(f'failed to locate {int((~found).sum())}/{npts} points')
+            return self._locate_build_samples(out_level, out_elem, out_local, weights, base)
+        xi = base._locate_rootcoords(geom, coords, tol=tol, eps=eps, arguments=arguments,
+                                     maxiter=maxiter, skip_missing=skip_missing,
+                                     maxdist=maxdist)
+        valid = ~numpy.isnan(xi[:, 0])
+        for l, idx in enumerate(self._ipl):
+            if not len(idx):
+                continue
+            shape_l = numpy.array(fam.shape(l))
+            xl = xi * (1 << l)
+            em = numpy.minimum(numpy.maximum(
+                numpy.floor(numpy.where(numpy.isnan(xl), 0.0, xl)).astype(int), 0), shape_l - 1)
+            flat = numpy.ravel_multi_index(tuple(em.T), tuple(shape_l))
+            hit = numpy.isin(flat, idx) & valid & (out_level == -1)
+            out_level[hit] = l
+            out_elem[hit] = flat[hit]
+            out_local[hit] = xl[hit] - em[hit]
+        found = out_level >= 0
+        if not found.all() and not skip_missing:
+            raise ValueError(f'failed to locate {int((~found).sum())}/{npts} points')
+        return self._locate_build_samples(out_level, out_elem, out_local, weights, base)
+
+    def _locate_build_samples(self, out_level, out_elem, out_local, weights, base):
+        '''Per-level point samples from located (level, element, local) rows,
+        reordered back to the input point order.'''
+        fam = self.family
+        found = out_level >= 0
+        samples, row_order = [], []
+        for l in sorted(set(out_level[found])):
+            rows = numpy.nonzero(out_level == l)[0]
+            sel = out_elem[rows]
+            flin, foff = fam._level_frame(l, sel)
+            local = out_local[rows]
+            coords_s = (numpy.einsum('eij,ej->ei', flin, local) + foff)[:, None, :]
+            p_lin, p_off = fam._level_to_local(l, sel)
+            w = None if weights is None else numpy.asarray(weights)[rows][:, None]
+            ref = fam.levels[l].ref if fam.structured else fam.ref_of(int(l), int(sel[0]))
+            samples.append(_sample.Sample(
+                self.space, coords_s, w, sel, p_lin, p_off, flin,
+                None, None, None,
+                part_ids=numpy.zeros(len(rows), dtype=int), part_topos=[self],
+                batch_key=type(ref).__name__, origin_topo=fam.levels[l],
+                lineage=(fam, numpy.full(len(rows), l), sel)))
+            row_order.append(rows)
+        if not samples:
+            return base._point_sample(numpy.zeros((0, self.ndims)), None)
+        if len(samples) == 1:
+            return samples[0]
+        order = numpy.concatenate(row_order)   # parent row k holds input row order[k]
+        perm = numpy.empty_like(order)
+        perm[order] = numpy.arange(len(order))  # perm[i] = parent row of input row i
+        return _sample.ReorderedSample(_sample.ChainedSample(samples), perm)
 
 
 class _HierBoundaryPart(Topology):

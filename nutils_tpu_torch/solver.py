@@ -45,13 +45,15 @@ layout, plans and feature operators serve the whole run.
 import contextlib
 import copy
 import functools
+import hashlib
 import math
+import pickle
 
 import numpy
 import torch
 
 from . import evaluable as ev
-from . import function, matrix
+from . import cache, function, matrix
 from .ops import assembly
 from .utils import _log as log
 from .utils import config
@@ -848,6 +850,10 @@ def _chunk_leaves(leaves, keys, rows):
     return {key: v[rows] if key in keys else v for key, v in leaves.items()}
 
 
+# the generic route's seeds a vmapped pass (System._block_values)
+GENERIC_SEED_CHUNK = 64
+
+
 def _leaf_grad(comp, key, args, leaves):
     '''The gradient of the scalar ``comp`` in leaf ``key`` at ``leaves``.'''
     return torch.func.grad(lambda x: comp.trace(args, {**leaves, key: x}))(leaves[key])
@@ -1334,12 +1340,18 @@ class System:
         def tangent(seed):
             return torch.func.jvp(lambda x: _leaf_grad(comp, c.key, args, {**lv, loc.leaf.key: x}), (x0,),
                                   (seed.contiguous(),))[1]
-        # all seed tangents in one vmapped pass: the primal (and the grad
-        # pass) does not depend on the batched seed, so it is evaluated
-        # once, unbatched
-        V = torch.movedim(torch.func.vmap(tangent)(loc.seeds(x0.shape)), 0, -1)   # [*cshape, S]
-        if reduce_axes:
-            V = V.sum(dim=reduce_axes)
+        # the seed tangents in vmapped passes of GENERIC_SEED_CHUNK seeds:
+        # the primal (and the grad pass) does not depend on the batched
+        # seed, so it is evaluated once a pass, unbatched; every
+        # intermediate of a pass carries the pass's seeds, so a form whose
+        # trial has all its dofs on every element (coil's, on a tensor
+        # product with a revolution space) keeps its peak bounded
+        seeds = loc.seeds(x0.shape)
+        parts = []
+        for a in range(0, max(seeds.shape[0], 1), GENERIC_SEED_CHUNK):
+            V = torch.movedim(torch.func.vmap(tangent)(seeds[a:a + GENERIC_SEED_CHUNK]), 0, -1)   # [*cshape, s]
+            parts.append(V.sum(dim=reduce_axes) if reduce_axes else V)
+        V = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         return V if out is None else out.copy_(V.reshape(out.shape))
 
     def _row_plan(self, c, n):
@@ -2038,15 +2050,33 @@ class System:
     def solve(self, *, arguments=None, constrain=None, tol=0., miniter=0, maxiter=None, method=None):
         '''Solve the system for its trial arguments (reference:
         ``nutils_tpu/solver.py:1970``): :class:`Direct` for a linear system
-        and :class:`Newton` otherwise, unless ``method`` is given.  The JAX
-        package memoizes the solve on disk; the port has no ``cache`` module
-        yet (ROADMAP A1/A2), so every call solves.'''
+        and :class:`Newton` otherwise, unless ``method`` is given.  Where
+        :mod:`cache` is enabled the result is memoized on disk, keyed by a
+        process-stable digest of the localized expression and the call's
+        data (reference: ``@cache.function`` on ``System.solve``).'''
         arguments = dict(arguments or {})
         constrain = dict(constrain or {})
         if method is None:
             method = (Direct if self.is_linear else Newton)()
-        return self._solve_impl(arguments=arguments, constrain=constrain, tol=tol, miniter=miniter,
-                                maxiter=maxiter, method=method)
+        cachekey = None
+        if cache._cachedir[0] is not None:
+            try:
+                payload = pickle.dumps((sorted(arguments.items()), sorted(constrain.items()),
+                                        tol, miniter, maxiter, str(method)), protocol=4)
+            except (pickle.PicklingError, TypeError, AttributeError):
+                payload = None
+            if payload is not None:
+                cachekey = 'solve-' + hashlib.sha1(
+                    (ev.stable_digest(self._expr) + hashlib.sha1(payload).hexdigest()).encode()).hexdigest()
+                hit = cache.load(cachekey)
+                if hit is not None:
+                    log.info(f'cache hit: solve for {",".join(self.trials)}')
+                    return hit
+        out = self._solve_impl(arguments=arguments, constrain=constrain, tol=tol, miniter=miniter,
+                               maxiter=maxiter, method=method)
+        if cachekey is not None:
+            cache.store(cachekey, out)
+        return out
 
     def _solve_impl(self, *, arguments, constrain, tol, miniter, maxiter, method):
         log.info(f'{"optimizing" if self.is_symmetric else "solving"} for {",".join(self.trials)} using {method}')

@@ -2,9 +2,10 @@
 
 A copy of ``nutils_tpu.topology``: a topology produces batched sample
 *tables* (root coordinates, parent indices, affine maps, normals) host-side,
-in numpy.  Unstructured topologies are in ``unstructured.py``, trimmed ones
-in ``trim.py`` and hierarchical ones in ``hierarchical.py``.  Point location
-on other than structured topologies is not ported yet (ROADMAP A6).
+in numpy.  Unstructured topologies are in ``unstructured.py`` (with the
+Newton point location the others share), trimmed ones in ``trim.py``,
+hierarchical ones in ``hierarchical.py`` and multipatch ones in
+``multipatch.py``.
 
 >>> import numpy
 >>> from nutils_tpu_torch import mesh, function

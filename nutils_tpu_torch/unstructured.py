@@ -9,8 +9,6 @@ samples.  The dof numbering is the JAX package's, dof for dof; the edge
 matching and the C0 dof merge are vectorised (numpy sorts and a connected-
 components pass) where the JAX package loops over elements in Python.
 
-Point location and the bubble basis are ROADMAP A6.
-
 >>> import numpy
 >>> from nutils_tpu_torch import mesh, function
 >>> topo, geom = mesh.unitsquare(2, 'triangle')
@@ -21,23 +19,38 @@ Point location and the bubble basis are ROADMAP A6.
 '''
 
 import functools
+import time
 
 import numpy
+import torch
 
-from . import element, function, sample as _sample
+from . import element, evaluable, function, sample as _sample
 from .topology import Topology
 
 
-def merge_index_map(nin, pairs):
+def merge_index_map(nin, merge_sets):
     '''Index merge with minimal representatives, condensed by first
     appearance (reference semantics: _util.py:759 merge_index_map): indices
-    joined by the [m, 2] array of ``pairs``, directly or through others, map
-    to one number, and the numbers count up in the order of each group's
-    smallest index.  Returns (index map, number of groups).'''
+    joined by a merge set, directly or through others, map to one number,
+    and the numbers count up in the order of each group's smallest index.
+    ``merge_sets`` is an [m, k] integer array (one set a row) or any
+    iterable of sets of any size.  Returns (index map, number of groups).'''
     import scipy.sparse
     import scipy.sparse.csgraph
-    graph = scipy.sparse.coo_matrix((numpy.ones(len(pairs), dtype=numpy.int8), (pairs[:, 0], pairs[:, 1])),
-                                    shape=(nin, nin))
+    if isinstance(merge_sets, numpy.ndarray) and merge_sets.ndim == 2:
+        k = merge_sets.shape[1]
+        heads = numpy.repeat(merge_sets[:, 0], max(k - 1, 0))
+        tails = merge_sets[:, 1:].ravel()
+    else:
+        # every set joins its first member to each of the others
+        heads, tails = [], []
+        for merge_set in merge_sets:
+            merge_set = list(merge_set)
+            heads.extend(merge_set[:1] * (len(merge_set) - 1))
+            tails.extend(merge_set[1:])
+        heads = numpy.asarray(heads, dtype=numpy.int64)
+        tails = numpy.asarray(tails, dtype=numpy.int64)
+    graph = scipy.sparse.coo_matrix((numpy.ones(len(heads), dtype=numpy.int8), (heads, tails)), shape=(nin, nin))
     ngroups, labels = scipy.sparse.csgraph.connected_components(graph, directed=False)
     # each group's representative is its smallest index; numbering by first
     # appearance is numbering by that index
@@ -46,6 +59,168 @@ def merge_index_map(nin, pairs):
     rank = numpy.empty(ngroups, dtype=int)
     rank[numpy.argsort(first)] = numpy.arange(ngroups)
     return rank[labels], int(ngroups)
+
+
+def _nearest_elements(cent, coords, ncand):
+    '''[npts, ncand] element ids of the ``ncand`` centroids nearest to each
+    point, nearest first: each point's row of squared distances argsorted,
+    the JAX package's order with its ties, built for 2^22 (points x
+    elements) at a time (32 MiB of float64).'''
+    nelems, npts = len(cent), len(coords)
+    order = numpy.empty((npts, ncand), dtype=int)
+    step = max(1, (1 << 22) // max(nelems, 1))
+    for a in range(0, npts, step):
+        d2 = ((cent[None, :, :] - coords[a:a + step, None, :]) ** 2).sum(-1)
+        order[a:a + step] = numpy.argsort(d2, axis=1)[:, :ncand]
+    return order
+
+
+def _chart_samples(smp):
+    '''The plain Samples under a (reordered, chained) sample, in order.'''
+    if isinstance(smp, _sample.ReorderedSample):
+        return _chart_samples(smp.parent)
+    if isinstance(smp, _sample.ChainedSample):
+        return [s for part in smp.samples for s in _chart_samples(part)]
+    return [smp]
+
+
+def _chart_key(smp):
+    '''Everything of a one-point-per-row Sample that its lowering bakes
+    in: every table but the points' coordinates.'''
+    return tuple((spec.space, spec.coords.shape, spec.index.tobytes(),
+                  numpy.ascontiguousarray(spec.p_linear).tobytes(),
+                  numpy.ascontiguousarray(spec.p_offset).tobytes(),
+                  numpy.ascontiguousarray(spec.tangents).tobytes()) for spec in smp.specs)
+
+
+class _PointEval:
+    '''``geom`` and its root gradient at the points of one-point-per-row
+    samples (a Sample, or a reordered chain of them), as numpy ([N, D],
+    [N, D, d]).  Each Sample of the chain is lowered on its own and its
+    graph kept while the next samples' part differs from it only in its
+    points' coordinates (the Newton iterations of a candidate rank, where
+    none of the part's points changes element), which then bind as leaves;
+    a graph in which the lowering folded the coordinates into a constant
+    serves only the coordinates it was lowered at.  The root gradient
+    takes reverse-mode autograd (``evaluable.reverse_grads``).'''
+
+    def __init__(self, geom, rootgrad, arguments, d):
+        self.funcs = [geom, rootgrad]
+        self.arguments = function._clean_args(arguments or {})
+        self.d = d
+        self.lowered = 0
+        self._parts = {}
+
+    def _part(self, i, smp):
+        key = _chart_key(smp)
+        coords = [spec.coords for spec in smp.specs]
+        hit = self._parts.get(i)
+        if hit is None or hit[0] != key or hit[3] is not None and not all(map(numpy.array_equal, hit[3], coords)):
+            exprs = [function.asarray(smp.bind(f)).lower(function.EMPTY_LOWER_ARGS) for f in self.funcs]
+            comp = evaluable.Compiled(exprs)
+            leafkeys = [('X', smp._token, spec.space) for spec in smp.specs]
+            folded = not all(k in comp.leafnodes for k in leafkeys)
+            hit = self._parts[i] = key, comp, leafkeys, coords if folded else None
+            self.lowered += 1
+        _key, comp, leafkeys, _folded = hit
+        leaves = {k: c for k, c in zip(leafkeys, coords) if k in comp.leafnodes}
+        with evaluable.reverse_grads():
+            vals, grads = (v.detach() for v in comp.trace_flat(self.arguments, leaves))
+        n = vals.shape[0]
+        return vals.reshape(n, -1), grads.reshape(n, -1, self.d)
+
+    def __call__(self, smp):
+        # the parts' values stay on the device until one read of them all
+        parts = [self._part(i, s) for i, s in enumerate(_chart_samples(smp))]
+        vals = torch.cat([v for v, _g in parts]).cpu().numpy()
+        grads = torch.cat([g for _v, g in parts]).cpu().numpy()
+        if isinstance(smp, _sample.ReorderedSample):
+            vals, grads = vals[smp.perm], grads[smp.perm]
+        return vals, grads
+
+
+def newton_locate(topo, geom, coords, *, tol=None, eps=0, arguments=None, maxiter=None,
+                  maxdist=None, skip_missing=False, weights=None, _raw=False, _stats=None):
+    '''Generic physical-point location: per-point Newton iteration over
+    candidate elements sorted by centroid distance (reference:
+    topology.py:777-897 ``Topology.locate``/``_locate``).  The topology
+    provides four hooks — ``_locate_start`` (initial iteration coordinates
+    per candidate element), ``_locate_eval`` (geometry value + gradient with
+    respect to the iteration coordinates, through the given evaluator),
+    ``_locate_clip`` (trust region) and ``_locate_accept`` (containment
+    test, mapping iteration coordinates to the containing element + local
+    coordinates) — plus ``_point_sample`` to build the final sample.
+    ``_stats``, a dict, receives the candidate ranks tried, the Newton
+    iterations, the lowerings, the points found and the seconds the
+    candidates' argsort took.'''
+    coords = numpy.asarray(coords, dtype=float)
+    if coords.ndim == 1:
+        coords = coords[:, None]
+    d = topo.ndims
+    geom = function.asarray(geom)
+    if geom.ndim == 0:
+        geom = function.stack([geom], axis=0)
+    assert coords.shape[1] == geom.shape[0]
+    tol = tol or 1e-12
+    arguments = arguments or {}
+    npts = len(coords)
+    # element centroids in physical space
+    csmp = topo.sample('_centroid')
+    parts = csmp.samples if isinstance(csmp, _sample.ChainedSample) else [csmp]
+    cent = numpy.empty((len(topo), geom.shape[0]))
+    for s in parts:
+        cent[s.index] = numpy.asarray(s.eval(geom, arguments)).reshape(s.nelems, -1)
+    ncand = min(len(topo), 32)
+    t0 = time.perf_counter()
+    order = _nearest_elements(cent, coords, ncand)
+    t_candidates = time.perf_counter() - t0
+    rootgrad = function.grad(geom, function._RootCoords(topo.space, d))
+    evaluate = _PointEval(geom, rootgrad, arguments, d)
+    found_elem = numpy.full(npts, -1, dtype=int)
+    found_xi = numpy.zeros((npts, d))
+    active = numpy.arange(npts)
+    ranks = iterations = 0
+    for rank in range(ncand):
+        if not len(active):
+            break
+        ranks += 1
+        cand = order[active, rank]
+        xi = topo._locate_start(cand)
+        for it in range(maxiter or 30):
+            vals, grads = topo._locate_eval(cand, xi, evaluate)
+            iterations += 1
+            r = coords[active] - vals
+            resid = numpy.abs(r).max(axis=1)
+            if (resid < max(tol, 1e-12)).all():
+                break
+            if grads.shape[1] == grads.shape[2]:
+                try:
+                    delta = numpy.linalg.solve(grads, r[..., None])[..., 0]
+                except numpy.linalg.LinAlgError:
+                    delta = numpy.stack([numpy.linalg.lstsq(g, rr, rcond=None)[0]
+                                         for g, rr in zip(grads, r)])
+            else:
+                delta = numpy.stack([numpy.linalg.lstsq(g, rr, rcond=None)[0]
+                                     for g, rr in zip(grads, r)])
+            xi = topo._locate_clip(cand, xi + delta)
+        inside_ok, elems, xi_local = topo._locate_accept(cand, xi, eps)
+        ok = inside_ok & (resid < max(tol, 1e-12))
+        hit = active[ok]
+        found_elem[hit] = elems[ok]
+        found_xi[hit] = xi_local[ok]
+        active = active[~ok]
+    if _stats is not None:
+        _stats.update(ranks=ranks, iterations=iterations, lowered=evaluate.lowered,
+                      found=int((found_elem >= 0).sum()), t_candidates=t_candidates)
+    if len(active) and not skip_missing:
+        raise ValueError(f'failed to locate {len(active)}/{npts} points')
+    if _raw:
+        # (element id or -1, element-local coordinates) per input point —
+        # the hook the hierarchical walk-down builds on
+        return found_elem, found_xi
+    sel = found_elem >= 0
+    return topo._point_sample(found_elem[sel], found_xi[sel],
+                              None if weights is None else numpy.asarray(weights)[sel])
 
 
 def _frame_arrays(topo, ids, coords, tangents, normal_root=None):
@@ -72,10 +247,6 @@ def _frame_arrays(topo, ids, coords, tangents, normal_root=None):
         normal_root = numpy.linalg.solve(
             flin.transpose(0, 2, 1), numpy.broadcast_to(normal_root, (E, d))[..., None])[..., 0]
     return coords, plin, poff, tangents, normal_root, (fam, numpy.full(E, l, dtype=int), ids)
-
-
-def _not_ported(what):
-    return NotImplementedError(f'{what} of unstructured topologies is not ported yet (ROADMAP A6)')
 
 
 class UnstructuredTopology(Topology):
@@ -235,9 +406,6 @@ class UnstructuredTopology(Topology):
         fam.ensure(l + 2)
         return fam.levels[l + 1]
 
-    def locate(self, geom, coords, **kwargs):
-        raise _not_ported('point location')
-
     def take(self, ielems):
         '''Subset view over a selection of elements.  Samples carry the
         parent's element numbering so any basis or geometry defined on the
@@ -245,6 +413,98 @@ class UnstructuredTopology(Topology):
         the interface edges exposed by the selection (the analogue of the
         reference's whole-element SubsetTopology, topology.py:2615).'''
         return UnstructuredSubsetTopology(self, ielems)
+
+    def withgroups(self, vgroups=None, bgroups=None, pgroups=None):
+        '''Attach named element/boundary/point groups: ``topo[name]`` gives
+        the subset topology of an element group, ``topo.boundary[name]`` a
+        boundary group, and ``topo.points[name]`` a 0-d point-group topology
+        (reference: topology.py:731-760 with* and gmsh's pgroups).'''
+        out = self
+        if vgroups:
+            resolved = {name: self.take(ielems) if not isinstance(ielems, Topology) else ielems
+                        for name, ielems in vgroups.items()}
+            out = out.withsubdomain(**resolved)
+        if bgroups:
+            out = out.withboundary(**bgroups)
+        if pgroups:
+            object.__setattr__(out, 'points', dict(pgroups))
+        return out
+
+    def point_topology(self, vertex_id):
+        '''0-d topology of a single mesh vertex (reference: gmsh physical
+        points, accessible as topo.points[name], mesh.py:300 pgroups).'''
+        return _VertexTopology(self, int(vertex_id))
+
+    # ------------------------------------------------------------ locate
+
+    def _point_sample(self, ielems, xi, weights=None):
+        '''Sample of one point per row at local coordinates xi [N, d] of
+        elements ielems [N], in input row order (mixed reference types are
+        fine: every chart array is per-row, and the ragged per-element basis
+        tables do not require type grouping for single-point rows).'''
+        ielems = numpy.asarray(ielems, dtype=int)
+        xi = numpy.asarray(xi, dtype=float)
+        N, d = xi.shape
+        coords = xi[:, None, :]
+        tangents = numpy.broadcast_to(numpy.eye(d), (N, d, d))
+        coords, p_linear, p_offset, tangents, _, lineage = _frame_arrays(self, ielems, coords, tangents)
+        return _sample.Sample(
+            self.space, coords,
+            None if weights is None else numpy.asarray(weights)[:, None],
+            ielems, p_linear, p_offset, tangents, None, None, None,
+            part_ids=numpy.zeros(N, dtype=int), part_topos=[self],
+            batch_key=('point', self.space), origin_topo=self, lineage=lineage)
+
+    def locate(self, geom, coords, *, tol=None, eps=0, arguments=None, maxiter=None,
+               maxdist=None, skip_missing=False, weights=None):
+        '''Sample at the elements/local coordinates containing the given
+        physical points, by per-point Newton iteration over candidate
+        elements sorted by centroid distance (reference: topology.py:777-897
+        ``Topology.locate``/``_locate``).'''
+        return newton_locate(self, geom, coords, tol=tol, eps=eps, arguments=arguments,
+                             maxiter=maxiter, maxdist=maxdist, skip_missing=skip_missing,
+                             weights=weights)
+
+    # newton_locate hooks: iteration coordinates are element-local coordinates
+    # of the candidate element
+
+    def _elem_kinds(self, ielems):
+        '''[(reference, rows)] of the given elements, one per reference type.'''
+        kind = numpy.empty(len(self), dtype=int)
+        for k, (_ref, ids) in enumerate(self._buckets):
+            kind[ids] = k
+        kinds = kind[numpy.asarray(ielems, dtype=int)]
+        return [(self._buckets[k][0], numpy.flatnonzero(kinds == k)) for k in numpy.unique(kinds)]
+
+    def _locate_start(self, cand):
+        out = numpy.empty((len(cand), self.ndims))
+        for ref, rows in self._elem_kinds(cand):
+            out[rows] = ref.vertices.mean(0)
+        return out
+
+    def _locate_eval(self, cand, xi, evaluate):
+        vals, grads = evaluate(self._point_sample(cand, xi))
+        hier = getattr(self, '_hier', None)
+        if hier is not None and hier[1] > 0:
+            # root gradients are frame gradients: chain through the frame map
+            flin, _ = hier[0]._level_frame(hier[1], cand)
+            grads = numpy.einsum('egj,eji->egi', grads, flin)
+        return vals, grads
+
+    def _locate_clip(self, cand, xi):
+        return numpy.clip(xi, -1.0, 2.0)
+
+    def _locate_accept(self, cand, xi, eps):
+        ok = numpy.zeros(len(cand), dtype=bool)
+        for ref, rows in self._elem_kinds(cand):
+            ok[rows] = element.inside(ref, xi[rows], eps + 1e-10)
+        return ok, cand, xi
+
+    def _point_rows(self, ielems):
+        rows_by_type = {}
+        for row, ie in enumerate(ielems):
+            rows_by_type.setdefault(type(self._refs[ie]).__name__, []).append(row)
+        return list(rows_by_type.values())
 
     # ------------------------------------------------------------ bases
 
@@ -318,7 +578,26 @@ class UnstructuredTopology(Topology):
         return basis
 
     def basis_bubble(self, degree=1):
-        raise _not_ported('the bubble basis')
+        '''Linear simplex basis enriched with interior bubbles
+        (reference: topology.py:2502 basis_bubble).'''
+        assert degree == 1, 'bubble basis is linear-plus-bubble by definition'
+        assert all(isinstance(r, element.TriangleReference) for r in self._refs), 'bubble basis: 2-D simplex only'
+        d = self.ndims
+        K = d + 2
+        lin_p = numpy.zeros((3, K, K))
+        lin_p[:, :2, :2] = element.bernstein_coeffs(self._refs[0], 1)  # [3, 2, 2]
+        bubble = numpy.zeros((K, K))
+        # lam0*lam1*lam2 = (1-x-y) x y = xy - x^2 y - x y^2
+        bubble[1, 1] += 1.0
+        bubble[2, 1] -= 1.0
+        bubble[1, 2] -= 1.0
+        table = numpy.concatenate([lin_p - bubble[None] / (d + 1), bubble[None]], axis=0)
+        verts = self._verts_of(numpy.arange(len(self)))
+        dofs = numpy.concatenate([verts, self.nverts + numpy.arange(len(self))[:, None]], axis=1)
+        basis = function.PlainBasis(self.space, dofs, numpy.broadcast_to(table, (len(self),) + table.shape),
+                                    self.nverts + len(self))
+        basis._origin = self
+        return basis
 
 
 class UnstructuredBoundary(Topology):
@@ -554,3 +833,39 @@ class UnstructuredInterfaces(Topology):
 
     def basis(self, btype='std', degree=1, **kwargs):
         return self.parent.basis(btype, degree, **kwargs)
+
+
+class _VertexTopology(Topology):
+    '''0-d topology of one mesh vertex (reference: gmsh physical points
+    exposed as topo.points[name], mesh.py:300).  Sampling yields a single
+    point with unit weight in an element containing the vertex; tangents span
+    the full parent dimension so functions of the parent space (including
+    jacobians of volume geometries) evaluate cleanly.'''
+
+    def __init__(self, parent, vertex_id):
+        super().__init__(parent.space, 0)
+        self.parent = parent
+        self.vertex_id = int(vertex_id)
+        for ielem, verts in enumerate(parent._elem_verts):
+            hit = numpy.nonzero(numpy.asarray(verts) == self.vertex_id)[0]
+            if len(hit):
+                self._ielem = ielem
+                self._local = parent._refs[ielem].vertices[int(hit[0])]
+                break
+        else:
+            raise ValueError(f'vertex {vertex_id} not referenced by any element')
+
+    def __len__(self):
+        return 1
+
+    def sample(self, ischeme, degree=None):
+        d = self.parent.ndims
+        coords = numpy.asarray(self._local, dtype=float).reshape(1, 1, d)
+        weights = numpy.ones((1, 1))
+        p_linear = numpy.eye(d)[None]
+        p_offset = numpy.zeros((1, d))
+        tangents = numpy.eye(d)[None]
+        return _sample.Sample(self.space, coords, weights, numpy.array([self._ielem]),
+                              p_linear, p_offset, tangents, origin_topo=self.parent,
+                              part_ids=numpy.zeros(1, dtype=int), part_topos=[self],
+                              batch_key=('vertex', type(self.parent._refs[self._ielem]).__name__))

@@ -700,3 +700,129 @@ MATRIX_OPS = {
     'neg': lambda a: -a,
     'transpose': lambda a: a.T,
 }
+
+
+def cahnhilliard(pkg, nelems=3, degree=2, etype='multipatch', circle=True, size='10cm', epsilon='5cm',
+                 mobility='1μL*s/kg', stens='50mN/m', wtensn='30mN/m', wtensp='20mN/m', timestep='1h',
+                 tol='1nJ/m', seed=0, stable=False, locate=True, gridstep=1/40, clock=None):
+    '''``examples/cahnhilliard.py``'s problem as its ``main`` builds it
+    (``test_multipatchcircle``'s arguments by default), through package
+    ``pkg``, without the figures: a dict of the domain, the namespace, the
+    energy and its three parts, the grid of points located for the flux
+    plot (``main``'s ``domain.locate`` call on a simplex grid of spacing
+    ``gridstep``, ``main``'s 1/40; ``None`` where ``locate`` is false) and
+    its flux ``grid_v``, the System, the initial arguments,
+    ``step(args, **solveargs)``, one of ``main``'s time steps,
+    ``energies(args)``, the three parts in J/m, ``flux(args)``, the flux at
+    the located points in m/s, ``mass(args)``, the
+    integral of φ over the unit geometry, and ``mass_scale``, the factor
+    that turns the sum of the η residual's entries into minus the change
+    of that integral.  ``clock(name, fn)``, where given, calls each of the
+    mesh, the locate and the System's construction (names ``unitcircle``,
+    ``locate``, ``system``).'''
+    clock = clock or (lambda _name, fn: fn())
+    function, mesh, solver, _config = modules(pkg)
+    Namespace = importlib.import_module(f'{pkg}.expression').Namespace
+    SI = importlib.import_module(f'{pkg}.SI')
+    numeric = importlib.import_module(f'{pkg}.utils.numeric')
+    Mobility = SI.Time / SI.Density
+    LED = SI.Energy / SI.Length
+    size, epsilon, stens = SI.Length(size), SI.Length(epsilon), SI.Tension(stens)
+    wtensn, wtensp, timestep = SI.Tension(wtensn), SI.Tension(wtensp), SI.Time(timestep)
+    mobility, tol = Mobility(mobility), LED(tol)
+    if circle:
+        domain, geom = clock('unitcircle', lambda: mesh.unitcircle(nelems, etype))
+        geom = (geom + 1) / 2
+    else:
+        domain, geom = mesh.unitsquare(nelems, etype)
+    ns = Namespace()
+    ns.x = geom * size
+    ns.define_for('x', gradient='∇', normal='n', jacobians=('dV', 'dS'))
+    ns.φ = domain.field('φ', btype='std', degree=degree)
+    ns.dφ = ns.φ - function.replace_arguments(ns.φ, 'φ:φ0')
+    ns.η = domain.field('η', btype='std', degree=degree) * (stens / epsilon)
+    ns.dt = function.field('dt') * timestep
+    ns.ε = epsilon
+    ns.σ = stens
+    ns.σmean = (wtensp + wtensn) / 2
+    ns.σdiff = (wtensp - wtensn) / 2
+    ns.σwall = 'σmean + φ σdiff'
+    ns.ψ = '.25 (φ^2 - 1)^2'
+    ns.δψ = '.25 dφ^2 (1 - φ^2 + 2 φ dφ / 3 - dφ^2 / 6)' if stable else '0'
+    ns.M = mobility
+    ns.J_i = '-M ∇_i(η)'
+    ns.v_i = 'φ J_i'
+    nrg_mix = function.factor(domain.integral('(ψ σ / ε) dV' @ ns, degree=degree*4))
+    nrg_iface = function.factor(domain.integral('.5 σ ε ∇_k(φ) ∇_k(φ) dV' @ ns, degree=degree*4))
+    nrg_wall = function.factor(domain.boundary.integral('σwall dS' @ ns, degree=degree*2))
+    nrg = nrg_mix + nrg_iface + nrg_wall + function.factor(
+        domain.integral('(δψ σ / ε - η dφ + .5 dt J_k ∇_k(η)) dV' @ ns, degree=degree*4))
+    grid = grid_v = None
+    if locate:
+        grid = clock('locate', lambda: domain.locate(geom, numeric.simplex_grid([1, 1], gridstep), maxdist=1/nelems,
+                                                     skip_missing=True, tol=1e-5))
+        grid_v = function.factor(grid.bind(ns.v))
+    system = clock('system', lambda: solver.System(nrg / tol, trial='φ,η'))
+    numpy.random.seed(seed)
+    args = dict(φ=numpy.random.normal(0, .5, function.arguments_for(nrg)['φ'].shape))
+    unit = function.J(geom)
+    return dict(domain=domain, geom=geom, ns=ns, nrg=nrg, parts=[nrg_mix, nrg_iface, nrg_wall], grid=grid,
+                grid_v=grid_v, system=system, args=args,
+                step=lambda a, **solveargs: system.step(timestep=1., timesteparg='dt', suffix='0', arguments=a, tol=1,
+                                                        maxiter=5, **solveargs),
+                energies=lambda a: [float(e / LED('1J/m')) for e in function.eval([nrg_mix, nrg_iface, nrg_wall], a)],
+                mass=lambda a: float(domain.integrate(ns.φ * unit, degree=degree * 4, arguments=a)),
+                flux=lambda a: numpy.asarray(function.eval(grid_v, a) / SI.Velocity('1m/s')),
+                mass_scale=float(tol / (stens / epsilon * size ** 2)))
+
+
+def located(smp):
+    '''(element ids [N], the points' root coordinates [N, d]) of a sample
+    of one point a row, as the port's ``locate`` returns it (a Sample, or
+    a reordered chain of them), in the located points' order.'''
+    unstructured = importlib.import_module('nutils_tpu_torch.unstructured')
+    parts = unstructured._chart_samples(smp)
+    elems = numpy.concatenate([numpy.asarray(s.index) for s in parts])
+    coords = numpy.concatenate([numpy.asarray(s.specs[0].coords)[:, 0] for s in parts])
+    perm = getattr(smp, 'perm', None)
+    return (elems, coords) if perm is None else (elems[perm], coords[perm])
+
+
+def coil_forms(pkg, nelems=4, degree=2, freq=0., rwire=.0025, rcoil=.025, nturns=1):
+    '''``examples/coil.py``'s first System (the complex magnetic vector
+    potential on the tensor product of a trimmed RZ quarter plane and a
+    revolution line, ``main`` up to its first solve) through package
+    ``pkg``: (the System, its namespace).'''
+    import functools as ft
+    function, mesh, solver, _config = modules(pkg)
+    Namespace = importlib.import_module(f'{pkg}.expression').Namespace
+    ns = Namespace()
+    ns.j = 1j
+    ns.π = numpy.pi
+    ns.f = freq
+    ns.ω = '2 π f'
+    ns.μ0 = '4e-7 π'
+    ns.σ = 5.988e7
+    ns.rcoil = rcoil
+    ns.rwire = rwire
+    RZ, ns.rz0 = mesh.rectilinear([numpy.linspace(0, 1, nelems)] * 2, space='RZ')
+    REV, ns.θ = mesh.line([-numpy.pi, numpy.pi], bnames=['start', 'end'], space='Θ')
+    ns.rz = numpy.arctanh(ns.rz0) * 2 * rcoil
+    ns.r, ns.z = ns.rz
+    ns.zwires = (numpy.arange(nturns) - (nturns - 1) / 2) * 4 * rwire
+    ns.dwires = ns.rwire - numpy.sqrt((ns.r - ns.rcoil)**2 + ft.reduce(numpy.minimum, (ns.z - ns.zwires)**2))
+    RZ = RZ.withsubdomain(coil=RZ[:-1, :-1].trim(ns.dwires / ns.rwire, maxrefine=4))
+    ns.rot = numpy.stack([function.scatter(function.trignormal(ns.θ), 3, [0, 1]), function.kronecker(1., 0, 3, 2)])
+    ns.eθ = numpy.stack(['-sin(θ)', 'cos(θ)', '0'] @ ns)
+    ns.x = ns.rz @ ns.rot
+    ns.define_for('x', gradient='∇', jacobians=('dV', 'dS'), curl='curl')
+    ns.A = RZ.field('A', btype='spline', degree=degree, removedofs=[[0, -1], [-1]], dtype=complex) * ns.eθ
+    ns.Atest = function.replace_arguments(ns.A, 'A:Atest')
+    ns.E_i = '-j ω A_i'
+    ns.Jind_i = 'σ E_i'
+    ns.I = 1
+    ns.Jext_i = 'eθ_i I / π rwire^2'
+    ns.J_i = 'Jext_i + Jind_i'
+    res = REV.integral(RZ.integral('-∇_j(Atest_i) ∇_j(A_i) dV' @ ns, degree=2 * degree), degree=0)
+    res += REV.integral(RZ['coil'].integral('μ0 Atest_i J_i dV' @ ns, degree=2 * degree), degree=0)
+    return solver.System(res, trial='A', test='Atest'), ns

@@ -11,22 +11,15 @@ import types
 
 TESTS = pathlib.Path(__file__).resolve().parent
 _MODULES = {}
-# imports of the JAX package's tests that name modules not ported yet
-# (ROADMAP A6): the cases that need them are not run through the port
-UNPORTED = ('from nutils_tpu.multipatch import multipatch\n',)
 
 
 def port_module(name):
     '''Test module ``name`` of ``tests/`` with the port in place of the JAX
     package (loaded once, registered in ``sys.modules`` under its own name
-    with a ``_torch_port_`` prefix), without its imports of modules the port
-    does not have yet (``UNPORTED``).'''
+    with a ``_torch_port_`` prefix).'''
     mod = _MODULES.get(name)
     if mod is None:
-        src = (TESTS / f'{name}.py').read_text()
-        for line in UNPORTED:
-            src = src.replace(line, '')
-        src = src.replace('nutils_tpu', 'nutils_tpu_torch')
+        src = (TESTS / f'{name}.py').read_text().replace('nutils_tpu', 'nutils_tpu_torch')
         modname = f'_torch_port_{name}'
         mod = types.ModuleType(modname)
         mod.__file__ = str(TESTS / f'{name}.py')

@@ -19,7 +19,7 @@ import pytest
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 
-# (example, test method): the examples the port carries, every test method
+# (example, test method): every test method of the 13 examples
 CASES = [
     ('laplace', 'test_simple'), ('laplace', 'test_mixed'), ('laplace', 'test_spline'),
     ('poisson', 'test_simple'),
@@ -35,6 +35,9 @@ CASES = [
     ('torsion', 'test_torque'), ('torsion', 'test_stretch'),
     ('adaptivity', 'test_square_quadratic'), ('adaptivity', 'test_triangle_quadratic'),
     ('adaptivity', 'test_mixed_linear'),
+    ('cahnhilliard', 'test_initial'), ('cahnhilliard', 'test_square'), ('cahnhilliard', 'test_multipatchcircle'),
+    ('coil', 'test_dc'), ('coil', 'test_ac_5'),
+    ('turek', 'test_csm'), ('turek', 'test_dyncsm'), ('turek', 'test_dyncfd'), ('turek', 'test_dynfsi'),
 ]
 
 _SCRIPT = r'''

@@ -1,8 +1,10 @@
 '''The host modules of the PyTorch port that the examples import
-(``SI``, ``unit``, ``warnings``, ``export``, ``testing``, ``cli``): the
-cases of ``tests/test_SI_matrix.py``, ``tests/test_SI_export.py``,
-``tests/test_cli_harness.py`` and ``tests/test_export.py`` that draw no
-figure, through the port; and the same quantities, VTK files and packed
+(``SI``, ``unit``, ``warnings``, ``export``, ``testing``, ``cli``,
+``expression_v1``, ``cache``): the cases of ``tests/test_SI_matrix.py``,
+``tests/test_SI_export.py``, ``tests/test_cli_harness.py`` and
+``tests/test_export.py`` that draw no figure, and those of
+``tests/test_expression_v1.py`` and ``tests/test_cache.py``, through the
+port; and the same quantities, VTK files and packed
 regression data through both packages.'''
 
 import numpy
@@ -13,7 +15,8 @@ import _torch_ported_cases as pc
 PLOTS = ('test_triplot_png', 'test_vtk_3d', 'test_triplot_filename', 'test_triplot_axes_mode',
          'test_triplot_rejects_bad_points', 'test_plotlines_both_orientations')
 CASES = pc.cases('test_SI_matrix') + pc.cases('test_SI_export', exclude=PLOTS) \
-    + pc.cases('test_cli_harness') + pc.cases('test_export', exclude=PLOTS)
+    + pc.cases('test_cli_harness') + pc.cases('test_export', exclude=PLOTS) \
+    + pc.cases('test_expression_v1') + pc.cases('test_cache')
 
 
 @pytest.mark.parametrize('name,fname,kwargs', [c[1:] for c in CASES], ids=[c[0] for c in CASES])

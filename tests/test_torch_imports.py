@@ -126,6 +126,37 @@ def test_no_jax_after_a_trimmed_and_refined_topology(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == '[]'
 
 
+_MULTIPATCH_SCRIPT = '''
+import sys
+import numpy
+from nutils_tpu_torch import cache, expression_v1, function, mesh, multipatch, trimesh, unstructured
+from nutils_tpu_torch.utils import config
+with config.device('cpu'):
+    topo, geom = mesh.unitcircle(2, 'multipatch')
+    assert len(topo) == 5 * 2 * 2 and isinstance(topo.basis('patch'), function.Array)
+    smp = topo.locate(geom, numpy.array([[0., 0.], [.3, -.2]]), tol=1e-10)
+    assert numpy.allclose(smp.eval(geom), [[0., 0.], [.3, -.2]], atol=1e-10)
+    tri, _ = mesh.unitsquare(2, 'triangle')
+    assert tri.basis('bubble').ndofs == 17
+    w, _v = function.eig(function.asarray(numpy.array([[0., 1.], [-1., 0.]])))
+    assert numpy.allclose(sorted(function.eval(w).imag), [-1, 1])
+    ns = expression_v1.Namespace()
+    ns.x = geom
+print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'nutils_tpu'
+             or m.startswith('nutils_tpu.') or m == 'triton'))
+'''
+
+
+def test_no_jax_after_multipatch_locate_and_eig(tmp_path):
+    # the modules of the A6 remainder and A8: multipatch, point location,
+    # the rest of mesh, trimesh, expression_v1, cache, the general eig
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
+    out = subprocess.run([sys.executable, '-c', _MULTIPATCH_SCRIPT], capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=root), cwd=tmp_path, check=False)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]'
+
+
 def test_precision_is_pinned():
     import nutils_tpu_torch  # noqa: F401
     assert not torch.backends.cuda.matmul.allow_tf32

@@ -98,11 +98,26 @@ def test_coefficient_tables_are_computed_once():
 
 
 def test_unported_parts_name_their_roadmap_item():
+    # the parts that raised "not ported yet (ROADMAP A6)" until the A6
+    # remainder landed: the bubble basis, locate on an unstructured and on a
+    # hierarchical topology, and unitsquare(..., 'multipatch'), each now
+    # against the JAX package
+    points = numpy.array([[.1, .2], [.55, .45], [.9, .05], [.3, .8]])
     with config.device('cpu'):
-        topo, _geom = mesh_torch.unitsquare(2, 'triangle')
-    for attempt in (lambda: topo.basis('bubble'), lambda: topo.locate(None, numpy.zeros((1, 2))),
-                    lambda: topo.refined_by([0]).locate(None, numpy.zeros((1, 2)))):
-        with pytest.raises(NotImplementedError, match='A6'):
-            attempt()
-    with pytest.raises(NotImplementedError, match='A6'):
-        mesh_torch.unitsquare(2, 'multipatch')
+        (tt, gt), (tj, gj) = mesh_torch.unitsquare(2, 'triangle'), mesh_jax.unitsquare(2, 'triangle')
+        bt, bj = tt.basis('bubble'), tj.basis('bubble')
+        assert bt.ndofs == bj.ndofs == 9 + 8
+        st, sj = tt.sample('gauss', 3), tj.sample('gauss', 3)
+        assert numpy.allclose(numpy.asarray(st.eval(bt)), numpy.asarray(sj.eval(bj)), rtol=0, atol=1e-14)
+        for make in (lambda t: t, lambda t: t.refined_by([0, 3])):
+            lt, lj = make(tt).locate(gt, points, tol=1e-12), make(tj).locate(gj, points, tol=1e-12)
+            assert numpy.allclose(numpy.asarray(lt.eval(gt)), points, rtol=0, atol=1e-12)
+            assert numpy.allclose(numpy.asarray(lt.eval(bt)), numpy.asarray(lj.eval(bj)), rtol=0, atol=1e-12)
+        (mt, gmt), (mj, gmj) = mesh_torch.unitsquare(2, 'multipatch'), mesh_jax.unitsquare(2, 'multipatch')
+        assert len(mt) == len(mj) == 20
+        xt = numpy.asarray(mt.sample('gauss', 2).eval(gmt))
+        assert numpy.allclose(xt, numpy.asarray(mj.sample('gauss', 2).eval(gmj)), rtol=0, atol=1e-14)
+        for side in ('bottom', 'top', 'left', 'right'):
+            length = float(mt.boundary[side].integrate(function_torch.J(gmt), degree=2))
+            assert length == pytest.approx(float(mj.boundary[side].integrate(function_jax.J(gmj), degree=2)),
+                                           rel=1e-14) and length == pytest.approx(1, rel=1e-13)
